@@ -1,0 +1,209 @@
+"""Distributed sampling-based step primitives on a stacked worker axis
+(§3.3, Fig. 3).
+
+Counterpart of ``repro.core.dist``.  ``repro`` writes one per-worker program
+against a named axis and runs it under ``jax.vmap``; the port has no vmap,
+so every function here takes the P workers' data stacked on a leading axis
+and does all workers' work at once.  Collectives become tensor operations
+on that axis:
+
+  * ``exchange`` (all_to_all) is a transpose of the stacked ``(P, P, cap,
+    ...)`` buffer: row q of sender p lands in row p of receiver q.  It
+    returns a view, so a round moves no bytes until its reply is gathered.
+  * ``pmean_ordered`` / ``psum_ordered`` reduce over the worker axis in
+    index order and return the one replicated value.
+
+Under the hybrid scheme (topology replicated, features partitioned)
+sampling needs 0 rounds and the feature fetch 2, which ``RoundCounter``
+records per step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.core.graph import CSCGraph
+from repro_torch.core.mfg import MFG
+from repro_torch.core.sampler import sample_level, sample_mfgs
+from repro_torch.kernels.feature_gather import feature_gather
+
+
+class RoundCounter:
+    """Counts communication rounds, categorized as ``"sampling"`` vs
+    ``"feature"``, with the buffer capacity (bytes) of each.
+
+    ``repro`` ticks at trace time, once per traced step; the port runs
+    eagerly, so a counter ticks on every call: give the step a counter for
+    one step to read that step's structure.
+    """
+
+    def __init__(self):
+        self.kinds: list[str] = []
+        self.bytes_per_round: list[int] = []
+
+    @property
+    def rounds(self) -> int:
+        return len(self.kinds)
+
+    @property
+    def sampling_rounds(self) -> int:
+        return sum(k == "sampling" for k in self.kinds)
+
+    @property
+    def feature_rounds(self) -> int:
+        return sum(k == "feature" for k in self.kinds)
+
+    def tick(self, buf: torch.Tensor, kind: str = "other") -> None:
+        """Record one round of category ``kind`` carrying ``buf`` (the
+        stacked buffer of all workers; bytes are per worker, as in
+        ``repro``)."""
+        self.kinds.append(kind)
+        self.bytes_per_round.append(
+            buf[0].numel() * buf.element_size())
+
+
+def exchange(buf: torch.Tensor, counter: RoundCounter | None,
+             kind: str = "other") -> torch.Tensor:
+    """One all_to_all round over the stacked worker axis.
+
+    ``buf`` is (P, P, cap, ...): ``buf[p, q]`` is the payload worker p
+    sends to worker q.  Returns the same layout where ``out[q, p]`` is the
+    payload worker q received from worker p (a transposed view).
+    """
+    if counter is not None:
+        counter.tick(buf, kind=kind)
+    return buf.transpose(0, 1)
+
+
+def pmean_ordered(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the worker axis in index order (``repro``'s all_gather +
+    local mean), as the one replicated value."""
+    return torch.mean(x, dim=0)
+
+
+def psum_ordered(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the worker axis in index order, as the replicated value."""
+    return torch.sum(x, dim=0)
+
+
+# --------------------------------------------------------------------------
+# owner-based packing
+# --------------------------------------------------------------------------
+
+def owner_of(offsets: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Owning worker of each (relabeled, contiguously-owned) node id.
+
+    offsets: (P + 1,) partition boundaries; ids: any shape.  Returns int32
+    worker indices (-1 for ids below offsets[0], e.g. padding).
+    """
+    out = torch.searchsorted(offsets.contiguous(),
+                             ids.to(offsets.dtype).contiguous(), right=True)
+    return (out - 1).to(torch.int32)
+
+
+def pack_by_owner(ids: torch.Tensor, owner: torch.Tensor, num_parts: int):
+    """Group each worker's ``ids`` into per-peer request buffers.
+
+    ids, owner: (..., N) — a row per worker; -1 ids are padding and land
+    in no buffer.  Returns ``(buf (..., P, N) int32 padded -1, owner_idx
+    (..., N) int32, slot_idx (..., N) int32)``: element i of a row sits at
+    ``buf[..., owner_idx[i], slot_idx[i]]``.
+    """
+    lead = ids.shape[:-1]
+    N = ids.shape[-1]
+    ids2 = ids.reshape(-1, N)
+    B = ids2.shape[0]
+    dev = ids.device
+    key = torch.where(ids2 >= 0, owner.reshape(-1, N).long(), num_parts)
+    order = torch.argsort(key, dim=-1, stable=True)
+    ids_s = torch.gather(ids2, -1, order)
+    key_s = torch.gather(key, -1, order).contiguous()
+    parts = torch.arange(num_parts, device=dev).expand(B, num_parts)
+    seg_start = torch.searchsorted(key_s, parts.contiguous())
+    key_c = key_s.clamp(0, num_parts - 1)
+    slot = torch.arange(N, device=dev) - torch.gather(seg_start, -1, key_c)
+
+    # the masked scatter sends padding lanes to an extra column that is
+    # cut off afterwards
+    in_buf = key_s < num_parts
+    buf = torch.full((B, num_parts, N + 1), -1, dtype=torch.int32,
+                     device=dev)
+    flat = key_c * (N + 1) + torch.where(in_buf, slot, N)
+    buf.view(B, -1).scatter_(-1, flat, torch.where(in_buf, ids_s, -1)
+                             .to(torch.int32))
+    buf = buf[..., :N]
+
+    owner_idx = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    owner_idx.scatter_(-1, order, key_c.to(torch.int32))
+    slot_idx = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    slot_idx.scatter_(-1, order, slot.clamp(0, N - 1).to(torch.int32))
+    return (buf.reshape(*lead, num_parts, N), owner_idx.reshape(*lead, N),
+            slot_idx.reshape(*lead, N))
+
+
+# --------------------------------------------------------------------------
+# per-worker state
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WorkerShard:
+    """The workers' slices of the partitioned data, stacked on axis 0.
+
+    Hybrid workers read the replicated topology, so unlike ``repro``'s
+    shard this one holds no local topology (the vanilla scheme adds it).
+    """
+    features: torch.Tensor      # (P, n_max, D)
+    labels: torch.Tensor        # (P, n_max)
+
+
+# --------------------------------------------------------------------------
+# the hybrid scheme's programs
+# --------------------------------------------------------------------------
+
+def hybrid_sample(graph: CSCGraph, seeds: torch.Tensor,
+                  fanouts: Sequence[int], salt,
+                  level_fn=sample_level) -> list[MFG]:
+    """Multi-level sampling under the hybrid scheme: topology replicated,
+    so sampling is local (0 communication rounds).  ``seeds`` is (P,
+    batch), one row per worker; every MFG field carries the P axis."""
+    return sample_mfgs(graph, seeds, fanouts, salt, level_fn=level_fn)
+
+
+def owner_local_ids(reqs: torch.Tensor, offsets: torch.Tensor,
+                    n_local: int) -> torch.Tensor:
+    """Row ids into each owner's shard for the requests it received.
+
+    reqs: (P, P, N) where ``reqs[q, p]`` are the global ids worker p asked
+    worker q for.  Returns (P, P * N) int32 local row ids, -1 for padding
+    and for ids the owner does not hold — the input of the
+    ``feature_gather`` kernel.
+    """
+    P = reqs.shape[0]
+    local = reqs - offsets[:-1].view(P, 1, 1)
+    ok = (reqs >= 0) & (local >= 0) & (local < n_local)
+    return torch.where(ok, local, -1).to(torch.int32).reshape(P, -1)
+
+
+def fetch_features(src_nodes: torch.Tensor, offsets: torch.Tensor,
+                   num_parts: int, features: torch.Tensor,
+                   counter: RoundCounter | None) -> torch.Tensor:
+    """The 2 feature rounds (ids out, rows back) for every worker.
+
+    src_nodes: (P, N) global ids to fetch per worker (-1 padding yields
+    +0.0 rows); features: (P, n_max, D) the owners' shards.  Returns
+    (P, N, D) rows aligned with ``src_nodes``.  The owners' local row
+    gather runs through the ``feature_gather`` kernel.
+    """
+    P, N = src_nodes.shape
+    own = owner_of(offsets, src_nodes)
+    buf, oidx, sidx = pack_by_owner(src_nodes, own, num_parts)
+    reqs = exchange(buf, counter, kind="feature")          # round: ids
+    ids = owner_local_ids(reqs, offsets, features.shape[1])
+    rows = feature_gather(ids, features).view(P, P, N, -1)
+    reps = exchange(rows, counter, kind="feature")         # round: rows
+    p = torch.arange(P, device=src_nodes.device).view(P, 1)
+    h = reps[p, oidx.long(), sidx.long()]
+    return torch.where((src_nodes >= 0)[..., None], h,
+                       torch.zeros((), dtype=h.dtype, device=h.device))

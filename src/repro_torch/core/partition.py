@@ -1,0 +1,302 @@
+"""Graph partitioning (§3.3) and the contiguous-ownership layout.
+
+Counterpart of ``repro.core.partition`` with the ``ldg`` partitioner only:
+BFS-ordered linear deterministic greedy over the in- and out-neighbours,
+balancing nodes and labeled nodes per partition (the paper's balance
+targets).  It is host-side numpy, step for step the same as ``repro``'s, so
+assignments and layouts are bit-identical.
+
+After partitioning, nodes are relabeled so partition p owns the contiguous
+id range [offsets[p], offsets[p+1]); ownership is then one searchsorted and
+a local index is ``id - offsets[p]``.  ``build_layout`` moves the relabeled
+topology and the per-owner feature shards to the pipeline's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import CSCGraph, csc_from_numpy_edges, csr_view
+
+
+# --------------------------------------------------------------------------
+# assignment
+# --------------------------------------------------------------------------
+
+class _LDGState:
+    """Mutable state of the linear deterministic greedy placer:
+    per-partition loads, capacities, and the growing ``assign`` vector."""
+
+    def __init__(self, num_nodes: int, num_parts: int,
+                 labeled: np.ndarray, slack: float,
+                 labeled_slack: float | None):
+        if labeled_slack is None:
+            labeled_slack = slack
+        self.num_parts = num_parts
+        self.labeled = labeled
+        self.cap_nodes = slack * num_nodes / num_parts
+        self.cap_labeled = max(1.0,
+                               labeled_slack * labeled.sum() / num_parts)
+        self.assign = np.full(num_nodes, -1, np.int32)
+        self.load_nodes = np.zeros(num_parts)
+        self.load_labeled = np.zeros(num_parts)
+
+    def place(self, v: int, nb: np.ndarray) -> int:
+        """Score node ``v`` against its neighbour list ``nb`` and commit it
+        to the winning partition (LDG gain: already-assigned neighbours
+        per partition, discounted by fullness; over-capacity partitions
+        are forbidden)."""
+        score = np.zeros(self.num_parts)
+        if nb.size:
+            anb = self.assign[nb]
+            anb = anb[anb >= 0]
+            if anb.size:
+                score = np.bincount(anb, minlength=self.num_parts
+                                    ).astype(float)
+        penalty = 1.0 - self.load_nodes / self.cap_nodes
+        full = self.load_nodes >= self.cap_nodes
+        if self.labeled[v]:
+            full = full | (self.load_labeled >= self.cap_labeled)
+        gain = np.where(full, -np.inf,
+                        (score + 1e-3) * np.maximum(penalty, 1e-6))
+        if np.isfinite(gain).any():
+            p = int(np.argmax(gain))
+        else:
+            # the joint node+labeled caps can be infeasible for this
+            # order: fall back to node-open partitions, least labeled first
+            ok = self.load_nodes < self.cap_nodes
+            p = int(np.argmin(np.where(ok, self.load_labeled, np.inf)))
+        self.assign[v] = p
+        self.load_nodes[p] += 1
+        if self.labeled[v]:
+            self.load_labeled[p] += 1
+        return p
+
+
+def _bfs_order(out_indptr, out_indices, n, rng):
+    seen = np.zeros(n, bool)
+    order = np.empty(n, np.int64)
+    k = 0
+    starts = rng.permutation(n)
+    si = 0
+    q: deque[int] = deque()
+    while k < n:
+        while si < n and seen[starts[si]]:
+            si += 1
+        if si < n and not q:
+            q.append(starts[si])
+            seen[starts[si]] = True
+        while q:
+            v = q.popleft()
+            order[k] = v
+            k += 1
+            for u in out_indices[out_indptr[v]:out_indptr[v + 1]]:
+                if not seen[u]:
+                    seen[u] = True
+                    q.append(u)
+    return order
+
+
+def partition_graph(graph: CSCGraph, num_parts: int,
+                    labeled_mask: np.ndarray, seed: int = 0,
+                    slack: float = 1.05,
+                    labeled_slack: float | None = None) -> np.ndarray:
+    """BFS-ordered LDG edge-cut partitioning; returns ``assign``
+    (num_nodes,) int32 in [0, num_parts)."""
+    indptr, indices = graph.numpy()
+    n = graph.num_nodes
+    labeled = np.asarray(labeled_mask).astype(bool)
+
+    view = csr_view(graph)
+    out_indptr, out_indices = view.indptr, view.indices
+
+    rng = np.random.default_rng(seed)
+    order = _bfs_order(out_indptr, out_indices, n, rng)
+
+    state = _LDGState(n, num_parts, labeled, slack, labeled_slack)
+    for v in order:
+        nb = np.concatenate([indices[indptr[v]:indptr[v + 1]],
+                             out_indices[out_indptr[v]:out_indptr[v + 1]]])
+        state.place(v, nb)
+    return state.assign
+
+
+# --------------------------------------------------------------------------
+# partitioner registry
+# --------------------------------------------------------------------------
+
+def _validate_assign(assign: np.ndarray, num_nodes: int, num_parts: int,
+                     slack: float, who: str) -> np.ndarray:
+    """Totality, range, dtype and the node balance cap of ``assign``."""
+    assign = np.asarray(assign)
+    if assign.shape != (num_nodes,):
+        raise ValueError(f"partitioner {who!r} returned shape "
+                         f"{assign.shape}, expected ({num_nodes},)")
+    if not np.issubdtype(assign.dtype, np.integer):
+        raise ValueError(f"partitioner {who!r} returned dtype "
+                         f"{assign.dtype}, expected an integer type")
+    if assign.size and (assign.min() < 0 or assign.max() >= num_parts):
+        raise ValueError(f"partitioner {who!r} assigned ids outside "
+                         f"[0, {num_parts})")
+    counts = np.bincount(assign, minlength=num_parts)
+    cap = slack * num_nodes / num_parts + 1
+    if counts.max() > cap:
+        raise ValueError(
+            f"partitioner {who!r} violated the node balance cap: max "
+            f"partition holds {int(counts.max())} nodes, cap is {cap:.1f}")
+    return assign.astype(np.int32)
+
+
+class Partitioner:
+    """Base class of registry entries: ``assign`` validates what the
+    subclass's ``_assign`` returns."""
+
+    name: str = "?"
+
+    def assign(self, graph: CSCGraph, num_parts: int, labeled_mask,
+               *, seed: int = 0, slack: float = 1.05,
+               labeled_slack: float | None = None) -> np.ndarray:
+        """Partition ``graph``; returns validated (n,) int32 in [0, P)."""
+        labeled = np.asarray(labeled_mask).astype(bool)
+        out = self._assign(graph, num_parts, labeled, seed=seed,
+                           slack=slack, labeled_slack=labeled_slack)
+        return _validate_assign(out, graph.num_nodes, num_parts, slack,
+                                self.name)
+
+    def _assign(self, graph, num_parts, labeled, *, seed, slack,
+                labeled_slack) -> np.ndarray:
+        raise NotImplementedError
+
+
+class LDGPartitioner(Partitioner):
+    """BFS-ordered linear deterministic greedy (the default)."""
+
+    name = "ldg"
+
+    def _assign(self, graph, num_parts, labeled, *, seed, slack,
+                labeled_slack):
+        return partition_graph(graph, num_parts, labeled, seed=seed,
+                               slack=slack, labeled_slack=labeled_slack)
+
+
+_PARTITIONERS: dict[str, Callable[..., Partitioner]] = {}
+
+
+def register_partitioner(name: str, factory: Callable[..., Partitioner],
+                         *, overwrite: bool = False) -> None:
+    """Register ``factory(*params) -> Partitioner`` under ``name``."""
+    if not overwrite and name in _PARTITIONERS \
+            and _PARTITIONERS[name] is not factory:
+        raise ValueError(f"partitioner {name!r} already registered; "
+                         f"pass overwrite=True to replace it")
+    _PARTITIONERS[name] = factory
+
+
+def available_partitioners() -> tuple[str, ...]:
+    """Sorted names of registered partitioners."""
+    return tuple(sorted(_PARTITIONERS))
+
+
+def resolve_partitioner(name: str) -> Partitioner:
+    """Instantiate the partitioner registered under ``name``."""
+    from repro_torch.data.naming import parse_param_name
+    base, params = parse_param_name(name, "partitioner")
+    try:
+        factory = _PARTITIONERS[base]
+    except KeyError:
+        raise KeyError(f"unknown partitioner {name!r}; "
+                       f"available: {available_partitioners()}") from None
+    return factory(*params)
+
+
+def _ldg_factory(*params):
+    if params:
+        raise ValueError(f"partitioner 'ldg' takes no parameters, got "
+                         f"{params}")
+    return LDGPartitioner()
+
+
+register_partitioner("ldg", _ldg_factory)
+
+
+# --------------------------------------------------------------------------
+# layout
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PartitionLayout:
+    """Relabeled graph + ownership metadata, on the pipeline's device
+    (``perm`` stays on the host)."""
+    graph: CSCGraph              # relabeled global topology
+    offsets: torch.Tensor        # (P+1,) int32 ownership ranges
+    perm: np.ndarray             # new id -> old id
+    features: torch.Tensor       # (P, n_max, D) per-owner feature shards
+    labels: torch.Tensor         # (P, n_max) int32, -1 where unlabeled/pad
+    node_valid: torch.Tensor     # (P, n_max) bool
+    num_parts: int
+
+    @property
+    def n_max(self) -> int:
+        return self.features.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    def to(self, device) -> "PartitionLayout":
+        """The same layout with its tensors on ``device``."""
+        return dataclasses.replace(
+            self, graph=self.graph.to(device),
+            offsets=self.offsets.to(device),
+            features=self.features.to(device),
+            labels=self.labels.to(device),
+            node_valid=self.node_valid.to(device))
+
+
+def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
+                 assign: np.ndarray, num_parts: int,
+                 device=torch.device("cpu")) -> PartitionLayout:
+    """Relabel so each partition owns a contiguous id range; shard
+    features; place the result on ``device``."""
+    n = graph.num_nodes
+    assign = np.asarray(assign)
+    perm_new_to_old = np.argsort(assign, kind="stable")
+    old_to_new = np.empty(n, np.int64)
+    old_to_new[perm_new_to_old] = np.arange(n)
+
+    counts = np.bincount(assign, minlength=num_parts)
+    offsets = np.zeros(num_parts + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    n_max = int(counts.max())
+
+    # relabel edges
+    _, indices = graph.numpy()
+    dsts_old = csr_view(graph).dsts
+    new_dst = old_to_new[dsts_old].astype(np.int64)
+    new_src = old_to_new[indices].astype(np.int64)
+    new_graph = csc_from_numpy_edges(new_dst, new_src, n)
+
+    D = features.shape[1]
+    feat = np.zeros((num_parts, n_max, D), features.dtype)
+    lab = np.full((num_parts, n_max), -1, np.int32)
+    valid = np.zeros((num_parts, n_max), bool)
+    for p in range(num_parts):
+        ids_old = perm_new_to_old[offsets[p]:offsets[p + 1]]
+        k = ids_old.size
+        feat[p, :k] = features[ids_old]
+        lab[p, :k] = labels[ids_old]
+        valid[p, :k] = True
+
+    return PartitionLayout(
+        graph=new_graph.to(device),
+        offsets=torch.from_numpy(offsets.astype(np.int32)).to(device),
+        perm=perm_new_to_old,
+        features=torch.from_numpy(feat).to(device),
+        labels=torch.from_numpy(lab).to(device),
+        node_valid=torch.from_numpy(valid).to(device),
+        num_parts=num_parts,
+    )

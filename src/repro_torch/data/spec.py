@@ -1,0 +1,69 @@
+"""``DataSpec`` — declarative graph-source configuration — and the resolver
+that turns (name, spec) into a ``GraphDataset``.
+
+Counterpart of ``repro.data.spec`` for synthetic sources; datasets saved
+on disk are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSpec:
+    """What graph to serve or train on.
+
+    source:       graph-source registry name (``repro_torch.data.sources``:
+                  "uniform", "powerlaw(alpha)").
+    num_nodes / avg_degree: synthetic size knobs (the edge draw targets
+                  ``num_nodes * avg_degree`` before self-loop removal).
+    num_features / num_classes: feature width / label arity.
+    split:        split-policy registry name (``"random(frac)"``).
+    seed:         generation seed; same (source, spec) => bit-identical
+                  dataset.
+    """
+    source: str = "powerlaw(1.8)"
+    num_nodes: int = 2000
+    avg_degree: int = 8
+    num_features: int = 16
+    num_classes: int = 8
+    split: str = "random(0.3)"
+    seed: int = 0
+
+    def __post_init__(self):
+        from repro_torch.data.sources import available_sources, resolve_source
+        from repro_torch.data.splits import resolve_split
+
+        if self.num_nodes < 2:
+            raise ValueError(f"num_nodes must be >= 2, got {self.num_nodes}")
+        for field in ("avg_degree", "num_features", "num_classes"):
+            if getattr(self, field) < 1:
+                raise ValueError(
+                    f"{field} must be >= 1, got {getattr(self, field)}")
+        try:
+            resolve_split(self.split)
+        except KeyError as e:
+            raise ValueError(str(e)) from None
+        try:
+            resolve_source(self.source)
+        except KeyError:
+            raise ValueError(
+                f"unknown graph source {self.source!r}; valid sources: "
+                f"{available_sources()}") from None
+
+
+def resolve_dataset(source: str | None = None, data: DataSpec | None = None):
+    """Materialize the synthetic dataset named by ``source`` (or
+    ``data.source``) with the spec's generation parameters."""
+    from repro_torch.data.sources import resolve_source
+
+    if source is None and data is None:
+        raise ValueError("no dataset named: pass a source name or a "
+                         "DataSpec")
+    if data is None:
+        data = DataSpec(source=str(source))
+    source = data.source if source is None else str(source)
+    return resolve_source(source).generate(
+        data.num_nodes, data.avg_degree,
+        num_features=data.num_features, num_classes=data.num_classes,
+        split=data.split, seed=data.seed)

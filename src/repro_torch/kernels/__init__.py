@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+  fused_sample    Algorithm 1 for one level (``csrc/fused_sample.cu``)
+  sage_aggregate  masked neighbour mean, forward (``csrc/sage_aggregate.cu``)
+  feature_gather  feature-row gather (``csrc/feature_gather.cu``)
+
+Each wrapper counts its launches in a ``launches`` attribute.  Sources are
+compiled by ``nvcc`` at first use on a CUDA tensor (``_build``).  This
+package imports its modules lazily: the core modules import single kernel
+modules, and the fused sampler's plain version imports the core sampler.
+"""
+
+
+def kernel_wrappers() -> tuple:
+    """The three kernel wrappers, in path order."""
+    from repro_torch.kernels.feature_gather import feature_gather
+    from repro_torch.kernels.fused_sample import fused_sample
+    from repro_torch.kernels.sage_aggregate import sage_aggregate
+    return fused_sample, sage_aggregate, feature_gather
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for k in kernel_wrappers():
+        k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches since the last reset}."""
+    return {k.__name__: k.launches for k in kernel_wrappers()}

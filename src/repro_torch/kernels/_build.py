@@ -1,0 +1,110 @@
+"""Build the port's CUDA sources with ``nvcc`` at first use; load with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>.so``, a shared
+library with a plain C interface (``<name>_launch(...)`` returning the
+launch's ``cudaGetLastError()``).  The libraries go into
+``build/kernels/<digest>/`` at the repository root, keyed on a hash of the
+sources and flags, so an edited kernel rebuilds and an unchanged one loads
+straight away.  All sources compile in parallel, one ``nvcc`` each.
+
+Nothing here runs when ``repro_torch`` is imported: a CPU-only machine never
+needs a compiler.  A missing ``nvcc`` or a failed build raises; there is no
+fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("fused_sample", "sage_aggregate", "feature_gather")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cands.append(str(Path(cuda_home) / "bin" / "nvcc"))
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels of repro_torch are compiled from csrc/ at first use on a "
+        "CUDA tensor")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / _digest()
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, all in parallel.
+
+    Returns the wall seconds spent (0.0 when everything was built).
+    Raises ``RuntimeError`` with the compiler's output if any build fails.
+    """
+    out_dir = build_dir()
+    todo = [n for n in SOURCES if not (out_dir / f"lib{n}.so").is_file()]
+    if not todo:
+        return 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name in todo:
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n"
+                          + log.decode(errors="replace"))
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    if errors:
+        raise RuntimeError("building the CUDA kernels failed:\n"
+                           + "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first if
+    needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+            _libs[name] = lib
+        return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")

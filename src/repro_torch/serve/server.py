@@ -1,0 +1,164 @@
+"""``GNNServer``: the serving loop tying queue -> microbatcher ->
+``Predictor`` together, plus latency/throughput accounting (counterpart of
+``repro.serve.server`` without the recycling cache and tracing spans,
+which are not ported yet).
+
+The server runs an open-loop simulation on a virtual clock: arrival times
+come from the traffic generator, service times are MEASURED wall-clock
+durations of the real inference step (``predict`` returns host arrays, so
+each duration ends after the device finished), and completions are
+scheduled on a single-server queue (a flush starts when both its trigger
+time has passed and the device is free).
+
+Every flush reuses the predictor's base salt (``repro``'s ``"fixed"`` salt
+policy): deterministic serving, outputs bit-identical to direct
+``predict``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch.device import resolve_device
+from repro_torch.serve.batcher import MicroBatcher, Request, max_owner_count
+from repro_torch.serve.predictor import Predictor
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Latency/throughput summary of one serving run."""
+    latencies: np.ndarray          # (N,) seconds, request order
+    num_flushes: int
+    bucket_histogram: dict[int, int]
+    compute_time: float            # total measured step seconds
+    makespan: float                # first arrival -> last completion
+
+    @property
+    def num_requests(self) -> int:
+        return int(self.latencies.shape[0])
+
+    @property
+    def p50(self) -> float:
+        return float(np.percentile(self.latencies, 50))
+
+    @property
+    def p99(self) -> float:
+        return float(np.percentile(self.latencies, 99))
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.latencies))
+
+    @property
+    def qps(self) -> float:
+        return self.num_requests / self.makespan if self.makespan > 0 \
+            else 0.0
+
+    def summary(self) -> dict:
+        """JSON-ready summary."""
+        return {
+            "num_requests": self.num_requests,
+            "p50_ms": self.p50 * 1e3,
+            "p99_ms": self.p99 * 1e3,
+            "mean_ms": self.mean * 1e3,
+            "qps": self.qps,
+            "num_flushes": self.num_flushes,
+            "bucket_histogram": {str(k): v for k, v
+                                 in sorted(self.bucket_histogram.items())},
+            "compute_time_s": self.compute_time,
+            "makespan_s": self.makespan,
+        }
+
+
+class GNNServer:
+    """Single-device serving loop over a ``Predictor``.
+
+    Parameters
+    ----------
+    predictor : Predictor
+        Its buckets size the microbatcher's flushes.
+    max_delay : float
+        Deadline (seconds) a request may wait for batchmates; 0 serves
+        every request alone.
+    device
+        ``None`` means CUDA; it must be the predictor's device.
+    """
+
+    def __init__(self, predictor: Predictor, *, max_delay: float = 2e-3,
+                 device=None):
+        if resolve_device(device).type != predictor.device.type:
+            raise ValueError(f"GNNServer on {resolve_device(device)} over "
+                             f"a predictor on {predictor.device}")
+        self.predictor = predictor
+        self.buckets = predictor.buckets
+        self.max_delay = float(max_delay)
+
+    def run(self, arrivals, *, warmup: bool = True,
+            collect_outputs: bool = False):
+        """Serve ``arrivals`` (``(time, seed)`` pairs, time-sorted).
+
+        Returns ``ServeStats``, or ``(ServeStats, outputs)`` with
+        ``collect_outputs=True`` where ``outputs`` is (N, C) logits in
+        arrival order.
+        """
+        if warmup:
+            self.predictor.warmup(buckets=self.buckets.sizes)
+        arrivals = [(float(t), int(s)) for t, s in arrivals]
+        if any(arrivals[i][0] > arrivals[i + 1][0]
+               for i in range(len(arrivals) - 1)):
+            raise ValueError("arrivals must be sorted by time")
+
+        batcher = MicroBatcher(self.buckets, max_delay=self.max_delay)
+        n = len(arrivals)
+        latencies = np.zeros(n)
+        outputs: list = [None] * n
+        index_of: dict[int, int] = {}      # Request.uid -> arrival index
+        bucket_hist: dict[int, int] = {}
+        state = {"free": 0.0, "compute": 0.0, "flushes": 0,
+                 "last_done": 0.0}
+
+        def flush(at: float) -> None:
+            reqs = batcher.flush()
+            if not reqs:
+                return
+            start = max(at, state["free"])
+            seeds = [r.seed for r in reqs]
+            t0 = time.perf_counter()
+            logits = self.predictor.predict(seeds)
+            dt = time.perf_counter() - t0
+            done = start + dt
+            state["free"] = done
+            state["compute"] += dt
+            state["flushes"] += 1
+            state["last_done"] = max(state["last_done"], done)
+            internal = self.predictor._to_internal(
+                np.asarray(seeds, np.int64))
+            b = self.buckets.bucket_for(
+                max_owner_count(self.predictor.offsets, internal))
+            bucket_hist[b] = bucket_hist.get(b, 0) + 1
+            for r, row in zip(reqs, logits):
+                i = index_of.pop(r.uid)
+                latencies[i] = done - r.arrival
+                outputs[i] = row
+
+        for i, (t, seed) in enumerate(arrivals):
+            while batcher.next_due() <= t:
+                flush(batcher.next_due())
+            req = Request(seed=seed, arrival=t)
+            index_of[req.uid] = i
+            batcher.add(req)
+            if batcher.due(t):
+                flush(t)
+        while len(batcher):
+            flush(batcher.next_due())
+
+        makespan = state["last_done"] - arrivals[0][0] if arrivals else 0.0
+        stats = ServeStats(
+            latencies=latencies, num_flushes=state["flushes"],
+            bucket_histogram=bucket_hist, compute_time=state["compute"],
+            makespan=makespan)
+        if collect_outputs:
+            return stats, np.stack(outputs) if n else np.zeros((0, 0))
+        return stats

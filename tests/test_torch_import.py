@@ -1,0 +1,61 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``repro``.
+
+  * In a subprocess where ``import jax`` and ``import repro`` fail, every
+    module of ``repro_torch`` imports.
+  * A static scan of the port's sources finds no such import statement, so
+    a later change cannot add one in a code path the subprocess misses.
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
+                       re.MULTILINE)
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_every_module_imports_without_jax_or_repro():
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert "jax" not in [m for m in sys.modules
+                             if sys.modules[m] is not None]
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.strip()) >= 30
+
+
+def test_static_scan_finds_no_jax_or_repro_import():
+    offenders = []
+    for path in _port_sources():
+        for m in FORBIDDEN.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(ROOT)}: {m.group().strip()}")
+    assert not offenders, offenders
+
+
+def test_scan_pattern_tells_repro_from_repro_torch():
+    assert FORBIDDEN.search("import jax")
+    assert FORBIDDEN.search("from jax.numpy import x")
+    assert FORBIDDEN.search("    from repro.core import dist")
+    assert FORBIDDEN.search("import repro")
+    assert not FORBIDDEN.search("import repro_torch")
+    assert not FORBIDDEN.search("from repro_torch.core import dist")

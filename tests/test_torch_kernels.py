@@ -1,0 +1,216 @@
+"""The port's kernel wrappers on CPU tensors (their plain versions) against
+``repro``'s kernels and oracles.
+
+  * fused_sample: exact against ``ref_fused_sample`` (every degree inside
+    the window) and against ``ref_windowed_fused_sample`` with a small
+    window on a graph with hubs, where the overflow count is non-zero.
+  * sage_aggregate: fp32 ``rtol=atol=1e-5`` against ``repro``'s Pallas
+    kernel in interpret mode and ``ref_mean_aggregate`` (the sums run in
+    another order).
+  * feature_gather: rows equal by value (``np.array_equal``) to ``repro``'s
+    Pallas kernel in interpret mode.
+
+The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
+each against its plain version there.  Here the wrappers must take the
+plain version for CPU tensors and refuse anything else.
+"""
+import shutil
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core.graph import CSCGraph as JCSC
+from repro.core.graph import csc_from_numpy_edges as j_csc
+from repro.kernels.feature_gather import feature_gather as j_feature_gather
+from repro.kernels.ref import (ref_feature_gather, ref_fused_sample,
+                               ref_mean_aggregate, ref_windowed_fused_sample)
+from repro.kernels.sage_aggregate import sage_aggregate as j_sage_aggregate
+from repro_torch.core.graph import CSCGraph as TCSC
+from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.feature_gather import (feature_gather,
+                                                feature_gather_plain)
+from repro_torch.kernels.fused_sample import fused_sample
+from repro_torch.kernels.sage_aggregate import sage_aggregate
+
+
+def _hub_graph(seed=0, n=300, m=6000, alpha=1.2):
+    """Skewed in-degrees: a few hubs far above a small window."""
+    rng = np.random.default_rng(seed)
+    w = rng.pareto(alpha, n) + 1.0
+    dst = rng.choice(n, size=m, p=w / w.sum())
+    src = rng.integers(0, n, m)
+    g = j_csc(dst, src, n)
+    indptr = np.array(g.indptr)
+    indices = np.array(g.indices)
+    return (JCSC(indptr=jnp.asarray(indptr), indices=jnp.asarray(indices)),
+            TCSC(indptr=torch.from_numpy(indptr),
+                 indices=torch.from_numpy(indices)))
+
+
+def _seeds(n, size, seed):
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, size).astype(np.int32)
+    s[rng.random(size) < 0.2] = -1
+    return s
+
+
+@pytest.mark.parametrize("fanout,salt", [(1, 3), (5, 0), (15, 2**32 - 1)])
+def test_fused_sample_matches_ref(fanout, salt):
+    jg, tg = _hub_graph(alpha=3.0)
+    assert int(tg.degrees().max()) < 2048          # default window unused
+    seeds = _seeds(jg.num_nodes, 96, fanout)
+    js, jr = ref_fused_sample(jg, jnp.asarray(seeds), fanout,
+                              jnp.uint32(salt))
+    ts, tr, tovf = fused_sample(tg.indptr, tg.indices,
+                                torch.from_numpy(seeds), salt, fanout=fanout)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    assert int(tovf) == 0
+
+
+@pytest.mark.parametrize("window,fanout", [(4, 3), (4, 10), (16, 5)])
+def test_fused_sample_window_overflow(window, fanout):
+    jg, tg = _hub_graph(seed=1)
+    seeds = _seeds(jg.num_nodes, 128, window)
+    js, jr, jovf = ref_windowed_fused_sample(jg, jnp.asarray(seeds), fanout,
+                                             jnp.uint32(9), window)
+    assert jovf > 0
+    ts, tr, tovf = fused_sample(tg.indptr, tg.indices,
+                                torch.from_numpy(seeds), 9, fanout=fanout,
+                                window=window)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    assert int(tovf) == jovf
+    # the port's own windowed oracle agrees with repro's
+    os_, or_, oovf = tref.ref_windowed_fused_sample(
+        tg, torch.from_numpy(seeds), fanout, 9, window)
+    np.testing.assert_array_equal(os_.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(or_.numpy(), np.asarray(jr))
+    assert oovf == jovf
+
+
+def test_fused_sample_stacked_rows():
+    """(B, S) seeds: one R and one overflow count per row."""
+    jg, tg = _hub_graph(seed=2)
+    seeds = np.stack([_seeds(jg.num_nodes, 50, s) for s in range(3)])
+    ts, tr, tovf = fused_sample(tg.indptr, tg.indices,
+                                torch.from_numpy(seeds), 4, fanout=6,
+                                window=8)
+    for b in range(3):
+        js, jr, jovf = ref_windowed_fused_sample(
+            jg, jnp.asarray(seeds[b]), 6, jnp.uint32(4), 8)
+        np.testing.assert_array_equal(ts[b].numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tr[b].numpy(), np.asarray(jr))
+        assert int(tovf[b]) == jovf
+
+
+@pytest.mark.parametrize("S,F,N,D", [(1, 1, 1, 1), (4, 3, 10, 8),
+                                     (130, 7, 300, 16), (64, 15, 64, 130),
+                                     (37, 5, 200, 33)])
+def test_sage_aggregate_matches_repro(S, F, N, D):
+    rng = np.random.default_rng(S + F + N + D)
+    edges = rng.integers(-1, N, (S, F)).astype(np.int32)
+    h = rng.normal(0, 1, (N, D)).astype(np.float32)
+    got = sage_aggregate(torch.from_numpy(edges), torch.from_numpy(h))
+    kern = j_sage_aggregate(jnp.asarray(edges), jnp.asarray(h), tile_s=32,
+                            tile_n=32, interpret=True)
+    ref = ref_mean_aggregate(jnp.asarray(edges), jnp.asarray(h))
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_sage_aggregate_invalid_rows_and_duplicates():
+    edges = np.array([[-1, -1, -1], [2, 2, 0], [1, -1, 1]], np.int32)
+    h = np.arange(12, dtype=np.float32).reshape(4, 3)
+    got = sage_aggregate(torch.from_numpy(edges), torch.from_numpy(h))
+    ref = ref_mean_aggregate(jnp.asarray(edges), jnp.asarray(h))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got[0].numpy(), np.zeros(3))
+    np.testing.assert_allclose(got[1].numpy(), (2 * h[2] + h[0]) / 3)
+
+
+def test_sage_aggregate_stacked_workers():
+    rng = np.random.default_rng(5)
+    edges = rng.integers(-1, 40, (3, 20, 4)).astype(np.int32)
+    h = rng.normal(0, 1, (3, 40, 12)).astype(np.float32)
+    got = sage_aggregate(torch.from_numpy(edges), torch.from_numpy(h))
+    for b in range(3):
+        ref = ref_mean_aggregate(jnp.asarray(edges[b]), jnp.asarray(h[b]))
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,M,D", [(1, 1, 1), (50, 30, 8), (300, 129, 33),
+                                   (64, 200, 100)])
+def test_feature_gather_matches_repro(N, M, D):
+    rng = np.random.default_rng(N + M + D)
+    ids = rng.integers(-1, M + 3, N).astype(np.int32)
+    table = rng.normal(0, 1, (M, D)).astype(np.float32)
+    got = feature_gather(torch.from_numpy(ids), torch.from_numpy(table))
+    kern = j_feature_gather(jnp.asarray(ids), jnp.asarray(table), tile_i=32,
+                            tile_t=32, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(kern))
+    ok = (ids >= 0) & (ids < M)
+    ref = ref_feature_gather(jnp.asarray(np.where(ok, ids, -1)),
+                             jnp.asarray(table))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert not np.signbit(got.numpy()[~ok]).any()      # +0.0 rows
+
+
+def test_feature_gather_stacked_tables():
+    rng = np.random.default_rng(8)
+    ids = rng.integers(-1, 25, (4, 30)).astype(np.int32)
+    table = rng.normal(0, 1, (4, 25, 6)).astype(np.float32)
+    got = feature_gather_plain(torch.from_numpy(ids), torch.from_numpy(table))
+    for b in range(4):
+        np.testing.assert_array_equal(
+            got[b].numpy(), np.asarray(ref_feature_gather(
+                jnp.asarray(ids[b]), jnp.asarray(table[b]))))
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    reset_launch_counts()
+    jg, tg = _hub_graph()
+    fused_sample(tg.indptr, tg.indices, torch.tensor([0, 1], dtype=torch.int32),
+                 0, fanout=2)
+    sage_aggregate(torch.zeros((2, 2), dtype=torch.int32), torch.ones(3, 4))
+    feature_gather(torch.zeros(2, dtype=torch.int32), torch.ones(3, 4))
+    assert launch_counts() == {"fused_sample": 0, "sage_aggregate": 0,
+                               "feature_gather": 0}
+
+
+@pytest.mark.parametrize("which", ["fused_sample", "sage_aggregate",
+                                   "feature_gather"])
+def test_non_cpu_tensors_never_fall_back(which):
+    """A tensor off the CPU launches the kernel or raises; one on a device
+    the kernels do not serve raises."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError):
+        if which == "fused_sample":
+            idx = torch.zeros(3, dtype=torch.int32, device=meta)
+            fused_sample(idx, idx, idx, 0, fanout=2)
+        elif which == "sage_aggregate":
+            sage_aggregate(torch.zeros((2, 2), dtype=torch.int32,
+                                       device=meta),
+                           torch.ones((3, 4), device=meta))
+        else:
+            feature_gather(torch.zeros(2, dtype=torch.int32, device=meta),
+                           torch.ones((3, 4), device=meta))
+
+
+def test_missing_compiler_raises(tmp_path, monkeypatch):
+    """Without nvcc the build raises; nothing carries on without the
+    kernels."""
+    if shutil.which("nvcc") is not None:
+        pytest.skip("nvcc is installed: the missing-compiler path cannot "
+                    "be shown")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "kernels")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
