@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -29,12 +30,26 @@ Phases (any failure raises and the script exits non-zero):
      bit for bit.  Every kernel must have launched.
   7. where the time goes: wall time of one ``predict`` against the device
      time of the kernels it launches (``torch.profiler``).
+  8. training: phase 3's layout through ``Pipeline.from_layout`` with a
+     65 536-row ``degree`` cache per worker and the ``pinned_hot`` store,
+     the paper's GraphSAGE with dropout 0, 1000 seeds per worker, AdamW
+     (lr 0.006, clip 1.0).  At one step's shapes: ``gather_rows`` exact
+     and the ``sage_aggregate`` backward within tolerance and the same
+     bits on two calls, against their plain versions; the step with the
+     kernels against the same step with plain versions (loss within 1e-5,
+     each gradient leaf within tolerance); the ``pinned_hot`` step and an
+     ``exchange``-with-cache step bit-identical in ``h_src``, loss and
+     gradients.  Then, with every launch count set to 0 first, 10 steps
+     through ``SyncDriver``: finite losses, 2 rounds per step, every one
+     of the five kernels launched; the step's wall time, device busy
+     time and idle share, and peak device memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -54,6 +69,23 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
 SAGE_TOL = 1e-5                  # kernel vs plain aggregate: fp32 sum order
 LOGIT_TOL = 1e-4                 # logits after 3 layers of fp32 products
+# the kernels each path runs (the backward and the pinned gather train only)
+SERVING_KERNELS = ("fused_sample", "sage_aggregate", "feature_gather")
+# the device kernels of csrc/ by name (fused_sample runs two)
+HAND_WRITTEN = ("fused_sample_kernel", "row_scan_kernel",
+                "sage_aggregate_kernel", "sage_aggregate_backward_kernel",
+                "feature_gather_kernel", "gather_rows_kernel")
+TRAIN_BATCH = 1000               # seeds per worker (paper §4)
+CACHE_K = 65_536                 # pinned cache rows per worker
+TRAIN_STEPS = 10
+TRAIN_LR = 0.006                 # paper §4
+TRAIN_SALT = 11
+LOSS_TOL = 1e-5                  # kernel step vs plain step, absolute
+# backward kernel vs plain, and kernel step vs plain step per gradient
+# leaf: max abs error over the leaf's max abs value (fp32 sums in another
+# order, through three layers for the gradients)
+BWD_RTOL = 1e-5
+GRAD_RTOL = 1e-4
 
 
 def log(*args) -> None:
@@ -355,6 +387,323 @@ def matmul_row_probe() -> list:
             if not torch.equal(x[:m] @ w, full[:m])]
 
 
+def check_gather_rows(table, ids):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.gather import gather_rows, gather_rows_plain
+    got = gather_rows(table, ids)
+    ref = gather_rows_plain(table, ids)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"gather_rows differs from the plain version "
+                             f"(max abs error {err})")
+    B, N = ids.shape
+    Kc, D = table.shape[1:]
+    flat = torch.cat([table.reshape(B * Kc, D), table.new_zeros((1, D))])
+    off = (torch.arange(B, device=ids.device) * Kc).view(B, 1)
+    idx = torch.where((ids >= 0) & (ids < Kc), ids + off, B * Kc)
+    if not torch.equal(F.embedding(idx, flat), ref):
+        raise AssertionError("F.embedding yardstick disagrees")
+    ms, call, _ = time_ms(lambda: gather_rows(table, ids))
+    plain, _, _ = time_ms(lambda: gather_rows_plain(table, ids))
+    lib, _, _ = time_ms(lambda: F.embedding(idx, flat))
+    hits = int(((ids >= 0) & (ids < Kc)).sum())
+    nbytes = B * N * 4 + unique_rows(ids, Kc) * D * 4 + B * N * D * 4
+    tot = {"ms": ms, "call_ms": call, "plain_ms": plain, "library_ms": lib,
+           "err": err}
+    bnd = add_bound(tot, nbytes, 0.0)
+    log(f"  gather_rows: ids {tuple(ids.shape)} ({hits} hits) table "
+        f"{tuple(table.shape)}: exact match, device {ms:.4f} ms, call "
+        f"{call:.4f} ms (plain {plain:.4f} ms, F.embedding {lib:.4f} ms, "
+        f"bound {bnd:.5f} ms for {nbytes} B)")
+    return tot
+
+
+def check_sage_backward(recorded):
+    """``recorded``: (edges, grad_out, num_src) of each layer whose input
+    requires grad, from one training step."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.sage_aggregate import (
+        sage_aggregate_backward, sage_aggregate_backward_plain)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+           "split": {}}
+    for edges, g, n in recorded:
+        got = sage_aggregate_backward(edges, g, n)
+        again = sage_aggregate_backward(edges, g, n)
+        ref = sage_aggregate_backward_plain(edges, g, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("sage_aggregate backward: two calls on the "
+                                 "same inputs differ in bits")
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        if err > BWD_RTOL * scale:
+            raise AssertionError(f"sage_aggregate backward: max abs error "
+                                 f"{err} against the plain version (max "
+                                 f"|grad| {scale}, rtol {BWD_RTOL})")
+        B, S, Fo = edges.shape
+        D = g.shape[-1]
+        # library yardstick: the backward of one embedding_bag(mean) over
+        # the flattened table with a zero padding row (graph built once,
+        # outside the timing)
+        table = torch.zeros((B * n + 1, D), device=g.device,
+                            requires_grad=True)
+        off = (torch.arange(B, device=g.device) * n).view(B, 1, 1)
+        bag = torch.where(edges >= 0, edges + off, B * n).reshape(-1, Fo)
+        out = F.embedding_bag(bag, table, mode="mean", padding_idx=B * n)
+        g2 = g.reshape(-1, D)
+
+        def lib_fn():
+            return torch.autograd.grad(out, table, g2, retain_graph=True)[0]
+
+        lib_grad = lib_fn()[:B * n].view(B, n, D)
+        if float((lib_grad - ref).abs().max()) > BWD_RTOL * scale:
+            raise AssertionError("embedding_bag backward yardstick "
+                                 "disagrees")
+        ms, call, split = time_ms(lambda: sage_aggregate_backward(edges, g,
+                                                                  n))
+        plain, _, _ = time_ms(lambda: sage_aggregate_backward_plain(edges,
+                                                                    g, n))
+        lib, _, _ = time_ms(lib_fn)
+        valid = (edges >= 0) & (edges < n)
+        n_valid = int(valid.sum())
+        n_dst = int(valid.any(dim=-1).sum())
+        nbytes = B * S * Fo * 4 + n_dst * D * 4 + B * n * D * 4
+        bnd = add_bound(tot, nbytes, 2.0 * n_valid * D)
+        log(f"  sage_aggregate backward: edges {tuple(edges.shape)} "
+            f"grad_out {tuple(g.shape)} -> ({B}, {n}, {D}): max abs err "
+            f"{err:.3g} (max |grad| {scale:.3g}, rtol {BWD_RTOL}), same "
+            f"bits on two calls, device {ms:.4f} ms, call {call:.4f} ms "
+            f"(plain {plain:.4f} ms, embedding_bag backward {lib:.4f} ms, "
+            f"bound {bnd:.5f} ms for {nbytes} B)")
+        log("    device ms by kernel: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(split.items(),
+                                              key=lambda kv: -kv[1])))
+        for k, v in split.items():
+            tot["split"][k] = tot["split"].get(k, 0.0) + v
+        tot["ms"] += ms
+        tot["call_ms"] = tot.get("call_ms", 0.0) + call
+        tot["plain_ms"] += plain
+        tot["library_ms"] += lib
+        tot["err"] = max(tot["err"], err)
+    return tot
+
+
+def feature_rows(layout, src):
+    """The rows ``src`` names, read straight from the owners' shards
+    (+0.0 for padding): the fetch's expected output."""
+    import torch
+    from repro_torch.core.dist import owner_of
+    own = owner_of(layout.offsets, src).long().clamp(min=0)
+    local = (src.long() - layout.offsets.long()[own]).clamp(min=0)
+    rows = layout.features[own, local]
+    return torch.where((src >= 0)[..., None], rows,
+                       torch.zeros((), device=rows.device))
+
+
+def training_phase(layout, data, cfg):
+    """Phase 8: returns (gather_rows result, backward result, launch counts
+    of the 10-step driver run)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch.kernels as K
+    from repro_torch.core.dist import cache_lookup
+    from repro_torch.kernels.sage_aggregate import (sage_aggregate,
+                                                    sage_aggregate_plain)
+    from repro_torch.models.gnn import gnn_loss, init_gnn_params
+    from repro_torch.optim import init_opt_state, tree_leaves
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+    from repro_torch.pipeline.prefetch import make_update_fn
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    specs = {store: PipelineSpec.from_scheme(
+        "hybrid+fused", num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+        cache_capacity=CACHE_K, cache_policy="degree", feature_store=store,
+        data=data) for store in ("pinned_hot", "exchange")}
+    pin = Pipeline.from_layout(layout, specs["pinned_hot"])
+    exc = Pipeline.from_layout(layout, specs["exchange"])
+    log(f"pinned_hot and exchange pipelines over phase 3's layout, "
+        f"cache {tuple(pin.cache.rows.shape)} "
+        f"({pin.cache.rows.numel() * 4 / 1e6:.1f} MB per store): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    params = init_gnn_params(cfg, torch.Generator().manual_seed(0), "cuda")
+
+    def loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+    def plain_loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg,
+                        aggregate=sage_aggregate_plain)
+
+    recorded = []
+
+    def recording_aggregate(edges, h):
+        out = sage_aggregate(edges, h)
+        if h.requires_grad:
+            out.register_hook(lambda g, e=edges, n=h.shape[-2]:
+                              recorded.append((e, g, n)))
+        return out
+
+    def recording_loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg,
+                        aggregate=recording_aggregate)
+
+    seeds = pin.seeds(TRAIN_BATCH, TRAIN_SALT)
+    prep_pin, consume = pin.make_prepare_consume(loss_fn, counted=False)
+    prep_exc, _ = exc.make_prepare_consume(loss_fn, counted=False)
+    _, consume_plain = pin.make_prepare_consume(plain_loss_fn,
+                                                counted=False)
+    _, consume_rec = pin.make_prepare_consume(recording_loss_fn,
+                                              counted=False)
+    with torch.no_grad():
+        bp = prep_pin(pin.shards, seeds, TRAIN_SALT, pin.cache)
+        be = prep_exc(exc.shards, seeds, TRAIN_SALT, exc.cache)
+    src = bp.mfgs[-1].src_nodes
+    log(f"one step's shapes: seeds {tuple(seeds.shape)}, frontier "
+        f"{tuple(src.shape)} ({int((src >= 0).sum())} valid), MFG edges "
+        + ", ".join(str(tuple(m.edges.shape)) for m in bp.mfgs))
+
+    log("-- stores: pinned_hot against exchange with the same cache")
+    if not torch.equal(bp.h_src, feature_rows(layout, src)):
+        raise AssertionError("pinned_hot h_src differs from the owners' rows")
+    if not (torch.equal(bp.h_src, be.h_src)
+            and torch.equal(bp.hits, be.hits)):
+        raise AssertionError("pinned_hot and exchange h_src or hits differ")
+    lp, gp, mp = consume(params, bp)
+    le, ge, _ = consume(params, be)
+    same_grads = all(torch.equal(a, b) for a, b in zip(tree_leaves(gp),
+                                                       tree_leaves(ge)))
+    if not (torch.equal(lp, le) and same_grads):
+        raise AssertionError(f"pinned_hot and exchange steps differ: loss "
+                             f"{float(lp)} vs {float(le)}")
+    log(f"h_src {tuple(bp.h_src.shape)} equal to the owners' rows and "
+        f"between the stores bit for bit; hits {bp.hits.tolist()} (hit "
+        f"rate {float(mp['cache_hit_rate']):.4f}); loss {float(lp):.6f} and "
+        f"every gradient leaf bit-identical")
+
+    log("-- the step with kernels against the same step with plain "
+        "versions")
+    lq, gq, _ = consume_plain(params, bp)
+    loss_err = abs(float(lp) - float(lq))
+    if loss_err > LOSS_TOL:
+        raise AssertionError(f"loss {float(lp)} vs plain {float(lq)}")
+    worst = 0.0
+    for a, b in zip(tree_leaves(gp), tree_leaves(gq)):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if rel > GRAD_RTOL:
+            raise AssertionError(f"gradient leaf {tuple(a.shape)} differs "
+                                 f"from the plain step by {rel:.3g} of its "
+                                 f"max (tol {GRAD_RTOL})")
+    log(f"loss {float(lp):.6f} vs plain {float(lq):.6f} (abs err "
+        f"{loss_err:.3g}, tol {LOSS_TOL}); gradients: worst leaf max abs "
+        f"err {worst:.3g} of its max |g| (tol {GRAD_RTOL})")
+
+    log("-- kernels against their plain versions at the step's shapes")
+    is_hit, pos = cache_lookup(pin.cache, src)
+    hit_pos = torch.where(is_hit, pos, -1).to(torch.int32)
+    gr = check_gather_rows(pin.cache.rows, hit_pos)
+    consume_rec(params, bp)
+    if len(recorded) != cfg.num_layers - 1:
+        raise AssertionError(f"{len(recorded)} backward aggregates recorded "
+                             f"for {cfg.num_layers} layers")
+    bw = check_sage_backward(recorded)
+    del recorded[:], bp, be, gp, ge, gq, hit_pos, is_hit, pos
+    exc = None
+
+    log(f"-- {TRAIN_STEPS} steps through SyncDriver (launch counts set to "
+        f"0 first)")
+    opt = init_opt_state(params)
+    driver = pin.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                              grad_clip=1.0)
+    K.reset_launch_counts()
+    rounds_before = pin.counter.rounds
+    losses, walls, hit_rates = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss, m = driver.step(params, opt)
+        losses.append(float(loss))          # synchronizes
+        walls.append((time.perf_counter() - t0) * 1e3)
+        hit_rates.append(float(m["cache_hit_rate"]))
+    counts = K.launch_counts()
+    rounds = (pin.counter.rounds - rounds_before) / TRAIN_STEPS
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if rounds != 2:
+        raise AssertionError(f"{rounds} communication rounds per step, "
+                             f"expected 2")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training "
+                             f"path: {missing}")
+    log("losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    log(f"cache hit rate {statistics.mean(hit_rates):.4f} (mean over the "
+        f"steps), {rounds:g} rounds per step, step wall median "
+        f"{statistics.median(walls):.3f} ms (min {min(walls):.3f}, max "
+        f"{max(walls):.3f}; includes the host's seed draw)")
+    log("launches per step: " + ", ".join(
+        f"{k} {v / TRAIN_STEPS:g}" for k, v in counts.items()))
+
+    # the same step's stages one after the other, each fenced by a
+    # synchronize: host plus device time of each
+    update = make_update_fn(lr=TRAIN_LR, optimizer="adamw", grad_clip=1.0)
+    prep, _ = pin.make_prepare_consume(loss_fn, counted=False)
+    stages = {"seeds": [], "prepare": [], "consume": [], "update": []}
+    for k in range(TRAIN_STEPS, TRAIN_STEPS + 3):
+        t = [time.perf_counter()]
+        s = pin.seeds(TRAIN_BATCH, k)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        b = prep(pin.shards, s, k, pin.cache)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss, grads, m = consume(params, b)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        params, opt, m = update(params, opt, grads, m)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for name, a, z in zip(stages, t, t[1:]):
+            stages[name].append((z - a) * 1e3)
+        del b, grads
+    log("fenced stages of one step (median of 3, host + device ms): "
+        + ", ".join(f"{k} {statistics.median(v):.3f}"
+                    for k, v in stages.items()))
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            params, opt, loss, _ = driver.step(params, opt)
+            float(loss)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 2
+    rows = sorted(((_device_us(e) / 1e3 / 2, e.count // 2, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"one step (profiled, 2 steps): wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms in {sum(r[1] for r in rows)} device ops, idle "
+        f"share {1 - busy / wall:.3f}")
+    for ms, count, name in rows[:12]:
+        log(f"    {ms:8.4f} ms  x{count:<5d} {name[:90]}")
+    ours = {}
+    for ms, count, name in rows:
+        short = _short(name)
+        if short in HAND_WRITTEN:
+            ours[short] = ours.get(short, 0.0) + ms
+    log(f"hand-written kernels per step: {sum(ours.values()):.4f} ms device ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ours.items())) + ")")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB (torch.cuda.max_memory_allocated)")
+    return gr, bw, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -501,27 +850,43 @@ def main() -> int:
         f"{s['qps']:.1f}, flushes {s['num_flushes']}, buckets "
         f"{s['bucket_histogram']}; outputs == direct predict bit for bit")
     counts = K.launch_counts()
-    log(f"kernel launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v == 0]
+    log(f"kernel launches on the serving path: {counts}")
+    missing = [k for k in SERVING_KERNELS if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
 
     log("== phase 7: where the time of one predict goes")
     predict_breakdown(pred, batch_seeds, "predict(128 seeds), bucket 128")
     predict_breakdown(pred, batch_seeds[:1], "predict(1 seed), bucket 1")
+    del pred, server
+
+    log("== phase 8: training (pinned_hot store, AdamW)")
+    cfg_train = dataclasses.replace(PRODUCTS, dropout=0.0)
+    gr, bw, train_counts = training_phase(pipe.layout, data, cfg_train)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
-    for name, res, replaces in (
-            ("fused_sample", fs, "src/repro/kernels/fused_sample.py:41"),
-            ("sage_aggregate", sa, "src/repro/kernels/sage_aggregate.py:30"),
+    for name, res, replaces, source in (
+            ("fused_sample", fs, "src/repro/kernels/fused_sample.py:41",
+             "fused_sample"),
+            ("sage_aggregate", sa, "src/repro/kernels/sage_aggregate.py:30",
+             "sage_aggregate"),
+            ("sage_aggregate_backward", bw,
+             "src/repro/core/mfg.py:59 (gradient of the jnp mean; the Pallas "
+             "forward is src/repro/kernels/sage_aggregate.py:30)",
+             "sage_aggregate"),
             ("feature_gather", fg,
-             "src/repro/kernels/feature_gather.py:26")):
+             "src/repro/kernels/feature_gather.py:26", "feature_gather"),
+            ("gather_rows", gr, "src/repro/kernels/gather.py:49",
+             "gather_rows")):
+        by_path = {"serving": counts.get(name, 0),
+                   "training": train_counts[name]}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": counts[name],
+            "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": res["err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "call_ms": res["call_ms"],

@@ -20,7 +20,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.graph import CSCGraph, csc_from_numpy_edges, csr_view
+from repro_torch.core.graph import (CSCGraph, csc_from_numpy_edges,
+                                    csr_view, mix64)
 
 
 # --------------------------------------------------------------------------
@@ -300,3 +301,44 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
         node_valid=torch.from_numpy(valid).to(device),
         num_parts=num_parts,
     )
+
+
+# --------------------------------------------------------------------------
+# minibatch seeds
+# --------------------------------------------------------------------------
+
+def seeds_per_worker_host(layout: PartitionLayout, batch: int,
+                          epoch_salt: int) -> np.ndarray:
+    """Host half of ``seeds_per_worker``: each labeled node gets a hash
+    rank from (global id, epoch_salt) and every worker takes its ``batch``
+    lowest-ranked labeled nodes (ties by column order).  Returns a host
+    ``(P, batch)`` int32 array, -1 padded; the same numpy program as
+    ``repro``'s, so the seeds are bit-identical."""
+    P = layout.num_parts
+    offsets = layout.offsets.cpu().numpy().astype(np.int64)
+    labels = layout.labels.cpu().numpy()
+    n_max = labels.shape[1]
+
+    gids = offsets[:-1, None] + np.arange(n_max, dtype=np.int64)[None, :]
+    # fold the salt in Python-int space (arbitrary precision, then wrap)
+    salt64 = np.uint64((int(epoch_salt) * 0x9E3779B97F4A7C15) % (2 ** 64))
+    key = mix64(gids.astype(np.uint64) + salt64)
+    key = np.where(labels >= 0, key, np.uint64(np.iinfo(np.uint64).max))
+
+    m = min(batch, n_max)
+    order = np.argsort(key, axis=1, kind="stable")[:, :m]
+    picked = np.take_along_axis(gids, order, axis=1)
+    take = np.minimum((labels >= 0).sum(axis=1), m)
+    valid = np.arange(m)[None, :] < take[:, None]
+    out = np.full((P, batch), -1, np.int32)
+    out[:, :m] = np.where(valid, picked, -1)
+    return out
+
+
+def seeds_per_worker(layout: PartitionLayout, batch: int,
+                     epoch_salt: int) -> torch.Tensor:
+    """Each worker draws its minibatch from its own labeled nodes (paper
+    §4), deterministic in ``epoch_salt``: (P, batch) int32 global ids, -1
+    padded, on the layout's device."""
+    return torch.from_numpy(seeds_per_worker_host(
+        layout, batch, epoch_salt)).to(layout.device)

@@ -1,7 +1,9 @@
-// GraphSAGE masked neighbour mean, forward, on Hopper.
+// GraphSAGE masked neighbour mean, forward and backward, on Hopper.
 //
 // Replaces: src/repro/kernels/sage_aggregate.py, `_sage_aggregate_kernel`
-// (the Pallas body behind `sage_aggregate`).
+// (the Pallas body behind `sage_aggregate`), and, for the backward, the
+// gradient XLA derives from the jnp mean (`src/repro/core/mfg.py`
+// `mean_aggregate`): `repro` has no backward kernel.
 //
 // What bounds it on this card: bytes.  Each destination row reads F edge
 // ids and up to F source rows of D floats, and writes D floats; it does one
@@ -21,6 +23,20 @@
 //
 // Layout: edges (B, S, F) int32, valid iff in [0, N); h (B, N, D) float32;
 // out (B, S, D) float32.  B is the worker axis.
+//
+// Backward: grad_h[n] = sum over valid (i, f) with edges[i, f] == n of
+// grad_out[i] / max(count_i, 1); duplicates count by multiplicity and a
+// row no edge names gets 0.  Also bound by bytes.  A float atomicAdd
+// scatter would give other bits on every run, so the kernel gathers
+// instead: the wrapper prepares the transpose once per call (a stable
+// sort of the flattened edge slots by source row, `rowptr` over the
+// sorted slots, and each destination row's max(count, 1)), and one warp
+// per source row sums its slots in ascending (i, f) order.  Every output
+// row is written once, so the result is the same bits on every run.
+//
+// Backward layout: rowptr (B * N + 1) int32 and slots (nnz) int32, the
+// flattened (b, i, f) slot ids sorted by source row b * N + n; grad_out
+// (B, S, D) float32; denom (B * S) float32; grad_h (B, N, D) float32.
 
 #include <cuda_runtime.h>
 
@@ -82,6 +98,47 @@ __global__ void sage_aggregate_kernel(const int* __restrict__ edges,
   }
 }
 
+template <bool kVec>
+__global__ void sage_aggregate_backward_kernel(
+    const int* __restrict__ rowptr, const int* __restrict__ slots,
+    const float* __restrict__ grad_out, const float* __restrict__ denom,
+    long long rows, int F, int D, float* __restrict__ grad_h) {
+  const long long row =
+      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int beg = rowptr[row];
+  const int end = rowptr[row + 1];
+  float* o = grad_h + row * (long long)D;
+
+  if (kVec) {
+    const int D4 = D >> 2;
+    for (int c = lane; c < D4; c += 32) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k = beg; k < end; ++k) {
+        const int dst = slots[k] / F;
+        const float d = denom[dst];
+        const float4 g =
+            reinterpret_cast<const float4*>(grad_out + (long long)dst * D)[c];
+        acc.x += g.x / d;
+        acc.y += g.y / d;
+        acc.z += g.z / d;
+        acc.w += g.w / d;
+      }
+      reinterpret_cast<float4*>(o)[c] = acc;
+    }
+  } else {
+    for (int c = lane; c < D; c += 32) {
+      float acc = 0.f;
+      for (int k = beg; k < end; ++k) {
+        const int dst = slots[k] / F;
+        acc += grad_out[(long long)dst * D + c] / denom[dst];
+      }
+      o[c] = acc;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int sage_aggregate_launch(const int* edges, const float* h, int B,
@@ -97,6 +154,26 @@ extern "C" int sage_aggregate_launch(const int* edges, const float* h, int B,
   } else {
     sage_aggregate_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
         edges, h, rows, S, F, N, D, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sage_aggregate_backward_launch(
+    const int* rowptr, const int* slots, const float* grad_out,
+    const float* denom, int B, int N, int F, int D, int vec, float* grad_h,
+    cudaStream_t stream) {
+  const long long rows = (long long)B * N;
+  if (rows == 0) return (int)cudaSuccess;
+  const unsigned int blocks =
+      (unsigned int)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if (vec) {
+    sage_aggregate_backward_kernel<true>
+        <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+            rowptr, slots, grad_out, denom, rows, F, D, grad_h);
+  } else {
+    sage_aggregate_backward_kernel<false>
+        <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+            rowptr, slots, grad_out, denom, rows, F, D, grad_h);
   }
   return (int)cudaGetLastError();
 }

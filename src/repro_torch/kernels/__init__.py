@@ -1,8 +1,13 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
-  fused_sample    Algorithm 1 for one level (``csrc/fused_sample.cu``)
-  sage_aggregate  masked neighbour mean, forward (``csrc/sage_aggregate.cu``)
-  feature_gather  feature-row gather (``csrc/feature_gather.cu``)
+  fused_sample             Algorithm 1 for one level
+                           (``csrc/fused_sample.cu``)
+  sage_aggregate           masked neighbour mean, forward
+                           (``csrc/sage_aggregate.cu``)
+  sage_aggregate_backward  its gradient (``csrc/sage_aggregate.cu``)
+  feature_gather           owner-side feature-row gather
+                           (``csrc/feature_gather.cu``)
+  gather_rows              pinned hot-row gather (``csrc/gather_rows.cu``)
 
 Each wrapper counts its launches in a ``launches`` attribute.  Sources are
 compiled by ``nvcc`` at first use on a CUDA tensor (``_build``).  This
@@ -12,11 +17,14 @@ modules, and the fused sampler's plain version imports the core sampler.
 
 
 def kernel_wrappers() -> tuple:
-    """The three kernel wrappers, in path order."""
+    """The five kernel wrappers, in path order."""
     from repro_torch.kernels.feature_gather import feature_gather
     from repro_torch.kernels.fused_sample import fused_sample
-    from repro_torch.kernels.sage_aggregate import sage_aggregate
-    return fused_sample, sage_aggregate, feature_gather
+    from repro_torch.kernels.gather import gather_rows
+    from repro_torch.kernels.sage_aggregate import (sage_aggregate,
+                                                    sage_aggregate_backward)
+    return (fused_sample, gather_rows, feature_gather, sage_aggregate,
+            sage_aggregate_backward)
 
 
 def reset_launch_counts() -> None:

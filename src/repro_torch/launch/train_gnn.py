@@ -1,0 +1,148 @@
+"""Distributed GNN training launcher of the port — the paper's workload
+through the ``repro_torch.pipeline`` API, all P workers stacked on one
+device (counterpart of ``repro.launch.train_gnn``, same defaults).
+
+  python -m repro_torch.launch.train_gnn --devices 4        # on the GPU
+  python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
+      --devices 4 --feature-store pinned_hot --cache-capacity 256 \\
+      --epochs 1 --steps-per-epoch 3 --batch 32
+
+Not ported yet, and refused with an error: prefetch depth > 0, seed
+staging, executors other than the stacked one, tracing, the
+``frequency`` cache policy, the ``staged`` feature store, and schemes
+other than ``hybrid`` / ``hybrid+fused``.
+"""
+import argparse
+import time
+
+_NOT_PORTED = "is not ported to repro_torch yet"
+
+
+def _refuse_unported(ap, args) -> None:
+    if args.prefetch_depth > 0:
+        ap.error(f"--prefetch-depth > 0 (double-buffered prefetch) "
+                 f"{_NOT_PORTED}")
+    if args.staging:
+        ap.error(f"--staging (host-side seed staging) {_NOT_PORTED}")
+    if args.shard_map or args.executor not in (None, "stacked"):
+        ap.error(f"executor {args.executor or 'shard_map'!r} {_NOT_PORTED}; "
+                 f"the port runs the stacked executor")
+    if args.trace:
+        ap.error(f"--trace {_NOT_PORTED}")
+    if args.cache_policy != "degree":
+        ap.error(f"cache policy {args.cache_policy!r} {_NOT_PORTED}; "
+                 f"available: degree")
+    if args.feature_store not in ("exchange", "pinned_hot"):
+        ap.error(f"feature store {args.feature_store!r} {_NOT_PORTED}; "
+                 f"available: exchange, pinned_hot")
+    if args.scheme not in ("hybrid", "hybrid+fused"):
+        ap.error(f"scheme {args.scheme!r} {_NOT_PORTED}; available: "
+                 f"hybrid, hybrid+fused")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--devices", type=int, default=8,
+                    help="workers (P), stacked on one device")
+    ap.add_argument("--device", default=None,
+                    help="where to run: cuda (the default) or cpu")
+    ap.add_argument("--dataset", default="powerlaw(1.8)",
+                    help="graph source registry name (uniform | "
+                         "powerlaw(alpha))")
+    ap.add_argument("--split", default="random(0.3)",
+                    help="labeled-node split policy (random(frac))")
+    ap.add_argument("--scheme", default="hybrid+fused",
+                    help="hybrid | hybrid+fused")
+    ap.add_argument("--partitioner", default="ldg",
+                    help="partitioner registry name (ldg)")
+    ap.add_argument("--cache-capacity", type=int, default=0,
+                    help="per-worker hot-remote-feature cache entries "
+                         "(0 = off)")
+    ap.add_argument("--cache-policy", default="degree",
+                    help="cache-construction policy (degree)")
+    ap.add_argument("--feature-store", default="exchange",
+                    help="exchange (two-round all_to_all fetch) | "
+                         "pinned_hot (cache's hot rows pinned in device "
+                         "memory, needs --cache-capacity > 0); rows are "
+                         "bit-identical across stores")
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="only 0 (synchronous) is ported")
+    ap.add_argument("--staging", action="store_true",
+                    help="not ported")
+    ap.add_argument("--nodes", type=int, default=20000)
+    ap.add_argument("--avg-degree", type=int, default=10)
+    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--steps-per-epoch", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=0.006)   # paper §4
+    ap.add_argument("--shard-map", action="store_true",
+                    help="not ported (the port runs the stacked executor)")
+    ap.add_argument("--executor", default=None,
+                    help="stacked (the one executor ported)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="not ported")
+    args = ap.parse_args(argv)
+    _refuse_unported(ap, args)
+
+    from repro_torch.data.spec import DataSpec
+    from repro_torch.device import resolve_device
+    from repro_torch.models.gnn import GNNConfig, gnn_loss, init_gnn_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+
+    import torch
+
+    device = resolve_device(args.device)
+    data = DataSpec(source=args.dataset, num_nodes=args.nodes,
+                    avg_degree=args.avg_degree, num_features=100,
+                    num_classes=47, split=args.split, seed=0)
+    fanouts = (10, 10, 5)               # paper §4 defaults
+    spec = PipelineSpec.from_scheme(
+        args.scheme, num_parts=args.devices, fanouts=fanouts,
+        cache_capacity=args.cache_capacity, cache_policy=args.cache_policy,
+        partitioner=args.partitioner, feature_store=args.feature_store,
+        data=data)
+    pipe = Pipeline.build_from_source(spec=spec, device=device)
+    ds = pipe.dataset
+    print(f"dataset: {ds.name}, {ds.graph.num_nodes} nodes, "
+          f"{ds.graph.num_edges} edges; partitioned into {args.devices} by "
+          f"{args.partitioner!r}; device {device}")
+
+    cfg = GNNConfig(in_dim=ds.features.shape[1], hidden_dim=256,
+                    num_classes=ds.num_classes, num_layers=len(fanouts),
+                    fanouts=fanouts, dropout=0.0)
+
+    def loss_fn(p, mfgs, h_src, labels, valid):
+        return gnn_loss(p, mfgs, h_src, labels, valid, cfg)
+
+    params = init_gnn_params(cfg, torch.Generator().manual_seed(0), device)
+    opt_state = init_opt_state(params, kind="adamw")
+    driver = pipe.train_driver(loss_fn, batch=args.batch, lr=args.lr,
+                               optimizer="adamw", grad_clip=1.0,
+                               device=device)
+    for epoch in range(args.epochs):
+        t0 = time.time()
+        rounds_before = pipe.counter.rounds
+        for s in range(args.steps_per_epoch):
+            params, opt_state, loss, metrics = driver.step(params, opt_state)
+            if epoch == 0 and s == 0:
+                print(f"scheme={args.scheme} executor=stacked prefetch=0 "
+                      f"staging=off store={args.feature_store}: "
+                      f"{pipe.counter.rounds} comm rounds/step "
+                      f"({pipe.counter.sampling_rounds} sampling + "
+                      f"{pipe.counter.feature_rounds} feature; "
+                      f"vanilla=2L={2 * cfg.num_layers}, hybrid=2)")
+        rounds = (pipe.counter.rounds - rounds_before) \
+            / args.steps_per_epoch
+        msg = (f"epoch {epoch}: loss {float(loss):.4f} "
+               f"rounds/step {rounds:g} utilized-KB/step "
+               f"{float(metrics['sampling_utilized_bytes']) / 1024:.0f}s+"
+               f"{float(metrics['feature_utilized_bytes']) / 1024:.0f}f "
+               f"time {time.time() - t0:.2f}s")
+        if args.cache_capacity:
+            msg += f" cache-hit {float(metrics['cache_hit_rate']):.1%}"
+        print(msg)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,7 @@ Counterpart of ``repro.pipeline.infer``.  The prepare half is the training
 side's (multi-level sampling + feature fetch, the part FastSample
 accelerates); the consume half is a gradient-free forward:
 
-    prepare(shard, seeds, salt) -> PreparedBatch
+    prepare(shard, seeds, salt, cache=None) -> PreparedBatch
     consume(params, batch) -> (logits, metrics)
 
 ``logits`` is (P, batch, C), row p for worker p's seeds: serving routes
@@ -56,14 +56,14 @@ def make_infer_step(*, offsets, num_parts, fanouts, forward_fn, plan,
                     backend: str | None = None,
                     level_fn: Callable | None = None,
                     counter: dist.RoundCounter | None = None):
-    """The composed inference program: ``step(params, shard, seeds, salt)
-    -> (logits, metrics)`` over the stacked worker axis."""
+    """The composed inference program: ``step(params, shard, seeds, salt,
+    cache=None) -> (logits, metrics)`` over the stacked worker axis."""
     prepare, consume = make_infer_prepare_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         forward_fn=forward_fn, plan=plan, backend=backend,
         level_fn=level_fn, counter=counter)
 
-    def step(params, shard, seeds, salt):
-        return consume(params, prepare(shard, seeds, salt))
+    def step(params, shard, seeds, salt, cache=None):
+        return consume(params, prepare(shard, seeds, salt, cache))
 
     return step

@@ -3,8 +3,10 @@ and worker shards (counterpart of ``repro.pipeline.pipeline``).
 
 ``Pipeline.build(graph, features, labels, spec)`` partitions on the host,
 moves the relabeled topology and the feature shards to ``device`` (CUDA
-unless the caller passes ``device="cpu"``), and returns an object whose
-``infer_step_fn`` runs the serving step program over all P workers.
+unless the caller passes ``device="cpu"``), builds the feature cache the
+spec asks for, and returns an object whose ``train_step`` /
+``train_driver`` run the training step and whose ``infer_step_fn`` runs
+the serving step, each over all P workers.
 """
 from __future__ import annotations
 
@@ -28,17 +30,24 @@ class Pipeline:
     layout:           relabeled topology + ownership metadata (on device).
     shards:           per-worker features and labels, stacked on axis 0.
     graph_replicated: the replicated topology (hybrid scheme).
-    counter:          communication-round counter, ticked by programs
-                      built with ``counted=True``.
+    cache:            stacked ``FeatureCache`` when cache_capacity > 0
+                      (built by the spec'd ``cache_policy``), else None.
+    counter:          communication-round counter, ticked on every call of
+                      a program built with ``counted=True`` (the training
+                      step always is).
     placement:        the ``PlacementPlan`` sampling dispatches through.
+    feature_store:    the ``FeatureStore`` serving the training step's
+                      frontier rows (``PlanSpec.feature_store``).
     dataset:          the source ``GraphDataset`` (``build_from_source``).
     """
     spec: PipelineSpec
     layout: "PartitionLayout"                       # noqa: F821
     shards: dist.WorkerShard
     graph_replicated: CSCGraph | None
+    cache: "FeatureCache | None"                    # noqa: F821
     counter: dist.RoundCounter
     placement: "PlacementPlan"                      # noqa: F821
+    feature_store: "FeatureStore"                   # noqa: F821
     dataset: "GraphDataset | None" = None           # noqa: F821
 
     # ---------------------------------------------------------------- build
@@ -88,7 +97,10 @@ class Pipeline:
                     device=None) -> "Pipeline":
         """Assemble a pipeline over an existing ``PartitionLayout``, moved
         to ``device`` if it lies elsewhere (so several specs can share one
-        partitioning)."""
+        partitioning).  Placement, cache construction and the feature
+        store resolve by registry name from ``spec.plan``."""
+        from repro_torch.core.cache import resolve_cache_policy
+        from repro_torch.core.feature_store import resolve_feature_store
         from repro_torch.core.placement import resolve_scheme
 
         device = resolve_device(device)
@@ -101,9 +113,16 @@ class Pipeline:
         placement = resolve_scheme(spec.plan.scheme).build(layout)
         shards = dist.WorkerShard(features=layout.features,
                                   labels=layout.labels)
+        plan = spec.plan
+        cache = None
+        if plan.cache_capacity > 0:
+            cache = resolve_cache_policy(plan.cache_policy)(
+                layout, plan.cache_capacity, fanouts=spec.sampler.fanouts,
+                seed=plan.partition_seed)
         return cls(spec=spec, layout=layout, shards=shards,
-                   graph_replicated=placement.replicated_graph,
-                   counter=dist.RoundCounter(), placement=placement)
+                   graph_replicated=placement.replicated_graph, cache=cache,
+                   counter=dist.RoundCounter(), placement=placement,
+                   feature_store=resolve_feature_store(plan.feature_store))
 
     # ------------------------------------------------------------- programs
 
@@ -112,6 +131,85 @@ class Pipeline:
         if device.type != self.device.type:
             raise ValueError(f"asked for {device}, but the pipeline's data "
                              f"lies on {self.device}")
+
+    def make_step(self, loss_fn, *, device=None):
+        """The training step program (``repro_torch.pipeline.worker``):
+        ``step(params, shard, seeds, salt[, cache]) -> (loss, grads,
+        metrics)``, counted, on ``device`` (the pipeline's; ``None`` means
+        CUDA).  ``loss_fn(params, mfgs, h_src, seed_labels, seed_valid)``
+        returns the per-worker losses."""
+        from repro_torch.pipeline.worker import make_worker_step
+
+        self._check_device(device)
+        return make_worker_step(
+            offsets=self.layout.offsets, num_parts=self.num_parts,
+            fanouts=self.spec.sampler.fanouts, loss_fn=loss_fn,
+            plan=self.placement, backend=self.spec.sampler.backend,
+            counter=self.counter, use_cache=self.cache is not None,
+            store=self.feature_store)
+
+    def make_prepare_consume(self, loss_fn, *, counted: bool = True,
+                             device=None):
+        """The *prepare* / *consume* halves of the training step
+        (``repro_torch.pipeline.prefetch``): ``prepare(shard, seeds, salt,
+        cache) -> PreparedBatch`` and ``consume(params, batch) -> (loss,
+        grads, metrics)``, on ``device`` (the pipeline's; ``None`` means
+        CUDA)."""
+        from repro_torch.pipeline import prefetch as _prefetch
+
+        self._check_device(device)
+        return _prefetch.make_prepare_consume(
+            offsets=self.layout.offsets, num_parts=self.num_parts,
+            fanouts=self.spec.sampler.fanouts, loss_fn=loss_fn,
+            plan=self.placement, backend=self.spec.sampler.backend,
+            counter=self.counter if counted else None,
+            store=self.feature_store)
+
+    def step_fn(self, loss_fn, *, device=None):
+        """The training step bound to the stacked executor: ``fn(params,
+        seeds, salt) -> (loss, grads, metrics)`` with stacked (P, batch)
+        seeds, on ``device`` (the pipeline's; ``None`` means CUDA)."""
+        return StackedExecutor().bind(self, self.make_step(loss_fn,
+                                                           device=device))
+
+    def train_step(self, loss_fn, *, lr: float = 1e-3,
+                   optimizer: str = "adamw", grad_clip: float | None = 1.0,
+                   device=None):
+        """The optimizer-applied synchronous step: ``fn(params, opt_state,
+        seeds, salt) -> (params, opt_state, loss, metrics)``, on ``device``
+        (the pipeline's; ``None`` means CUDA)."""
+        from repro_torch.pipeline.prefetch import make_update_fn
+
+        run = self.step_fn(loss_fn, device=device)
+        update = make_update_fn(lr=lr, optimizer=optimizer,
+                                grad_clip=grad_clip)
+
+        def fn(params, opt_state, seeds, salt):
+            loss, grads, metrics = run(params, seeds, salt)
+            params, opt_state, metrics = update(params, opt_state, grads,
+                                                metrics)
+            return params, opt_state, loss, metrics
+
+        return fn
+
+    def train_driver(self, loss_fn, *, batch: int, lr: float = 1e-3,
+                     optimizer: str = "adamw",
+                     grad_clip: float | None = 1.0, base_salt: int = 0,
+                     mode: str = "sync", device=None):
+        """The step driver: ``driver.step(params, opt_state, step_idx=None)
+        -> (params, opt_state, loss, metrics)`` over the deterministic seed
+        stream, on ``device`` (the pipeline's; ``None`` means CUDA).  Only
+        the synchronous (``"sync"``, depth 0) driver is ported;
+        ``"double_buffer"`` raises."""
+        from repro_torch.pipeline.prefetch import SyncDriver
+
+        if mode != "sync":
+            raise NotImplementedError(
+                f"prefetch driver {mode!r} is not ported yet; the port "
+                f"runs the synchronous driver (prefetch depth 0) only")
+        return SyncDriver(self, loss_fn, batch=batch, lr=lr,
+                          optimizer=optimizer, grad_clip=grad_clip,
+                          base_salt=base_salt, device=device)
 
     def make_infer_prepare_consume(self, forward_fn, *,
                                    counted: bool = False, device=None):
@@ -153,6 +251,19 @@ class Pipeline:
                                        device=device))
 
     # ------------------------------------------------------------ utilities
+
+    def seeds_host(self, batch: int, epoch_salt: int) -> np.ndarray:
+        """(P, batch) per-worker minibatch seeds as a host int32 array,
+        drawn from each worker's own labeled nodes (deterministic in
+        ``epoch_salt``)."""
+        from repro_torch.core.partition import seeds_per_worker_host
+        return seeds_per_worker_host(self.layout, batch,
+                                     epoch_salt=epoch_salt)
+
+    def seeds(self, batch: int, epoch_salt: int) -> torch.Tensor:
+        """``seeds_host`` on the pipeline's device."""
+        from repro_torch.core.partition import seeds_per_worker
+        return seeds_per_worker(self.layout, batch, epoch_salt=epoch_salt)
 
     @property
     def device(self) -> torch.device:

@@ -24,21 +24,35 @@ class PlanSpec:
     """Partitioning & placement plan (paper §3.3).
 
     scheme:         placement-scheme registry name
-                    (``repro_torch.core.placement``): "hybrid".  Frontier
-                    rows come from their owners by the two-round
-                    all_to_all fetch (``repro``'s "exchange" store).
+                    (``repro_torch.core.placement``): "hybrid".
+    cache_capacity: per-worker hot-remote-feature cache entries; 0 = off.
+    cache_policy:   cache-construction registry name
+                    (``repro_torch.core.cache``): "degree".
+    feature_store:  feature-store registry name
+                    (``repro_torch.core.feature_store``): "exchange" (the
+                    two-round all_to_all fetch, the default) or
+                    "pinned_hot" (the cache's hot rows pinned in device
+                    memory, served by the ``gather_rows`` kernel; needs
+                    ``cache_capacity > 0``).  Every store serves
+                    bit-identical rows.
     partitioner:    partitioner registry name
                     (``repro_torch.core.partition``): "ldg".
     node_slack / labeled_slack: partitioner balance targets.
     """
     num_parts: int
     scheme: str = "hybrid"
+    cache_capacity: int = 0
     node_slack: float = 1.05
     labeled_slack: float | None = None
     partition_seed: int = 0
+    cache_policy: str = "degree"
+    feature_store: str = "exchange"
     partitioner: str = "ldg"
 
     def __post_init__(self):
+        from repro_torch.core.cache import available_cache_policies
+        from repro_torch.core.feature_store import (available_feature_stores,
+                                                    resolve_feature_store)
         from repro_torch.core.partition import resolve_partitioner
         from repro_torch.core.placement import resolve_scheme
 
@@ -48,6 +62,22 @@ class PlanSpec:
             raise ValueError(str(e)) from None
         if self.num_parts < 1:
             raise ValueError(f"num_parts must be >= 1, got {self.num_parts}")
+        if self.cache_capacity < 0:
+            raise ValueError("cache_capacity must be >= 0")
+        if self.cache_policy not in available_cache_policies():
+            raise ValueError(
+                f"unknown cache policy {self.cache_policy!r}; valid: "
+                f"{available_cache_policies()}")
+        if self.feature_store not in available_feature_stores():
+            raise ValueError(
+                f"unknown feature store {self.feature_store!r}; valid: "
+                f"{available_feature_stores()}")
+        if resolve_feature_store(self.feature_store).needs_cache \
+                and self.cache_capacity == 0:
+            raise ValueError(
+                f"feature store {self.feature_store!r} serves hits from "
+                f"the pinned device cache; set cache_capacity > 0 (and a "
+                f"cache_policy) or use the 'exchange' store")
         resolve_partitioner(self.partitioner)
 
 
@@ -86,17 +116,23 @@ class PipelineSpec:
 
     @classmethod
     def from_scheme(cls, scheme: str, *, num_parts: int, fanouts,
-                    partition_seed: int = 0, partitioner: str = "ldg",
+                    cache_capacity: int = 0, partition_seed: int = 0,
+                    partitioner: str = "ldg", cache_policy: str = "degree",
+                    feature_store: str = "exchange",
                     data: DataSpec | None = None) -> "PipelineSpec":
         """``hybrid`` -> scheme hybrid, backend ``"unfused"``;
-        ``hybrid+fused`` -> scheme hybrid, backend ``"fused_cuda"``."""
+        ``hybrid+fused`` -> scheme hybrid, backend ``"fused_cuda"``; the
+        cache and feature-store arguments go to ``PlanSpec``."""
         if scheme not in LEGACY_SCHEMES:
             raise ValueError(f"unknown scheme {scheme!r}; "
                              f"valid: {LEGACY_SCHEMES}")
         backend = "fused_cuda" if scheme == "hybrid+fused" else "unfused"
         return cls(
             plan=PlanSpec(num_parts=num_parts, scheme="hybrid",
+                          cache_capacity=cache_capacity,
+                          cache_policy=cache_policy,
                           partition_seed=partition_seed,
-                          partitioner=partitioner),
+                          partitioner=partitioner,
+                          feature_store=feature_store),
             sampler=SamplerSpec(fanouts=tuple(fanouts), backend=backend),
             data=data)

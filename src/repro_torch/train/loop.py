@@ -1,0 +1,95 @@
+"""The distributed GNN trainer (the paper's workload), counterpart of the
+GNN part of ``repro.train.loop``."""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.gnn import GNNConfig, gnn_loss, init_gnn_params
+from repro_torch.optim import init_opt_state
+from repro_torch.pipeline import Pipeline, PipelineSpec
+
+
+@dataclasses.dataclass
+class GNNTrainer:
+    """Distributed sampling-based GNN training (the paper's §4 setup) over
+    the stacked worker axis on one device.
+
+    scheme: ``"hybrid"`` | ``"hybrid+fused"`` (``PipelineSpec.from_scheme``);
+    ``cache_capacity`` / ``cache_policy`` attach the §5 feature cache and
+    ``feature_store`` selects how frontier rows are served (``"exchange"``
+    or ``"pinned_hot"``).  Only prefetch depth 0 is ported.  Parameters are
+    drawn from a CPU ``torch.Generator`` seeded with ``seed``; set
+    ``params`` and ``opt_state`` to start elsewhere.
+    """
+    layout: "PartitionLayout"                        # noqa: F821
+    cfg: GNNConfig
+    scheme: str = "hybrid+fused"
+    lr: float = 0.006            # paper's §4 learning rate
+    batch_per_worker: int = 1000  # paper's §4 batch size
+    cache_capacity: int = 0
+    cache_policy: str = "degree"
+    feature_store: str = "exchange"
+    prefetch_depth: int = 0
+    seed: int = 0
+    device: object = None
+
+    def __post_init__(self):
+        if self.prefetch_depth != 0:
+            raise NotImplementedError(
+                "prefetch depth > 0 (double-buffered prefetch) is not "
+                "ported yet; use prefetch_depth=0")
+        self.device = resolve_device(self.device)
+        spec = PipelineSpec.from_scheme(
+            self.scheme, num_parts=self.layout.num_parts,
+            fanouts=self.cfg.fanouts, cache_capacity=self.cache_capacity,
+            cache_policy=self.cache_policy,
+            feature_store=self.feature_store)
+        self.pipeline = Pipeline.from_layout(self.layout, spec,
+                                             device=self.device)
+        self.counter = self.pipeline.counter
+
+        def loss_fn(p, mfgs, h_src, labels, valid):
+            return gnn_loss(p, mfgs, h_src, labels, valid, self.cfg)
+
+        self.driver = self.pipeline.train_driver(
+            loss_fn, batch=self.batch_per_worker, lr=self.lr,
+            optimizer="adamw", grad_clip=1.0, device=self.device)
+        self.params = init_gnn_params(
+            self.cfg, torch.Generator().manual_seed(self.seed), self.device)
+        self.opt_state = init_opt_state(self.params, kind="adamw")
+
+    def run_epoch(self, epoch: int, steps_per_epoch: int = 10) -> dict:
+        """Run steps ``epoch*steps_per_epoch .. +steps_per_epoch`` of the
+        deterministic seed stream (re-running an epoch replays its exact
+        minibatches); returns summary metrics: ``loss`` and
+        ``cache_hit_rate`` averaged over the epoch's steps,
+        ``final_loss``, ``epoch_time`` (s) and ``comm_rounds_per_step``
+        (the round counter's growth over the epoch per step)."""
+        t0 = time.perf_counter()
+        rounds_before = self.counter.rounds
+        losses, hit_rates = [], []
+        for s in range(steps_per_epoch):
+            k = epoch * steps_per_epoch + s
+            self.params, self.opt_state, loss, metrics = self.driver.step(
+                self.params, self.opt_state, step_idx=k)
+            losses.append(float(loss))
+            hit_rates.append(float(metrics["cache_hit_rate"]))
+        return {"loss": sum(losses) / len(losses),
+                "final_loss": losses[-1],
+                "epoch_time": time.perf_counter() - t0,
+                "comm_rounds_per_step":
+                    (self.counter.rounds - rounds_before) / steps_per_epoch,
+                "cache_hit_rate": sum(hit_rates) / len(hit_rates)}
+
+    def predictor(self, *, buckets=(1, 8, 32, 128), base_salt: int = 0):
+        """The trained params as an online ``repro_torch.serve.Predictor``
+        over this trainer's pipeline (same placement, sampler backend and
+        feature cache).  It snapshots ``self.params`` at call time."""
+        from repro_torch.serve import Predictor
+        return Predictor(self.pipeline, self.params, self.cfg,
+                         buckets=buckets, base_salt=base_salt,
+                         device=self.device)

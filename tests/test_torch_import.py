@@ -14,6 +14,11 @@ import sys
 import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+# the training slice's modules, which both checks must reach by name
+TRAINING_SLICE = ("core.feature_store", "core.cache", "kernels.gather",
+                  "optim", "optim.optimizers", "pipeline.worker", "train",
+                  "train.loop", "train.checkpoint", "launch",
+                  "launch.train_gnn")
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
                        re.MULTILINE)
@@ -35,16 +40,22 @@ def test_every_module_imports_without_jax_or_repro():
             importlib.import_module(name)
         assert "jax" not in [m for m in sys.modules
                              if sys.modules[m] is not None]
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", script], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip()) >= 30
+    names = set(out.stdout.split())
+    assert len(names) >= 40
+    assert {f"repro_torch.{m}" for m in TRAINING_SLICE} <= names
 
 
 def test_static_scan_finds_no_jax_or_repro_import():
+    scanned = {p.relative_to(PORT).with_suffix("").as_posix().replace(
+        "/", ".").removesuffix(".__init__") for p in _port_sources()
+        if PORT in p.parents}
+    assert set(TRAINING_SLICE) <= scanned
     offenders = []
     for path in _port_sources():
         for m in FORBIDDEN.finditer(path.read_text()):

@@ -9,6 +9,14 @@
     another order).
   * feature_gather: rows equal by value (``np.array_equal``) to ``repro``'s
     Pallas kernel in interpret mode.
+  * gather_rows: exact against ``repro``'s ``gather_rows_reference`` (its
+    Pallas ``gather_rows`` needs ``pl.load``, which the installed JAX
+    lacks), all-invalid and out-of-range ids included.
+  * sage_aggregate backward: the gradient through ``sage_aggregate``
+    equals autograd of the plain version and, within fp32 ``rtol=atol=
+    1e-5``, ``jax.grad`` of ``repro``'s mean; the transpose the CUDA
+    backward kernel reads (``backward_index``), walked in Python as the
+    kernel walks it, gives the same gradient.
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 each against its plain version there.  Here the wrappers must take the
@@ -17,6 +25,7 @@ plain version for CPU tensors and refuse anything else.
 import shutil
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -24,6 +33,7 @@ import torch
 from repro.core.graph import CSCGraph as JCSC
 from repro.core.graph import csc_from_numpy_edges as j_csc
 from repro.kernels.feature_gather import feature_gather as j_feature_gather
+from repro.kernels.gather import gather_rows_reference
 from repro.kernels.ref import (ref_feature_gather, ref_fused_sample,
                                ref_mean_aggregate, ref_windowed_fused_sample)
 from repro.kernels.sage_aggregate import sage_aggregate as j_sage_aggregate
@@ -33,7 +43,12 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.feature_gather import (feature_gather,
                                                 feature_gather_plain)
 from repro_torch.kernels.fused_sample import fused_sample
-from repro_torch.kernels.sage_aggregate import sage_aggregate
+from repro_torch.kernels.gather import gather_rows, gather_rows_plain
+from repro_torch.kernels.sage_aggregate import (backward_index,
+                                                sage_aggregate,
+                                                sage_aggregate_backward,
+                                                sage_aggregate_backward_plain,
+                                                sage_aggregate_plain)
 
 
 def _hub_graph(seed=0, n=300, m=6000, alpha=1.2):
@@ -174,19 +189,113 @@ def test_feature_gather_stacked_tables():
                 jnp.asarray(ids[b]), jnp.asarray(table[b]))))
 
 
+@pytest.mark.parametrize("N,K,D,lo,hi", [
+    (1, 1, 1, -1, 2), (50, 30, 8, -1, 33), (300, 129, 100, -5, 200),
+    (64, 16, 4, -3, 0), (40, 7, 33, 7, 20)],
+    ids=["tiny", "mixed", "wide", "all-invalid", "all-out-of-range"])
+def test_gather_rows_matches_repro(N, K, D, lo, hi):
+    rng = np.random.default_rng(N + K + D)
+    ids = rng.integers(lo, hi, N).astype(np.int32)
+    table = rng.normal(0, 1, (K, D)).astype(np.float32)
+    got = gather_rows(torch.from_numpy(table), torch.from_numpy(ids))
+    ref = gather_rows_reference(jnp.asarray(table), jnp.asarray(ids))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    ok = (ids >= 0) & (ids < K)
+    assert not got.numpy()[~ok].any()
+    assert not np.signbit(got.numpy()[~ok]).any()      # +0.0 rows
+
+
+def test_gather_rows_stacked_tables():
+    rng = np.random.default_rng(9)
+    ids = rng.integers(-4, 25, (4, 30)).astype(np.int32)
+    ids[1] = -1
+    table = rng.normal(0, 1, (4, 20, 6)).astype(np.float32)
+    got = gather_rows_plain(torch.from_numpy(table), torch.from_numpy(ids))
+    assert got.shape == (4, 30, 6)
+    for b in range(4):
+        np.testing.assert_array_equal(
+            got[b].numpy(), np.asarray(gather_rows_reference(
+                jnp.asarray(table[b]), jnp.asarray(ids[b]))))
+
+
+def _kernel_walk(edges, grad_out, N):
+    """The backward kernel's loop in Python over ``backward_index``: each
+    source row sums grad_out[dst] / denom[dst] over its slots in order."""
+    rowptr, slots, denom = (t.numpy() for t in backward_index(
+        torch.from_numpy(edges), N))
+    F = edges.shape[-1]
+    g = grad_out.reshape(-1, grad_out.shape[-1])
+    out = np.zeros((rowptr.size - 1, g.shape[1]), np.float32)
+    for r in range(rowptr.size - 1):
+        for k in range(rowptr[r], rowptr[r + 1]):
+            dst = slots[k] // F
+            out[r] += g[dst] / denom[dst]
+    return out.reshape(*edges.shape[:-2], N, g.shape[1])
+
+
+@pytest.mark.parametrize("B,S,F,N,D", [(1, 1, 1, 1, 1), (1, 6, 3, 5, 4),
+                                       (3, 20, 4, 40, 12),
+                                       (2, 33, 7, 9, 5)])
+def test_sage_aggregate_trains_on_the_cpu(B, S, F, N, D):
+    """The gradient through ``sage_aggregate`` equals autograd of the plain
+    version, ``sage_aggregate_backward``, the kernel's walk over its
+    transpose, and ``jax.grad`` of ``repro``'s mean (duplicates count by
+    multiplicity; rows no edge names get 0)."""
+    rng = np.random.default_rng(B * S + F + N + D)
+    edges = rng.integers(-2, N + 2, (B, S, F)).astype(np.int32)
+    edges[0, 0] = edges[0, 0, 0]                     # a duplicate run
+    h = rng.normal(0, 1, (B, N, D)).astype(np.float32)
+    go = rng.normal(0, 1, (B, S, D)).astype(np.float32)
+    ht = torch.from_numpy(h).requires_grad_(True)
+    out = sage_aggregate(torch.from_numpy(edges), ht)
+    (got,) = torch.autograd.grad(out, ht, torch.from_numpy(go))
+    hp = torch.from_numpy(h).requires_grad_(True)
+    (plain,) = torch.autograd.grad(
+        sage_aggregate_plain(torch.from_numpy(edges), hp), hp,
+        torch.from_numpy(go))
+    assert torch.equal(got, plain)
+    assert torch.equal(sage_aggregate_backward_plain(
+        torch.from_numpy(edges), torch.from_numpy(go), N), plain)
+    np.testing.assert_allclose(_kernel_walk(edges, go, N), plain.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    for b in range(B):
+        e = jnp.asarray(np.where((edges[b] >= 0) & (edges[b] < N),
+                                 edges[b], -1))
+        _, vjp = jax.vjp(lambda x: ref_mean_aggregate(e, x),
+                         jnp.asarray(h[b]))
+        (jg,) = vjp(jnp.asarray(go[b]))
+        np.testing.assert_allclose(got[b].numpy(), np.asarray(jg),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_backward_index_orders_each_source_rows_slots():
+    edges = np.array([[[2, 0, 2], [-1, 2, 5], [0, 0, -1]]], np.int32)
+    rowptr, slots, denom = backward_index(torch.from_numpy(edges), 3)
+    assert rowptr.tolist() == [0, 3, 3, 6]
+    assert slots[:6].tolist() == [1, 6, 7, 0, 2, 4]
+    assert denom.tolist() == [3.0, 1.0, 2.0]
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching():
     reset_launch_counts()
     jg, tg = _hub_graph()
     fused_sample(tg.indptr, tg.indices, torch.tensor([0, 1], dtype=torch.int32),
                  0, fanout=2)
-    sage_aggregate(torch.zeros((2, 2), dtype=torch.int32), torch.ones(3, 4))
+    h = torch.ones(3, 4, requires_grad=True)
+    out = sage_aggregate(torch.zeros((2, 2), dtype=torch.int32), h)
+    out.sum().backward()
+    sage_aggregate_backward(torch.zeros((2, 2), dtype=torch.int32),
+                            torch.ones(2, 4), 3)
     feature_gather(torch.zeros(2, dtype=torch.int32), torch.ones(3, 4))
-    assert launch_counts() == {"fused_sample": 0, "sage_aggregate": 0,
-                               "feature_gather": 0}
+    gather_rows(torch.ones(3, 4), torch.zeros(2, dtype=torch.int32))
+    assert launch_counts() == {"fused_sample": 0, "gather_rows": 0,
+                               "feature_gather": 0, "sage_aggregate": 0,
+                               "sage_aggregate_backward": 0}
 
 
 @pytest.mark.parametrize("which", ["fused_sample", "sage_aggregate",
-                                   "feature_gather"])
+                                   "sage_aggregate_backward",
+                                   "feature_gather", "gather_rows"])
 def test_non_cpu_tensors_never_fall_back(which):
     """A tensor off the CPU launches the kernel or raises; one on a device
     the kernels do not serve raises."""
@@ -199,6 +308,13 @@ def test_non_cpu_tensors_never_fall_back(which):
             sage_aggregate(torch.zeros((2, 2), dtype=torch.int32,
                                        device=meta),
                            torch.ones((3, 4), device=meta))
+        elif which == "sage_aggregate_backward":
+            sage_aggregate_backward(torch.zeros((2, 2), dtype=torch.int32,
+                                                device=meta),
+                                    torch.ones((2, 4), device=meta), 3)
+        elif which == "gather_rows":
+            gather_rows(torch.ones((3, 4), device=meta),
+                        torch.zeros(2, dtype=torch.int32, device=meta))
         else:
             feature_gather(torch.zeros(2, dtype=torch.int32, device=meta),
                            torch.ones((3, 4), device=meta))
