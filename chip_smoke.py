@@ -19,7 +19,12 @@ Phases (any failure raises and the script exits non-zero):
      (a ``torch.profiler`` trace of 20 calls) and call time (CUDA events,
      median of 20), the plain version's and, where one PyTorch call
      computes the same function, that call's device time, and the least
-     time the card could take.
+     time the card could take; ``fused_sample`` must run as one
+     hand-written kernel per level.  Then ``fused_sample`` and the
+     ``sage_aggregate`` backward on edge shapes (S = 1, S off the scan
+     tile, B = 1, a row of padding seeds, S = 0, a window most seeds
+     exceed; D off float4, source rows with thousands of slots), the
+     backward's transpose equal to ``backward_index`` bit for bit.
   5. small-input parity: the same pipeline on an 800-node graph on the card
      and on the CPU (whose plain path the tests hold to ``repro``): MFGs
      equal, logits within tolerance.
@@ -33,15 +38,18 @@ Phases (any failure raises and the script exits non-zero):
   8. training: phase 3's layout through ``Pipeline.from_layout`` with a
      65 536-row ``degree`` cache per worker and the ``pinned_hot`` store,
      the paper's GraphSAGE with dropout 0, 1000 seeds per worker, AdamW
-     (lr 0.006, clip 1.0).  At one step's shapes: ``gather_rows`` exact
-     and the ``sage_aggregate`` backward within tolerance and the same
-     bits on two calls, against their plain versions; the step with the
+     (lr 0.006, clip 1.0).  At one step's shapes: ``gather_rows`` exact,
+     the ``sage_aggregate`` backward within tolerance and the same bits on
+     two calls (also timed with the L2 flushed before each call), its
+     transpose equal to ``backward_index`` with ``torch.searchsorted``
+     unavailable, ``fused_sample`` exact and the forward aggregate within
+     tolerance, all against their plain versions; the step with the
      kernels against the same step with plain versions (loss within 1e-5,
      each gradient leaf within tolerance); the ``pinned_hot`` step and an
      ``exchange``-with-cache step bit-identical in ``h_src``, loss and
      gradients.  Then, with every launch count set to 0 first, 10 steps
      through ``SyncDriver``: finite losses, 2 rounds per step, every one
-     of the five kernels launched; the step's wall time, device busy
+     of the six kernel wrappers launched; the step's wall time, device busy
      time and idle share, and peak device memory.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -71,10 +79,12 @@ SAGE_TOL = 1e-5                  # kernel vs plain aggregate: fp32 sum order
 LOGIT_TOL = 1e-4                 # logits after 3 layers of fp32 products
 # the kernels each path runs (the backward and the pinned gather train only)
 SERVING_KERNELS = ("fused_sample", "sage_aggregate", "feature_gather")
-# the device kernels of csrc/ by name (fused_sample runs two)
-HAND_WRITTEN = ("fused_sample_kernel", "row_scan_kernel",
-                "sage_aggregate_kernel", "sage_aggregate_backward_kernel",
-                "feature_gather_kernel", "gather_rows_kernel")
+# the device kernels of csrc/ by name (sage_backward_index runs two of its
+# own and CUB's radix sort)
+HAND_WRITTEN = ("fused_sample_kernel", "sage_aggregate_kernel",
+                "backward_prep_kernel", "rowptr_scan_kernel",
+                "sage_aggregate_backward_kernel", "feature_gather_kernel",
+                "gather_rows_kernel")
 TRAIN_BATCH = 1000               # seeds per worker (paper §4)
 CACHE_K = 65_536                 # pinned cache rows per worker
 TRAIN_STEPS = 10
@@ -86,13 +96,15 @@ LOSS_TOL = 1e-5                  # kernel step vs plain step, absolute
 # order, through three layers for the gradients)
 BWD_RTOL = 1e-5
 GRAD_RTOL = 1e-4
+FLUSH_KERNEL = "bitwise_not"     # the L2 flush's device kernel, by name
 
 
 def log(*args) -> None:
     print(*args, flush=True)
 
 
-def time_ms(fn, reps: int = REPS) -> tuple[float, float, dict]:
+def time_ms(fn, reps: int = REPS, flush=None,
+            launches: dict | None = None) -> tuple[float, float, dict]:
     """(device ms, call ms, device ms by name) of one ``fn()``, after 3
     warm-up runs.
 
@@ -102,6 +114,11 @@ def time_ms(fn, reps: int = REPS) -> tuple[float, float, dict]:
     call: the median over ``reps`` calls of CUDA events recorded around
     each call, which includes the host's launch overhead whenever the
     device waits for the host.
+    flush: ``l2_flush()``'s function, run before every call, outside the
+    events; its device kernel is left out of the sums.  launches: filled
+    with each device kernel's launches per call, by name.  A trace that
+    comes back with no device kernel at all (the tracer drops one now and
+    then on the card's machine) is taken again, up to three times.
     """
     import torch
     from torch.autograd import DeviceType
@@ -109,20 +126,33 @@ def time_ms(fn, reps: int = REPS) -> tuple[float, float, dict]:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            key = _short(e.key)
-            by_name[key] = by_name.get(key, 0.0) + _device_us(e) / reps / 1e3
-    device_ms = sum(by_name.values())
-    if device_ms <= 0:
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not (flush is not None and FLUSH_KERNEL in e.key)]
+        if events:
+            break
+        log(f"  (trace {attempt + 1} recorded no device kernel; tracing "
+            f"again)")
+    else:
         raise RuntimeError("the profiler recorded no device time")
+    by_name = {}
+    for e in events:
+        key = _short(e.key)
+        by_name[key] = by_name.get(key, 0.0) + _device_us(e) / reps / 1e3
+        if launches is not None:
+            launches[key] = launches.get(key, 0) + e.count / reps
+    device_ms = sum(by_name.values())
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -131,6 +161,15 @@ def time_ms(fn, reps: int = REPS) -> tuple[float, float, dict]:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return device_ms, statistics.median(times), by_name
+
+
+def l2_flush():
+    """A function that evicts the 50 MB L2: it rewrites a 256 MB buffer
+    with one ``bitwise_not`` kernel (FLUSH_KERNEL), which no kernel under
+    test launches."""
+    import torch
+    buf = torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
+    return buf.bitwise_not_
 
 
 def _device_us(evt) -> float:
@@ -189,7 +228,14 @@ def check_fused_sample(graph, frontiers, fanouts, salt):
             if not torch.equal(a, b):
                 raise AssertionError(f"fused_sample {name} differs from the "
                                      f"plain version at level {depth}")
-        ms, call, split = time_ms(lambda: fused_sample(*args, fanout=fanout))
+        per_call = {}
+        ms, call, split = time_ms(lambda: fused_sample(*args, fanout=fanout),
+                                  launches=per_call)
+        ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
+        if ours != {"fused_sample_kernel": 1}:
+            raise AssertionError(f"fused_sample level {depth}: hand-written "
+                                 f"device kernels per call {ours}, expected "
+                                 f"one fused_sample_kernel")
         plain, _, _ = time_ms(lambda: fused_sample_plain(*args,
                                                          fanout=fanout))
         B, S = seeds.shape
@@ -202,7 +248,7 @@ def check_fused_sample(graph, frontiers, fanouts, salt):
         bnd = add_bound(tot, nbytes, 14.0 * n_samples)
         ovf = int(got[2].sum())
         log(f"  fused_sample level {depth}: seeds {tuple(seeds.shape)} "
-            f"fanout {fanout}: exact match, overflow {ovf} "
+            f"fanout {fanout}: exact match, one kernel launch, overflow {ovf} "
             f"(deg > window), device {ms:.4f} ms, call {call:.4f} ms "
             f"(plain {plain:.4f} ms, bound {bnd:.5f} ms for {nbytes} B)")
         log("    device ms by kernel: " + ", ".join(
@@ -420,29 +466,82 @@ def check_gather_rows(table, ids):
     return tot
 
 
+def backward_transpose_bound(edges, n: int, tot: dict) -> float:
+    """Least time of ``sage_backward_index``: edge ids read once; row
+    pointer, slots and ``denom`` written once."""
+    B, S, Fo = edges.shape
+    nbytes = B * S * Fo * 4 * 2 + (B * n + 1) * 4 + B * S * 4
+    return add_bound(tot, nbytes, 0.0)
+
+
+def check_transpose(edges, n: int) -> int:
+    """The card's transpose equals ``backward_index`` bit for bit, with
+    ``torch.searchsorted`` unavailable while the card builds it.  Returns
+    the most slots any source row holds."""
+    import torch
+    from repro_torch.kernels.sage_aggregate import (backward_index,
+                                                    sage_backward_index)
+
+    def no_searchsorted(*args, **kwargs):
+        raise AssertionError("the CUDA backward called torch.searchsorted")
+
+    saved = torch.searchsorted
+    torch.searchsorted = no_searchsorted
+    try:
+        got = sage_backward_index(edges, n)
+        torch.cuda.synchronize()
+    finally:
+        torch.searchsorted = saved
+    for name, a, b in zip(("rowptr", "slots", "denom"), got,
+                          backward_index(edges, n)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the card's transpose: {name} differs "
+                                 f"from backward_index")
+    return int(torch.diff(got[0]).max()) if got[0].numel() > 1 else 0
+
+
+def check_backward_once(edges, g, n: int) -> tuple[float, float, int]:
+    """The backward kernel against its plain version: the transpose bit
+    for bit, the same bits on two calls, max abs error within BWD_RTOL of
+    the largest gradient.  Returns (the error, the largest gradient, the
+    most slots a source row holds)."""
+    import torch
+    from repro_torch.kernels.sage_aggregate import (
+        sage_aggregate_backward, sage_aggregate_backward_plain)
+    most = check_transpose(edges, n)
+    got = sage_aggregate_backward(edges, g, n)
+    again = sage_aggregate_backward(edges, g, n)
+    ref = sage_aggregate_backward_plain(edges, g, n)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("sage_aggregate backward: two calls on the "
+                             "same inputs differ in bits")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if err > BWD_RTOL * scale:
+        raise AssertionError(f"sage_aggregate backward: max abs error "
+                             f"{err} against the plain version (max "
+                             f"|grad| {scale}, rtol {BWD_RTOL})")
+    return err, scale, most
+
+
 def check_sage_backward(recorded):
     """``recorded``: (edges, grad_out, num_src) of each layer whose input
-    requires grad, from one training step."""
+    requires grad, from one training step.  Returns the backward's result
+    and that of the transpose it builds (``sage_backward_index``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.sage_aggregate import (
-        sage_aggregate_backward, sage_aggregate_backward_plain)
+        backward_index, sage_aggregate_backward,
+        sage_aggregate_backward_plain, sage_backward_index)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
-           "split": {}}
+           "split": {}, "cold_ms": 0.0, "cold_call_ms": 0.0}
+    idx = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "err": 0.0,
+           "library_ms": None}
+    flush = l2_flush()
     for edges, g, n in recorded:
-        got = sage_aggregate_backward(edges, g, n)
-        again = sage_aggregate_backward(edges, g, n)
+        err, scale, most = check_backward_once(edges, g, n)
         ref = sage_aggregate_backward_plain(edges, g, n)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError("sage_aggregate backward: two calls on the "
-                                 "same inputs differ in bits")
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        if err > BWD_RTOL * scale:
-            raise AssertionError(f"sage_aggregate backward: max abs error "
-                                 f"{err} against the plain version (max "
-                                 f"|grad| {scale}, rtol {BWD_RTOL})")
         B, S, Fo = edges.shape
         D = g.shape[-1]
         # library yardstick: the backward of one embedding_bag(mean) over
@@ -462,22 +561,43 @@ def check_sage_backward(recorded):
         if float((lib_grad - ref).abs().max()) > BWD_RTOL * scale:
             raise AssertionError("embedding_bag backward yardstick "
                                  "disagrees")
-        ms, call, split = time_ms(lambda: sage_aggregate_backward(edges, g,
-                                                                  n))
+        del ref, lib_grad
+
+        def kernel():
+            return sage_aggregate_backward(edges, g, n)
+
+        ms, call, split = time_ms(kernel)
+        cold, cold_call, cold_split = time_ms(kernel, flush=flush)
         plain, _, _ = time_ms(lambda: sage_aggregate_backward_plain(edges,
                                                                     g, n))
         lib, _, _ = time_ms(lib_fn)
+        out_buf = torch.empty((B, n, D), device=g.device)
+        floor, _, _ = time_ms(out_buf.zero_)
+        del out_buf
+        i_ms, i_call, _ = time_ms(lambda: sage_backward_index(edges, n))
+        i_plain, _, _ = time_ms(lambda: backward_index(edges, n))
         valid = (edges >= 0) & (edges < n)
         n_valid = int(valid.sum())
         n_dst = int(valid.any(dim=-1).sum())
         nbytes = B * S * Fo * 4 + n_dst * D * 4 + B * n * D * 4
         bnd = add_bound(tot, nbytes, 2.0 * n_valid * D)
+        i_bnd = backward_transpose_bound(edges, n, idx)
+        gather = split.get("sage_aggregate_backward_kernel", 0.0)
+        cold_gather = cold_split.get("sage_aggregate_backward_kernel", 0.0)
         log(f"  sage_aggregate backward: edges {tuple(edges.shape)} "
-            f"grad_out {tuple(g.shape)} -> ({B}, {n}, {D}): max abs err "
+            f"grad_out {tuple(g.shape)} -> ({B}, {n}, {D}), {n_valid} valid "
+            f"slots, at most {most} per source row: transpose == "
+            f"backward_index bit for bit (no searchsorted), max abs err "
             f"{err:.3g} (max |grad| {scale:.3g}, rtol {BWD_RTOL}), same "
-            f"bits on two calls, device {ms:.4f} ms, call {call:.4f} ms "
-            f"(plain {plain:.4f} ms, embedding_bag backward {lib:.4f} ms, "
-            f"bound {bnd:.5f} ms for {nbytes} B)")
+            f"bits on two calls, device {ms:.4f} ms (gather kernel "
+            f"{gather:.4f}), call {call:.4f} ms; L2 flushed before each "
+            f"call: device {cold:.4f} ms (gather kernel {cold_gather:.4f}), "
+            f"call {cold_call:.4f} ms (plain {plain:.4f} ms, embedding_bag "
+            f"backward {lib:.4f} ms, bound {bnd:.5f} ms for {nbytes} B; "
+            f"zero-filling the output alone {floor:.4f} ms)")
+        log(f"    transpose alone: device {i_ms:.4f} ms, call {i_call:.4f} "
+            f"ms (plain backward_index {i_plain:.4f} ms, bound "
+            f"{i_bnd:.5f} ms)")
         log("    device ms by kernel: " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(split.items(),
                                               key=lambda kv: -kv[1])))
@@ -485,10 +605,86 @@ def check_sage_backward(recorded):
             tot["split"][k] = tot["split"].get(k, 0.0) + v
         tot["ms"] += ms
         tot["call_ms"] = tot.get("call_ms", 0.0) + call
+        tot["cold_ms"] += cold
+        tot["cold_call_ms"] += cold_call
         tot["plain_ms"] += plain
         tot["library_ms"] += lib
         tot["err"] = max(tot["err"], err)
-    return tot
+        idx["ms"] += i_ms
+        idx["call_ms"] += i_call
+        idx["plain_ms"] += i_plain
+    return tot, idx
+
+
+def check_edge_shapes(graph) -> None:
+    """The redesigned kernels against their plain versions on edge shapes:
+    ``fused_sample`` with S = 1, S off either scan tile, B = 1, a row of
+    only padding seeds, S = 0 and a window most seeds exceed; the backward
+    with D off float4, a single slot, and source rows holding thousands
+    of slots (more than one warp's 32)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fused_sample import (fused_sample,
+                                                  fused_sample_plain)
+    from repro_torch.kernels.fused_sample import LARGE_LEVEL, LARGE_TILE
+    from repro_torch.kernels.fused_sample import SMALL_TILE
+    rng = np.random.default_rng(5)
+    n_nodes = graph.num_nodes
+
+    def seeds(B, S):
+        s = rng.integers(0, n_nodes, (B, S)).astype(np.int32)
+        s[rng.random((B, S)) < 0.3] = -1
+        return torch.from_numpy(s).cuda()
+
+    padded = seeds(3, 700)
+    padded[1] = -1
+    cases = [("S = 1, B = 1", seeds(1, 1), 5, 2048),
+             (f"S = tile + 1 = {SMALL_TILE + 1}", seeds(2, SMALL_TILE + 1),
+              3, 2048),
+             (f"{LARGE_TILE}-seed tiles, S = {LARGE_LEVEL // 2 + 1}",
+              seeds(2, LARGE_LEVEL // 2 + 1), 5, 2048),
+             (f"{LARGE_TILE}-seed tiles, B = 1, S = {LARGE_LEVEL + 3}",
+              seeds(1, LARGE_LEVEL + 3), 2, 2048),
+             ("S = 1000 (not a multiple of the tile)", seeds(4, 1000), 15,
+              2048),
+             ("a row of only -1 seeds", padded, 5, 2048),
+             ("S = 0", seeds(2, 0), 4, 2048),
+             ("window 4 (most seeds exceed it)", seeds(4, 5000), 6, 4),
+             ("1-D seeds", seeds(1, 300)[0], 5, 2048)]
+    for label, s, fanout, window in cases:
+        args = (graph.indptr, graph.indices, s, 12345)
+        got = fused_sample(*args, fanout=fanout, window=window)
+        ref = fused_sample_plain(*args, fanout=fanout, window=window)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("samples", "R", "overflow"), got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fused_sample, {label}: {name} "
+                                     f"differs from the plain version")
+        if window == 4 and int(got[2].sum()) == 0:
+            raise AssertionError("fused_sample: no seed exceeded window 4")
+        log(f"  fused_sample, {label}: seeds {tuple(s.shape)}, fanout "
+            f"{fanout}, window {window}: exact match, overflow "
+            f"{int(got[2].sum())}")
+
+    for B, S, Fo, n, D, hub in ((1, 1, 1, 1, 1, False),
+                                (1, 300, 5, 50, 33, False),
+                                (2, 500, 3, 7, 256, False),
+                                (4, 4000, 5, 2000, 256, True),
+                                (1, 3000, 4, 100, 130, True)):
+        e = rng.integers(-1, n + 1, (B, S, Fo)).astype(np.int32)
+        if hub:
+            e[0, :, 0] = 0
+            e[-1, :S // 2, 1] = n - 1
+        e = torch.from_numpy(e).cuda()
+        g = torch.from_numpy(rng.normal(0, 1, (B, S, D)).astype(
+            np.float32)).cuda()
+        err, _, most = check_backward_once(e, g, n)
+        if hub and most <= 32:
+            raise AssertionError("no source row held more than 32 slots")
+        log(f"  sage_aggregate backward: edges {(B, S, Fo)} -> ({B}, {n}, "
+            f"{D}), at most {most} slots per source row: transpose == "
+            f"backward_index, same bits on two calls, max abs err "
+            f"{err:.3g} (rtol {BWD_RTOL} of max |grad|)")
 
 
 def feature_rows(layout, src):
@@ -504,8 +700,8 @@ def feature_rows(layout, src):
 
 
 def training_phase(layout, data, cfg):
-    """Phase 8: returns (gather_rows result, backward result, launch counts
-    of the 10-step driver run)."""
+    """Phase 8: returns ({kernel name: its result at the step's shapes},
+    launch counts of the 10-step driver run)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -542,8 +738,10 @@ def training_phase(layout, data, cfg):
                         aggregate=sage_aggregate_plain)
 
     recorded = []
+    forward_inputs = []
 
     def recording_aggregate(edges, h):
+        forward_inputs.append((edges, h.detach()))
         out = sage_aggregate(edges, h)
         if h.requires_grad:
             out.register_hook(lambda g, e=edges, n=h.shape[-2]:
@@ -613,8 +811,15 @@ def training_phase(layout, data, cfg):
     if len(recorded) != cfg.num_layers - 1:
         raise AssertionError(f"{len(recorded)} backward aggregates recorded "
                              f"for {cfg.num_layers} layers")
-    bw = check_sage_backward(recorded)
-    del recorded[:], bp, be, gp, ge, gq, hit_pos, is_hit, pos
+    bw, bidx = check_sage_backward(recorded)
+    fs = check_fused_sample(layout.graph, [m.dst_nodes for m in bp.mfgs],
+                            cfg.fanouts, TRAIN_SALT)
+    log("  fused_sample, 3 levels at the step's shapes, device ms by "
+        "kernel: " + ", ".join(f"{k} {v:.4f}"
+                               for k, v in fs["split"].items()))
+    sa = check_sage_aggregate(forward_inputs)
+    del recorded[:], forward_inputs[:], bp, be, gp, ge, gq, hit_pos
+    del is_hit, pos
     exc = None
 
     log(f"-- {TRAIN_STEPS} steps through SyncDriver (launch counts set to "
@@ -701,7 +906,9 @@ def training_phase(layout, data, cfg):
         + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ours.items())) + ")")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB (torch.cuda.max_memory_allocated)")
-    return gr, bw, counts
+    return {"gather_rows": gr, "sage_aggregate_backward": bw,
+            "sage_backward_index": bidx, "fused_sample": fs,
+            "sage_aggregate": sa}, counts
 
 
 def main() -> int:
@@ -802,6 +1009,10 @@ def main() -> int:
         log(f"  fp32 matmul (256 x 47 weights): x[:M] @ w differs in bits "
             f"from the same rows of one 22528-row product at M = {bad_m}")
 
+    # outside inference mode: the backward's plain version runs autograd
+    log("  edge shapes of the redesigned kernels:")
+    check_edge_shapes(pipe.layout.graph)
+
     log("== phase 5: small-input parity (cuda vs cpu port)")
     small_parity(reduced())
 
@@ -863,26 +1074,29 @@ def main() -> int:
 
     log("== phase 8: training (pinned_hot store, AdamW)")
     cfg_train = dataclasses.replace(PRODUCTS, dropout=0.0)
-    gr, bw, train_counts = training_phase(pipe.layout, data, cfg_train)
+    train, train_counts = training_phase(pipe.layout, data, cfg_train)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
+                   "Pallas forward is src/repro/kernels/sage_aggregate.py:30)")
     kernels = []
-    for name, res, replaces, source in (
+    for name, serving, replaces, source in (
             ("fused_sample", fs, "src/repro/kernels/fused_sample.py:41",
              "fused_sample"),
             ("sage_aggregate", sa, "src/repro/kernels/sage_aggregate.py:30",
              "sage_aggregate"),
-            ("sage_aggregate_backward", bw,
-             "src/repro/core/mfg.py:59 (gradient of the jnp mean; the Pallas "
-             "forward is src/repro/kernels/sage_aggregate.py:30)",
-             "sage_aggregate"),
+            ("sage_backward_index", None, backward_of,
+             "sage_backward_index"),
+            ("sage_aggregate_backward", None, backward_of, "sage_aggregate"),
             ("feature_gather", fg,
              "src/repro/kernels/feature_gather.py:26", "feature_gather"),
-            ("gather_rows", gr, "src/repro/kernels/gather.py:49",
+            ("gather_rows", None, "src/repro/kernels/gather.py:49",
              "gather_rows")):
         by_path = {"serving": counts.get(name, 0),
                    "training": train_counts[name]}
-        kernels.append({
+        at_step = train.get(name)
+        res = serving or at_step
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -891,7 +1105,17 @@ def main() -> int:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "call_ms": res["call_ms"],
             "bound_by": res["bound_by"],
-            "library_ms": res.get("library_ms")})
+            "library_ms": res.get("library_ms"),
+            "shapes": "serving" if serving else "training step"}
+        if "cold_ms" in res:
+            entry["ms_l2_flushed"] = res["cold_ms"]
+        if serving and at_step:
+            entry["training_step"] = {
+                k: at_step.get(k) for k in ("ms", "call_ms", "plain_ms",
+                                            "bound_ms", "library_ms",
+                                            "max_abs_err")}
+            entry["training_step"]["max_abs_err"] = at_step["err"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

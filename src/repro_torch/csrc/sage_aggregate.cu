@@ -1,6 +1,6 @@
 // GraphSAGE masked neighbour mean, forward and backward, on Hopper.
 //
-// Replaces: src/repro/kernels/sage_aggregate.py, `_sage_aggregate_kernel`
+// Replaces: src/repro/kernels/sage_aggregate.py:30, `_sage_aggregate_kernel`
 // (the Pallas body behind `sage_aggregate`), and, for the backward, the
 // gradient XLA derives from the jnp mean (`src/repro/core/mfg.py`
 // `mean_aggregate`): `repro` has no backward kernel.
@@ -26,13 +26,31 @@
 //
 // Backward: grad_h[n] = sum over valid (i, f) with edges[i, f] == n of
 // grad_out[i] / max(count_i, 1); duplicates count by multiplicity and a
-// row no edge names gets 0.  Also bound by bytes.  A float atomicAdd
-// scatter would give other bits on every run, so the kernel gathers
-// instead: the wrapper prepares the transpose once per call (a stable
-// sort of the flattened edge slots by source row, `rowptr` over the
-// sorted slots, and each destination row's max(count, 1)), and one warp
-// per source row sums its slots in ascending (i, f) order.  Every output
-// row is written once, so the result is the same bits on every run.
+// row no edge names gets 0.  It replaces the gradient XLA derives from the
+// jnp mean (src/repro/core/mfg.py:59); `repro` has no backward kernel.
+// Also bound by bytes: it reads each named grad_out row and writes every
+// grad_h row, zero rows included (most of a capacity-padded layer).  A
+// float atomicAdd scatter would give other bits on every run, so the
+// kernel gathers over a transpose built on the card first
+// (sage_backward_index.cu: each source row's slots in ascending (i, f)
+// order, a row pointer, each destination row's max(count, 1)), and every
+// output row is written once: the same bits on every run.
+//
+// Backward design: each warp walks 8 consecutive source rows.  Most rows
+// of a capacity-padded layer hold zero or one slot, so a warp per row
+// would pay a chain of dependent loads (rowptr -> slot -> denom ->
+// grad_out) for each row with little in flight.  The 8 rows' slots are
+// one contiguous run of `slots`: lane k reads
+// the end of row k once, then, 32 slots at a time, lane k loads slot
+// k0 + k, its destination row and its denom, and the warp broadcasts them
+// with __shfl_sync.  For D = 256 each lane covers a row in one pass with
+// two float4 columns, two slots at a time (four independent 16-byte loads
+// in flight per lane before the adds, which still run in ascending slot
+// order with g / d per term); the warp writes a row when the walk passes
+// its end.  A row with no slot (capacity padding) gets zeros with
+// streaming stores.  Writing grad_h (every row, zero rows included) is
+// most of the bytes, so a zero fill of the output is this kernel's floor
+// in practice.
 //
 // Backward layout: rowptr (B * N + 1) int32 and slots (nnz) int32, the
 // flattened (b, i, f) slot ids sorted by source row b * N + n; grad_out
@@ -43,6 +61,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kRowsPerWarp = 8;  // backward: source rows one warp walks
 
 template <bool kVec>
 __global__ void sage_aggregate_kernel(const int* __restrict__ edges,
@@ -98,44 +117,109 @@ __global__ void sage_aggregate_kernel(const int* __restrict__ edges,
   }
 }
 
-template <bool kVec>
-__global__ void sage_aggregate_backward_kernel(
-    const int* __restrict__ rowptr, const int* __restrict__ slots,
-    const float* __restrict__ grad_out, const float* __restrict__ denom,
-    long long rows, int F, int D, float* __restrict__ grad_h) {
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int beg = rowptr[row];
-  const int end = rowptr[row + 1];
-  float* o = grad_h + row * (long long)D;
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
 
-  if (kVec) {
-    const int D4 = D >> 2;
-    for (int c = lane; c < D4; c += 32) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = beg; k < end; ++k) {
-        const int dst = slots[k] / F;
-        const float d = denom[dst];
-        const float4 g =
-            reinterpret_cast<const float4*>(grad_out + (long long)dst * D)[c];
-        acc.x += g.x / d;
-        acc.y += g.y / d;
-        acc.z += g.z / d;
-        acc.w += g.w / d;
+__device__ __forceinline__ void add_div(float& acc, float g, float d) {
+  acc += g / d;
+}
+__device__ __forceinline__ void add_div(float4& acc, const float4& g,
+                                        float d) {
+  acc.x += g.x / d;
+  acc.y += g.y / d;
+  acc.z += g.z / d;
+  acc.w += g.w / d;
+}
+
+// T = float4 (D % 4 == 0, 16-byte aligned) or float; Dv = D in units of T.
+// One warp walks kRowsPerWarp consecutive source rows, whose slots are one
+// contiguous run of `slots`; each pass covers 64 T columns (lane and
+// lane + 32) of every row.
+template <typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    sage_aggregate_backward_kernel(const int* __restrict__ rowptr,
+                                   const int* __restrict__ slots,
+                                   const T* __restrict__ grad_out,
+                                   const float* __restrict__ denom,
+                                   long long rows, int F, int Dv,
+                                   T* __restrict__ grad_h) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int kUnroll = 2;
+  const int lane = threadIdx.x & 31;
+  const long long r0 =
+      ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) *
+      kRowsPerWarp;
+  if (r0 >= rows) return;
+  const int nr = (int)min((long long)kRowsPerWarp, rows - r0);
+  const int k_beg = rowptr[r0];
+  // lane k < nr holds the end of row r0 + k
+  const int row_end = lane < nr ? rowptr[r0 + lane + 1] : 0;
+  const int k_end = __shfl_sync(kFull, row_end, nr - 1);
+  T* out = grad_h + r0 * Dv;
+  for (int c0 = 0; c0 < Dv; c0 += 64) {
+    const int ca = c0 + lane;
+    const int cb = c0 + 32 + lane;
+    const bool has_a = ca < Dv;
+    const bool has_b = cb < Dv;
+    T acc_a = zero<T>();
+    T acc_b = zero<T>();
+    int cur = 0;  // the row being summed: r0 + cur
+    int cur_beg = k_beg;
+    int cur_end = __shfl_sync(kFull, row_end, 0);
+    // write row r0 + cur (zeros, streamed, when it has no slot) and move on
+    auto finish_row = [&]() {
+      T* o = out + (long long)cur * Dv;
+      if (cur_beg == cur_end) {
+        if (has_a) __stcs(o + ca, zero<T>());
+        if (has_b) __stcs(o + cb, zero<T>());
+      } else {
+        if (has_a) o[ca] = acc_a;
+        if (has_b) o[cb] = acc_b;
       }
-      reinterpret_cast<float4*>(o)[c] = acc;
-    }
-  } else {
-    for (int c = lane; c < D; c += 32) {
-      float acc = 0.f;
-      for (int k = beg; k < end; ++k) {
-        const int dst = slots[k] / F;
-        acc += grad_out[(long long)dst * D + c] / denom[dst];
+      acc_a = zero<T>();
+      acc_b = zero<T>();
+      cur_beg = cur_end;
+      ++cur;
+      if (cur < nr) cur_end = __shfl_sync(kFull, row_end, cur);
+    };
+    for (int k0 = k_beg; k0 < k_end; k0 += 32) {
+      const int n = min(32, k_end - k0);
+      int dst = 0;
+      float den = 1.f;
+      if (lane < n) {
+        dst = slots[k0 + lane] / F;
+        den = denom[dst];
       }
-      o[c] = acc;
+      for (int j = 0; j < n; j += kUnroll) {
+        T xa[kUnroll];
+        T xb[kUnroll];
+        float d[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int src = __shfl_sync(kFull, dst, (j + u) & 31);
+          d[u] = __shfl_sync(kFull, den, (j + u) & 31);
+          const T* g = grad_out + (long long)src * Dv;
+          const bool live = j + u < n;
+          xa[u] = live && has_a ? g[ca] : zero<T>();
+          xb[u] = live && has_b ? g[cb] : zero<T>();
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (j + u < n) {
+            while (k0 + j + u >= cur_end) finish_row();
+            add_div(acc_a, xa[u], d[u]);
+            add_div(acc_b, xb[u], d[u]);
+          }
+        }
+      }
     }
+    while (cur < nr) finish_row();
   }
 }
 
@@ -164,14 +248,16 @@ extern "C" int sage_aggregate_backward_launch(
     cudaStream_t stream) {
   const long long rows = (long long)B * N;
   if (rows == 0) return (int)cudaSuccess;
+  constexpr int kRowsPerBlock = kWarpsPerBlock * kRowsPerWarp;
   const unsigned int blocks =
-      (unsigned int)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+      (unsigned int)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
   if (vec) {
-    sage_aggregate_backward_kernel<true>
+    sage_aggregate_backward_kernel<float4>
         <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-            rowptr, slots, grad_out, denom, rows, F, D, grad_h);
+            rowptr, slots, reinterpret_cast<const float4*>(grad_out), denom,
+            rows, F, D >> 2, reinterpret_cast<float4*>(grad_h));
   } else {
-    sage_aggregate_backward_kernel<false>
+    sage_aggregate_backward_kernel<float>
         <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
             rowptr, slots, grad_out, denom, rows, F, D, grad_h);
   }

@@ -4,12 +4,16 @@
                            (``csrc/fused_sample.cu``)
   sage_aggregate           masked neighbour mean, forward
                            (``csrc/sage_aggregate.cu``)
+  sage_backward_index      the transpose the gradient gathers over
+                           (``csrc/sage_backward_index.cu``)
   sage_aggregate_backward  its gradient (``csrc/sage_aggregate.cu``)
   feature_gather           owner-side feature-row gather
                            (``csrc/feature_gather.cu``)
   gather_rows              pinned hot-row gather (``csrc/gather_rows.cu``)
 
-Each wrapper counts its launches in a ``launches`` attribute.  Sources are
+Each wrapper counts its launches in a ``launches`` attribute.  The
+single-pass scan that ``fused_sample`` and ``sage_backward_index`` share is
+``csrc/scan.cuh`` (its scratch: ``scan``).  Sources are
 compiled by ``nvcc`` at first use on a CUDA tensor (``_build``).  This
 package imports its modules lazily: the core modules import single kernel
 modules, and the fused sampler's plain version imports the core sampler.
@@ -17,14 +21,15 @@ modules, and the fused sampler's plain version imports the core sampler.
 
 
 def kernel_wrappers() -> tuple:
-    """The five kernel wrappers, in path order."""
+    """The six kernel wrappers, in path order."""
     from repro_torch.kernels.feature_gather import feature_gather
     from repro_torch.kernels.fused_sample import fused_sample
     from repro_torch.kernels.gather import gather_rows
     from repro_torch.kernels.sage_aggregate import (sage_aggregate,
-                                                    sage_aggregate_backward)
+                                                    sage_aggregate_backward,
+                                                    sage_backward_index)
     return (fused_sample, gather_rows, feature_gather, sage_aggregate,
-            sage_aggregate_backward)
+            sage_backward_index, sage_aggregate_backward)
 
 
 def reset_launch_counts() -> None:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>.so``, a shared
 library with a plain C interface (``<name>_launch(...)`` returning the
-launch's ``cudaGetLastError()``).  The libraries go into
+launch's ``cudaGetLastError()``); headers shared between sources
+(``csrc/*.cuh``) are part of the hash.  The libraries go into
 ``build/kernels/<digest>/`` at the repository root, keyed on a hash of the
 sources and flags, so an edited kernel rebuilds and an unchanged one loads
 straight away.  All sources compile in parallel, one ``nvcc`` each.
@@ -24,8 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_sample", "sage_aggregate", "feature_gather",
-           "gather_rows")
+SOURCES = ("fused_sample", "sage_aggregate", "sage_backward_index",
+           "feature_gather", "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -48,7 +49,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")):
+    for p in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

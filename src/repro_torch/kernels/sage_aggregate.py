@@ -4,7 +4,10 @@ plain versions.
 Replaces ``repro.kernels.sage_aggregate.sage_aggregate`` (Pallas body
 ``_sage_aggregate_kernel``) and the gradient XLA derives for ``repro``'s
 jnp mean.  Both kernels are in ``csrc/sage_aggregate.cu``; its header says
-what bounds them and how they are laid out.
+what bounds them and how they are laid out.  The backward gathers over a
+transpose built on the card by ``sage_backward_index``
+(``csrc/sage_backward_index.cu``); ``backward_index`` is its plain
+version and ``backward_prep_plain`` that of its first pass.
 
 ``sage_aggregate`` runs the plain version (and trains through autograd)
 for CPU tensors only; for CUDA tensors it is a ``torch.autograd.Function``
@@ -20,6 +23,9 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.scan import THREADS, scan_scratch, scan_tiles
+
+ROWPTR_TILE = 4 * THREADS   # kScanTile in csrc/sage_backward_index.cu
 
 
 def sage_aggregate_plain(edges: torch.Tensor,
@@ -65,8 +71,30 @@ def sage_aggregate_backward_plain(edges: torch.Tensor,
     return grad_h
 
 
+def backward_prep_plain(edges: torch.Tensor, num_src: int):
+    """Plain version of the backward transpose's first pass.
+
+    Returns ``(keys (B*S*F,) int32, denom (B*S,) float32, counts (B*N,)
+    int32)``: each flattened (b, i, f) edge slot's key ``b * N +
+    edges[b, i, f]`` when the id is in [0, N) and ``B * N`` otherwise,
+    each destination row's ``max(count, 1)``, and the number of valid
+    slots naming each source row ``b * N + n``.
+    """
+    S, F = edges.shape[-2:]
+    B = math.prod(edges.shape[:-2])
+    N = int(num_src)
+    e = edges.reshape(B, S * F).long()
+    valid = (e >= 0) & (e < N)
+    base = (torch.arange(B, device=edges.device) * N).view(B, 1)
+    keys = torch.where(valid, e + base, B * N).reshape(-1)
+    counts = torch.bincount(keys, minlength=B * N + 1)[:B * N]
+    denom = valid.reshape(B * S, F).sum(dim=-1).clamp(min=1)
+    return (keys.to(torch.int32), denom.to(torch.float32),
+            counts.to(torch.int32))
+
+
 def backward_index(edges: torch.Tensor, num_src: int):
-    """The transpose the backward kernel reads, prepared once per call.
+    """The transpose the backward kernel reads: plain version, int64.
 
     Returns ``(rowptr (B*N + 1,) int32, slots (B*S*F,) int32, denom
     (B*S,) float32)``: the flattened (b, i, f) edge slots stably sorted
@@ -75,33 +103,35 @@ def backward_index(edges: torch.Tensor, num_src: int):
     ascending (i, f) order; ``denom`` is each destination row's
     ``max(count, 1)``.  Destination row of a slot: ``slot // F``.
     """
-    S, F = edges.shape[-2:]
     B = math.prod(edges.shape[:-2])
-    N = int(num_src)
-    dev = edges.device
-    e = edges.reshape(B, S * F)
-    valid = (e >= 0) & (e < N)
-    base = (torch.arange(B, device=dev) * N).view(B, 1)
-    key = torch.where(valid, e.long() + base, B * N).reshape(-1)
-    sorted_key, order = torch.sort(key, stable=True)
+    keys, denom, _ = backward_prep_plain(edges, num_src)
+    sorted_key, order = torch.sort(keys.long(), stable=True)
     rowptr = torch.searchsorted(
-        sorted_key, torch.arange(B * N + 1, device=dev)).to(torch.int32)
-    denom = valid.reshape(B * S, F).sum(dim=-1).clamp(min=1).to(
-        torch.float32)
-    return rowptr, order.to(torch.int32), denom
+        sorted_key, torch.arange(B * int(num_src) + 1, device=edges.device))
+    return rowptr.to(torch.int32), order.to(torch.int32), denom
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point: (source under csrc/, argument types, result type)
+_ENTRY_POINTS = {
+    "sage_aggregate_launch": ("sage_aggregate",
+                              [_P] * 2 + [_I] * 6 + [_P] * 2, _I),
+    "sage_aggregate_backward_launch": ("sage_aggregate",
+                                       [_P] * 4 + [_I] * 5 + [_P] * 2, _I),
+    "sage_backward_index_temp_bytes": ("sage_backward_index", [_I] * 2,
+                                       ctypes.c_size_t),
+    "sage_backward_index_launch": (
+        "sage_backward_index",
+        [_P] + [_I] * 6 + [_P] * 9 + [ctypes.c_size_t, _P], _I),
+}
 
 
 def _lib(name: str):
-    lib = _build.load("sage_aggregate")
-    fn = getattr(lib, f"{name}_launch")
+    source, argtypes, restype = _ENTRY_POINTS[name]
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
-        if name == "sage_aggregate":
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p] * 2)
-        else:
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fn.restype = restype
     return fn
 
 
@@ -118,18 +148,76 @@ def _check_cuda(name: str, edges: torch.Tensor, x: torch.Tensor) -> None:
                          f"dims")
 
 
+def _check_sizes(name: str, edges: torch.Tensor, num_src: int) -> None:
+    B = math.prod(edges.shape[:-2])
+    if edges.numel() >= 2 ** 31 or B * int(num_src) + 1 >= 2 ** 31:
+        raise ValueError(f"{name}: {edges.numel()} edge slots and "
+                         f"{B * int(num_src)} source rows; the kernels' "
+                         f"int32 ids take fewer than 2**31 of each")
+
+
+def sage_backward_index(edges: torch.Tensor, num_src: int):
+    """The transpose the backward kernel reads (same contract as
+    ``backward_index``): the kernels of ``csrc/sage_backward_index.cu``
+    for a CUDA tensor, the plain version for a CPU one.
+
+    On the card: one pass over the edge slots (int32 keys, ``denom`` and
+    the per-source-row histogram), a single-pass scan of the histogram
+    into ``rowptr``, and a stable 32-bit radix sort of the keys with the
+    slot ids as values.  No ``searchsorted``, no int64 sort.
+    """
+    if edges.device.type == "cpu":
+        return backward_index(edges, num_src)
+    _check_sizes("sage_backward_index", edges, num_src)
+    if edges.device.type != "cuda":
+        raise ValueError(f"sage_backward_index: edges on {edges.device}; "
+                         f"the kernels take CUDA tensors")
+    if edges.dtype != torch.int32 or edges.dim() < 2 or edges.shape[-1] < 1:
+        raise TypeError(f"sage_backward_index takes int32 (..., S, F >= 1) "
+                        f"edges, got {edges.dtype} {tuple(edges.shape)}")
+    S, F = edges.shape[-2:]
+    B = math.prod(edges.shape[:-2])
+    N = int(num_src)
+    dev = edges.device
+    edges = edges.contiguous()
+    nnz = B * S * F
+    end_bit = max(1, (B * N).bit_length())
+    tiles = scan_tiles(B * N + 1, ROWPTR_TILE)
+    scratch, hist = scan_scratch(tiles, B * N + 1, dev)
+    work = torch.empty(3 * nnz, dtype=torch.int32, device=dev)
+    slots = torch.empty(nnz, dtype=torch.int32, device=dev)
+    denom = torch.empty(B * S, dtype=torch.float32, device=dev)
+    rowptr = torch.empty(B * N + 1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        temp_bytes = _lib("sage_backward_index_temp_bytes")(nnz, end_bit)
+        temp = torch.empty(max(temp_bytes, 1), dtype=torch.uint8, device=dev)
+        err = _lib("sage_backward_index_launch")(
+            edges.data_ptr(), B, S, F, N, end_bit, tiles,
+            work.data_ptr(), work[nnz:].data_ptr(), work[2 * nnz:].data_ptr(),
+            slots.data_ptr(), denom.data_ptr(), rowptr.data_ptr(),
+            hist.data_ptr(), scratch.data_ptr(), temp.data_ptr(), temp_bytes,
+            torch.cuda.current_stream().cuda_stream)
+    sage_backward_index.launches += 1
+    _build.check_launch("sage_backward_index", err)
+    return rowptr, slots, denom
+
+
+sage_backward_index.launches = 0
+
+
 def sage_aggregate_backward(edges: torch.Tensor, grad_out: torch.Tensor,
                             num_src: int) -> torch.Tensor:
     """Gradient of the masked neighbour mean with respect to ``h_src``
     (same contract as ``sage_aggregate_backward_plain``); the CUDA kernel
     for CUDA tensors, the plain version for CPU ones.
 
-    The kernel gathers in a fixed order, so its result is the same bits
-    on every call; the transpose it reads (slots sorted by source row) is
-    prepared here with a stable sort.
+    The kernel gathers in a fixed order over the transpose
+    ``sage_backward_index`` builds, so its result is the same bits on
+    every call.
     """
     if grad_out.device.type == "cpu" and edges.device.type == "cpu":
         return sage_aggregate_backward_plain(edges, grad_out, num_src)
+    _check_sizes("sage_aggregate_backward", edges, num_src)
     _check_cuda("sage_aggregate_backward", edges, grad_out)
     if grad_out.shape[:-1] != edges.shape[:-1]:
         raise ValueError(f"sage_aggregate_backward: grad_out "
@@ -139,18 +227,15 @@ def sage_aggregate_backward(edges: torch.Tensor, grad_out: torch.Tensor,
     D = grad_out.shape[-1]
     B = math.prod(edges.shape[:-2])
     N = int(num_src)
-    if B * S * F >= 2 ** 31 or B * N >= 2 ** 31:
-        raise ValueError("sage_aggregate_backward: more than 2**31 - 1 "
-                         "edge slots or source rows")
     dev = edges.device
-    rowptr, slots, denom = backward_index(edges, N)
+    rowptr, slots, denom = sage_backward_index(edges, N)
     grad_out = grad_out.contiguous()
     grad_h = torch.empty((*edges.shape[:-2], N, D), dtype=torch.float32,
                          device=dev)
     vec = int(D % 4 == 0 and grad_out.data_ptr() % 16 == 0
               and grad_h.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
-        err = _lib("sage_aggregate_backward")(
+        err = _lib("sage_aggregate_backward_launch")(
             rowptr.data_ptr(), slots.data_ptr(), grad_out.data_ptr(),
             denom.data_ptr(), B, N, F, D, vec, grad_h.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -200,7 +285,7 @@ def _forward(edges: torch.Tensor, h_src: torch.Tensor) -> torch.Tensor:
     vec = int(D % 4 == 0 and h_src.data_ptr() % 16 == 0
               and out.data_ptr() % 16 == 0)
     with torch.cuda.device(h_src.device):
-        err = _lib("sage_aggregate")(
+        err = _lib("sage_aggregate_launch")(
             edges.data_ptr(), h_src.data_ptr(), B, S, F, N, D, vec,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     sage_aggregate.launches += 1

@@ -16,7 +16,12 @@
     equals autograd of the plain version and, within fp32 ``rtol=atol=
     1e-5``, ``jax.grad`` of ``repro``'s mean; the transpose the CUDA
     backward kernel reads (``backward_index``), walked in Python as the
-    kernel walks it, gives the same gradient.
+    kernel walks it, gives the same gradient.  The plain version of the
+    transpose's first pass (``backward_prep_plain``: int32 keys, ``denom``,
+    the per-source-row histogram) agrees with ``backward_index`` and, as a
+    scatter, with ``jax.vjp`` of ``repro``'s mean.
+  * the single-pass scan's scratch (``kernels/scan.py``) at 0, 1, tile - 1,
+    tile and tile + 1 items, and the wrappers' 2**31 size guards.
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 each against its plain version there.  Here the wrappers must take the
@@ -45,10 +50,15 @@ from repro_torch.kernels.feature_gather import (feature_gather,
 from repro_torch.kernels.fused_sample import fused_sample
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
 from repro_torch.kernels.sage_aggregate import (backward_index,
+                                                backward_prep_plain,
                                                 sage_aggregate,
                                                 sage_aggregate_backward,
                                                 sage_aggregate_backward_plain,
-                                                sage_aggregate_plain)
+                                                sage_aggregate_plain,
+                                                sage_backward_index)
+from repro_torch.kernels.fused_sample import (LARGE_LEVEL, LARGE_TILE,
+                                              SMALL_TILE, seeds_per_tile)
+from repro_torch.kernels.scan import scan_scratch, scan_tiles
 
 
 def _hub_graph(seed=0, n=300, m=6000, alpha=1.2):
@@ -120,6 +130,26 @@ def test_fused_sample_stacked_rows():
         np.testing.assert_array_equal(ts[b].numpy(), np.asarray(js))
         np.testing.assert_array_equal(tr[b].numpy(), np.asarray(jr))
         assert int(tovf[b]) == jovf
+
+
+@pytest.mark.parametrize("S", [1, SMALL_TILE - 1, SMALL_TILE,
+                               SMALL_TILE + 1])
+def test_fused_sample_tile_edge_shapes(S):
+    """The shapes the card checks the kernel's tiles on: S = 1, S around
+    the tile, B = 1 and a row of only padding seeds, with overflow."""
+    jg, tg = _hub_graph(seed=3)
+    seeds = np.stack([_seeds(jg.num_nodes, S, S), np.full(S, -1, np.int32)])
+    for rows in (seeds[:1], seeds):
+        ts, tr, tovf = fused_sample(tg.indptr, tg.indices,
+                                    torch.from_numpy(rows), 5, fanout=3,
+                                    window=8)
+        for b in range(rows.shape[0]):
+            js, jr, jovf = ref_windowed_fused_sample(
+                jg, jnp.asarray(rows[b]), 3, jnp.uint32(5), 8)
+            np.testing.assert_array_equal(ts[b].numpy(), np.asarray(js))
+            np.testing.assert_array_equal(tr[b].numpy(), np.asarray(jr))
+            assert int(tovf[b]) == jovf
+    assert (ts[1] == -1).all() and not tr[1].any() and int(tovf[1]) == 0
 
 
 @pytest.mark.parametrize("S,F,N,D", [(1, 1, 1, 1), (4, 3, 10, 8),
@@ -276,6 +306,99 @@ def test_backward_index_orders_each_source_rows_slots():
     assert denom.tolist() == [3.0, 1.0, 2.0]
 
 
+def _prep_edges(B, S, F, N, seed):
+    """Edges with ids -1 and >= N, a duplicate run, and source row 0 named
+    by more than 32 slots of worker 0."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(-2, N + 2, (B, S, F)).astype(np.int32)
+    edges[0, 0] = edges[0, 0, 0]
+    edges[0, 1:, 0] = 0
+    return edges
+
+
+@pytest.mark.parametrize("B,S,F,N,D", [(1, 40, 1, 3, 4), (4, 50, 5, 30, 8),
+                                       (2, 70, 3, 1, 5)])
+def test_backward_prep_plain_matches_index_and_repro(B, S, F, N, D):
+    edges = _prep_edges(B, S, F, N, B + S + F)
+    keys, denom, counts = backward_prep_plain(torch.from_numpy(edges), N)
+    e = edges.reshape(B, S * F)
+    valid = (e >= 0) & (e < N)
+    want = np.where(valid, e + np.arange(B)[:, None] * N, B * N).ravel()
+    assert keys.dtype == torch.int32 and counts.dtype == torch.int32
+    np.testing.assert_array_equal(keys.numpy(), want)
+    np.testing.assert_array_equal(
+        denom.numpy(), np.maximum(valid.reshape(B * S, F).sum(-1), 1))
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(want, minlength=B * N + 1)
+                                  [:B * N])
+    assert counts[0] > 32                            # a hub row
+    rowptr, slots, denom_i = backward_index(torch.from_numpy(edges), N)
+    np.testing.assert_array_equal(np.diff(rowptr.numpy()), counts.numpy())
+    assert torch.equal(denom_i, denom)
+    np.testing.assert_array_equal(keys.numpy()[slots.numpy()],
+                                  np.sort(want, kind="stable"))
+    # the prep pass as a scatter: grad_h[key] += grad_out[dst] / denom[dst]
+    go = np.random.default_rng(D).normal(0, 1, (B, S, D)).astype(np.float32)
+    g = go.reshape(B * S, D)
+    dst = np.arange(B * S * F) // F
+    grad = np.zeros((B * N + 1, D), np.float32)
+    np.add.at(grad, keys.numpy(), g[dst] / denom.numpy()[dst, None])
+    grad = grad[:B * N].reshape(B, N, D)
+    for b in range(B):
+        eb = jnp.asarray(np.where((edges[b] >= 0) & (edges[b] < N),
+                                  edges[b], -1))
+        h = np.zeros((N, D), np.float32)
+        _, vjp = jax.vjp(lambda x: ref_mean_aggregate(eb, x), jnp.asarray(h))
+        (jg,) = vjp(jnp.asarray(go[b]))
+        np.testing.assert_allclose(grad[b], np.asarray(jg), rtol=1e-5,
+                                   atol=1e-5)
+
+
+_SIZES = {"0": lambda t: 0, "1": lambda t: 1, "tile-1": lambda t: t - 1,
+          "tile": lambda t: t, "tile+1": lambda t: t + 1}
+
+
+@pytest.mark.parametrize("tile", [SMALL_TILE, LARGE_TILE])
+@pytest.mark.parametrize("size", list(_SIZES))
+def test_scan_scratch_sizes(tile, size):
+    n = _SIZES[size](tile)
+    tiles = scan_tiles(n, tile)
+    assert tiles == max(1, -(-n // tile))
+    assert (tiles - 1) * tile < max(n, 1) <= tiles * tile
+    buf, extra = scan_scratch(tiles, n, "cpu")
+    assert buf.dtype == torch.int64 and not buf.any()
+    assert extra.dtype == torch.int32 and extra.shape == (n,)
+    assert buf.numel() * 8 >= (tiles + 1) * 8 + n * 4
+    if n:
+        assert extra.data_ptr() == buf.data_ptr() + (tiles + 1) * 8
+
+
+def test_seeds_per_tile_grows_past_the_large_level():
+    assert seeds_per_tile(0) == seeds_per_tile(LARGE_LEVEL) == SMALL_TILE
+    assert seeds_per_tile(LARGE_LEVEL + 1) == LARGE_TILE
+    assert LARGE_TILE % SMALL_TILE == 0
+
+
+@pytest.mark.parametrize("which", ["fused_sample", "sage_backward_index",
+                                   "sage_aggregate_backward"])
+def test_kernel_size_guards_raise(which):
+    """Shapes past the kernels' int32 offsets raise before any launch."""
+    meta = torch.device("meta")
+    idx = torch.zeros(3, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        if which == "fused_sample":
+            fused_sample(idx, idx, torch.zeros((4, 2 ** 28), dtype=torch.int32,
+                                               device=meta), 0, fanout=2)
+        elif which == "sage_backward_index":
+            sage_backward_index(torch.zeros((4, 2 ** 20, 512),
+                                            dtype=torch.int32, device=meta),
+                                16)
+        else:
+            sage_aggregate_backward(
+                torch.zeros((4, 16, 2), dtype=torch.int32, device=meta),
+                torch.ones((4, 16, 4), device=meta), 2 ** 29)
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching():
     reset_launch_counts()
     jg, tg = _hub_graph()
@@ -286,15 +409,18 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     out.sum().backward()
     sage_aggregate_backward(torch.zeros((2, 2), dtype=torch.int32),
                             torch.ones(2, 4), 3)
+    sage_backward_index(torch.zeros((2, 2), dtype=torch.int32), 3)
     feature_gather(torch.zeros(2, dtype=torch.int32), torch.ones(3, 4))
     gather_rows(torch.ones(3, 4), torch.zeros(2, dtype=torch.int32))
     assert launch_counts() == {"fused_sample": 0, "gather_rows": 0,
                                "feature_gather": 0, "sage_aggregate": 0,
+                               "sage_backward_index": 0,
                                "sage_aggregate_backward": 0}
 
 
 @pytest.mark.parametrize("which", ["fused_sample", "sage_aggregate",
                                    "sage_aggregate_backward",
+                                   "sage_backward_index",
                                    "feature_gather", "gather_rows"])
 def test_non_cpu_tensors_never_fall_back(which):
     """A tensor off the CPU launches the kernel or raises; one on a device
@@ -312,6 +438,9 @@ def test_non_cpu_tensors_never_fall_back(which):
             sage_aggregate_backward(torch.zeros((2, 2), dtype=torch.int32,
                                                 device=meta),
                                     torch.ones((2, 4), device=meta), 3)
+        elif which == "sage_backward_index":
+            sage_backward_index(torch.zeros((2, 2), dtype=torch.int32,
+                                            device=meta), 3)
         elif which == "gather_rows":
             gather_rows(torch.ones((3, 4), device=meta),
                         torch.zeros(2, dtype=torch.int32, device=meta))
