@@ -20,11 +20,16 @@ Phases (any failure raises and the script exits non-zero):
      median of 20), the plain version's and, where one PyTorch call
      computes the same function, that call's device time, and the least
      time the card could take; ``fused_sample`` must run as one
-     hand-written kernel per level.  Then ``fused_sample`` and the
-     ``sage_aggregate`` backward on edge shapes (S = 1, S off the scan
-     tile, B = 1, a row of padding seeds, S = 0, a window most seeds
-     exceed; D off float4, source rows with thousands of slots), the
-     backward's transpose equal to ``backward_index`` bit for bit.
+     hand-written kernel per level.  The forward ``sage_aggregate`` must
+     equal an f-ordered loop bit for bit and run as one hand-written
+     kernel per layer, and be batch-invariant (the rows of a call on
+     ``edges[:, :k]``, k = 1, 7, 32, equal the full call's at D = 100 and
+     256).  Then ``fused_sample``, the forward and the ``sage_aggregate``
+     backward on edge shapes (S = 1, S off the scan tile, B = 1, a row or
+     tile of padding, S = 0, a window most seeds exceed; F = 1 and 33;
+     D = 1, 33, 100, 130, 256 and an unaligned table; source rows with
+     thousands of slots), the backward's transpose equal to
+     ``backward_index`` bit for bit.
   5. small-input parity: the same pipeline on an 800-node graph on the card
      and on the CPU (whose plain path the tests hold to ``repro``): MFGs
      equal, logits within tolerance.
@@ -43,7 +48,9 @@ Phases (any failure raises and the script exits non-zero):
      two calls (also timed with the L2 flushed before each call), its
      transpose equal to ``backward_index`` with ``torch.searchsorted``
      unavailable, ``fused_sample`` exact and the forward aggregate within
-     tolerance, all against their plain versions; the step with the
+     tolerance, all against their plain versions (the forward also equal
+     to the f-ordered loop bit for bit, one kernel per layer, with each
+     layer's device time against its bound); the step with the
      kernels against the same step with plain versions (loss within 1e-5,
      each gradient leaf within tolerance); the ``pinned_hot`` step and an
      ``exchange``-with-cache step bit-identical in ``h_src``, loss and
@@ -117,8 +124,10 @@ def time_ms(fn, reps: int = REPS, flush=None,
     flush: ``l2_flush()``'s function, run before every call, outside the
     events; its device kernel is left out of the sums.  launches: filled
     with each device kernel's launches per call, by name.  A trace that
-    comes back with no device kernel at all (the tracer drops one now and
-    then on the card's machine) is taken again, up to three times.
+    comes back with no device kernel at all, or with a kernel counted a
+    number of times that is not a multiple of ``reps`` (the tracer drops
+    records now and then on the card's machine, which would undercount
+    both the time and the launches), is taken again, up to five times.
     """
     import torch
     from torch.autograd import DeviceType
@@ -126,7 +135,7 @@ def time_ms(fn, reps: int = REPS, flush=None,
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush is not None:
@@ -136,12 +145,14 @@ def time_ms(fn, reps: int = REPS, flush=None,
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and not (flush is not None and FLUSH_KERNEL in e.key)]
-        if events:
+        partial = [e.key for e in events if e.count % reps]
+        if events and not partial:
             break
-        log(f"  (trace {attempt + 1} recorded no device kernel; tracing "
-            f"again)")
+        log(f"  (trace {attempt + 1} recorded "
+            + (f"partial counts of {[_short(k) for k in partial]}"
+               if events else "no device kernel") + "; tracing again)")
     else:
-        raise RuntimeError("the profiler recorded no device time")
+        raise RuntimeError("the profiler recorded no complete trace in five")
     by_name = {}
     for e in events:
         key = _short(e.key)
@@ -266,20 +277,66 @@ def check_fused_sample(graph, frontiers, fanouts, salt):
     return tot
 
 
-def check_sage_aggregate(layer_inputs):
+def f_ordered_mean(edges, h):
+    """The masked mean as an f-ordered loop: acc = +0.0, then acc +
+    where(valid_f, h[e_f], 0) for each f in order, divided by clamp(count,
+    1).  The forward kernel must equal it bit for bit; it is a check, not
+    the plain version."""
+    import torch
+    B, S, Fo = edges.shape
+    N, D = h.shape[1:]
+    acc = torch.zeros((B, S, D), device=h.device)
+    count = torch.zeros((B, S), device=h.device)
+    for f in range(Fo):
+        idx = edges[..., f].long()
+        ok = (idx >= 0) & (idx < N)
+        rows = torch.gather(h, 1, idx.clamp(0, max(N - 1, 0))[..., None]
+                            .expand(-1, -1, D))
+        acc = acc + torch.where(ok[..., None], rows, 0.0)
+        count = count + ok
+    return acc / count.clamp(min=1)[..., None]
+
+
+def check_forward_once(edges, h, label: str):
+    """The forward kernel equal to ``f_ordered_mean`` bit for bit and
+    within SAGE_TOL of the plain version; rows with no valid id +0.0.
+    Returns (the kernel's result, its max abs error against the plain
+    version)."""
+    import torch
+    from repro_torch.kernels.sage_aggregate import (sage_aggregate,
+                                                    sage_aggregate_plain)
+    got = sage_aggregate(edges, h)
+    ref = sage_aggregate_plain(edges, h)
+    loop = f_ordered_mean(edges, h)
+    torch.cuda.synchronize()
+    if not torch.equal(got, loop):
+        diff = int((got != loop).any(dim=-1).sum())
+        raise AssertionError(f"sage_aggregate, {label}: {diff} rows differ "
+                             f"in bits from the f-ordered loop")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, ref, rtol=SAGE_TOL, atol=SAGE_TOL):
+        raise AssertionError(f"sage_aggregate, {label}: max abs error {err} "
+                             f"against the plain version")
+    empty = ~((edges >= 0) & (edges < h.shape[1])).any(dim=-1)
+    if torch.signbit(got[empty]).any() or got[empty].any():
+        raise AssertionError(f"sage_aggregate, {label}: a row with no valid "
+                             f"id is not +0.0")
+    return got, err
+
+
+def check_sage_aggregate(layer_inputs, shapes: str):
+    """Each layer's forward against the f-ordered loop (bits) and the plain
+    version (SAGE_TOL), one hand-written kernel per call, timed beside its
+    plain version and ``embedding_bag``.  Returns the totals over the
+    layers with a ``layers`` list of each one's numbers."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.sage_aggregate import (sage_aggregate,
                                                     sage_aggregate_plain)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0.0,
+           "layers": []}
     for layer, (edges, h) in enumerate(layer_inputs):
-        got = sage_aggregate(edges, h)
-        ref = sage_aggregate_plain(edges, h)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if not torch.allclose(got, ref, rtol=SAGE_TOL, atol=SAGE_TOL):
-            raise AssertionError(f"sage_aggregate layer {layer}: max abs "
-                                 f"error {err} against the plain version")
+        got, err = check_forward_once(edges, h, f"{shapes} layer {layer}")
         B, S, Fo = edges.shape
         N, D = h.shape[1:]
         # library yardstick: one embedding_bag(mean) over the flattened
@@ -290,27 +347,105 @@ def check_sage_aggregate(layer_inputs):
         bag = torch.where(edges >= 0, edges + off, B * N).reshape(-1, Fo)
         lib_out = F.embedding_bag(bag, table, mode="mean",
                                   padding_idx=B * N)
-        if not torch.allclose(lib_out.view(B, S, D), ref, rtol=SAGE_TOL,
+        if not torch.allclose(lib_out.view(B, S, D), got, rtol=SAGE_TOL,
                               atol=SAGE_TOL):
             raise AssertionError("embedding_bag yardstick disagrees")
-        ms, call, _ = time_ms(lambda: sage_aggregate(edges, h))
+        del got, lib_out
+        per_call = {}
+        ms, call, _ = time_ms(lambda: sage_aggregate(edges, h),
+                              launches=per_call)
+        ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
+        if ours != {"sage_aggregate_kernel": 1}:
+            raise AssertionError(f"sage_aggregate {shapes} layer {layer}: "
+                                 f"hand-written device kernels per call "
+                                 f"{ours}, expected one sage_aggregate_kernel")
         plain, _, _ = time_ms(lambda: sage_aggregate_plain(edges, h))
         lib, _, _ = time_ms(lambda: F.embedding_bag(bag, table, mode="mean",
                                                     padding_idx=B * N))
-        n_valid = int((edges >= 0).sum())
+        n_valid = int(((edges >= 0) & (edges < N)).sum())
         nbytes = (B * S * Fo * 4 + unique_rows(edges, N) * D * 4
                   + B * S * D * 4)
         bnd = add_bound(tot, nbytes, n_valid * D + B * S * D)
-        log(f"  sage_aggregate layer {layer}: edges {tuple(edges.shape)} "
-            f"h {tuple(h.shape)}: max abs err {err:.3g} (tol {SAGE_TOL}), "
-            f"device {ms:.4f} ms, call {call:.4f} ms (plain {plain:.4f} ms, "
-            f"embedding_bag {lib:.4f} ms, bound {bnd:.5f} ms for {nbytes} B)")
+        log(f"  sage_aggregate {shapes} layer {layer}: edges "
+            f"{tuple(edges.shape)} h {tuple(h.shape)}: equal to the "
+            f"f-ordered loop bit for bit, max abs err {err:.3g} against the "
+            f"plain version (tol {SAGE_TOL}), one kernel launch, device "
+            f"{ms:.4f} ms, call {call:.4f} ms (plain {plain:.4f} ms, "
+            f"embedding_bag {lib:.4f} ms, bound {bnd:.5f} ms for {nbytes} B: "
+            f"{bnd / ms:.1%} of it)")
+        tot["layers"].append({
+            "shapes": shapes, "layer": layer, "edges": list(edges.shape),
+            "h": list(h.shape), "ms": ms, "call_ms": call,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+            "max_abs_err": err})
         tot["ms"] += ms
         tot["call_ms"] = tot.get("call_ms", 0.0) + call
         tot["plain_ms"] += plain
         tot["library_ms"] += lib
         tot["err"] = max(tot["err"], err)
     return tot
+
+
+def check_forward_invariance(layer_inputs) -> None:
+    """Batch invariance of the forward: the rows of a call on
+    ``edges[:, :k]`` equal the first k rows of the full call bit for bit,
+    k = 1, 7 and 32, at each width D the layers have (100 and 256)."""
+    import torch
+    from repro_torch.kernels.sage_aggregate import sage_aggregate
+    widths = {}
+    for edges, h in layer_inputs:
+        widths.setdefault(h.shape[-1], (edges, h))
+    if sorted(widths) != [100, 256]:
+        raise AssertionError(f"layer widths {sorted(widths)}, expected 100 "
+                             f"and 256")
+    for D, (edges, h) in sorted(widths.items()):
+        full = sage_aggregate(edges, h)
+        for k in (1, 7, 32):
+            part = sage_aggregate(edges[:, :k], h)
+            torch.cuda.synchronize()
+            if not torch.equal(part, full[:, :k]):
+                raise AssertionError(f"sage_aggregate at D = {D}: the rows "
+                                     f"of edges[:, :{k}] differ in bits from "
+                                     f"the full call's")
+        log(f"  sage_aggregate, D = {D}, edges {tuple(edges.shape)}: the "
+            f"rows of edges[:, :k] equal the full call's bit for bit for "
+            f"k = 1, 7, 32")
+
+
+def check_forward_edge_shapes(rng) -> None:
+    """The forward against the f-ordered loop (bits) and the plain version
+    on edge shapes: S = 1, B = 1, a tile of only -1 rows, S = 0, F = 1 and
+    F = 33 (the generic path), D = 1, 33, 100, 130, 256, and h off 16-byte
+    alignment (the scalar path at D = 100); ids -1 and >= N, and
+    duplicates, everywhere."""
+    import numpy as np
+    import torch
+    # (label, B, S, F, N, D)
+    cases = [("S = 1, B = 1", 1, 1, 5, 60, 100),
+             ("B = 1", 1, 700, 10, 900, 256),
+             ("a tile of only -1 rows", 2, 300, 5, 400, 100),
+             ("S = 0", 2, 0, 5, 50, 100),
+             ("F = 1", 3, 500, 1, 200, 256),
+             ("F = 33 (generic path)", 2, 300, 33, 500, 100),
+             ("D = 1", 3, 500, 15, 100, 1),
+             ("D = 33", 2, 400, 10, 300, 33),
+             ("D = 130", 2, 400, 15, 300, 130),
+             ("D = 256", 4, 1000, 15, 3000, 256),
+             ("h off 16-byte alignment", 2, 600, 5, 800, 100)]
+    for label, B, S, Fo, N, D in cases:
+        e = rng.integers(-1, N + 3, (B, S, Fo)).astype(np.int32)
+        if S:
+            e[:, 0] = e[:, 0, :1]                 # a duplicate run
+        if label.startswith("a tile"):
+            e[1, :70] = -1                        # two whole 32-row tiles
+        e = torch.from_numpy(e).cuda()
+        buf = torch.from_numpy(rng.normal(0, 1, B * N * D + 1).astype(
+            np.float32)).cuda()
+        h = (buf[1:] if label.startswith("h off") else buf[:-1]).view(B, N, D)
+        _, err = check_forward_once(e, h, label)
+        log(f"  sage_aggregate, {label}: edges {(B, S, Fo)} h {(B, N, D)}: "
+            f"equal to the f-ordered loop bit for bit, max abs err "
+            f"{err:.3g} (tol {SAGE_TOL})")
 
 
 def check_feature_gather(ids, table):
@@ -619,9 +754,10 @@ def check_sage_backward(recorded):
 def check_edge_shapes(graph) -> None:
     """The redesigned kernels against their plain versions on edge shapes:
     ``fused_sample`` with S = 1, S off either scan tile, B = 1, a row of
-    only padding seeds, S = 0 and a window most seeds exceed; the backward
-    with D off float4, a single slot, and source rows holding thousands
-    of slots (more than one warp's 32)."""
+    only padding seeds, S = 0 and a window most seeds exceed; the forward
+    aggregate (``check_forward_edge_shapes``); the backward with D off
+    float4, a single slot, and source rows holding thousands of slots
+    (more than one warp's 32)."""
     import numpy as np
     import torch
     from repro_torch.kernels.fused_sample import (fused_sample,
@@ -665,6 +801,8 @@ def check_edge_shapes(graph) -> None:
         log(f"  fused_sample, {label}: seeds {tuple(s.shape)}, fanout "
             f"{fanout}, window {window}: exact match, overflow "
             f"{int(got[2].sum())}")
+
+    check_forward_edge_shapes(rng)
 
     for B, S, Fo, n, D, hub in ((1, 1, 1, 1, 1, False),
                                 (1, 300, 5, 50, 33, False),
@@ -817,7 +955,7 @@ def training_phase(layout, data, cfg):
     log("  fused_sample, 3 levels at the step's shapes, device ms by "
         "kernel: " + ", ".join(f"{k} {v:.4f}"
                                for k, v in fs["split"].items()))
-    sa = check_sage_aggregate(forward_inputs)
+    sa = check_sage_aggregate(forward_inputs, "training step")
     del recorded[:], forward_inputs[:], bp, be, gp, ge, gq, hit_pos
     del is_hit, pos
     exc = None
@@ -998,7 +1136,8 @@ def main() -> int:
                                 PRODUCTS.fanouts, SALT)
         log("  fused_sample, 3 levels, device ms by kernel: " + ", ".join(
             f"{k} {v:.4f}" for k, v in fs["split"].items()))
-        sa = check_sage_aggregate(layer_inputs)
+        sa = check_sage_aggregate(layer_inputs, "serving")
+        check_forward_invariance(layer_inputs)
         src = batch.mfgs[-1].src_nodes
         buf, _, _ = pack_by_owner(src, owner_of(pipe.layout.offsets, src),
                                   NUM_PARTS)
@@ -1109,6 +1248,8 @@ def main() -> int:
             "shapes": "serving" if serving else "training step"}
         if "cold_ms" in res:
             entry["ms_l2_flushed"] = res["cold_ms"]
+        if "layers" in res:
+            entry["layers"] = res["layers"] + at_step["layers"]
         if serving and at_step:
             entry["training_step"] = {
                 k: at_step.get(k) for k in ("ms", "call_ms", "plain_ms",

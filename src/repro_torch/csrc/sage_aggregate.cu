@@ -5,21 +5,56 @@
 // gradient XLA derives from the jnp mean (`src/repro/core/mfg.py`
 // `mean_aggregate`): `repro` has no backward kernel.
 //
-// What bounds it on this card: bytes.  Each destination row reads F edge
-// ids and up to F source rows of D floats, and writes D floats; it does one
-// add per gathered float (about 0.25 flop per byte), far below the ridge.
-// The TPU kernel built one-hot count matrices per (dst tile, src tile) pair
-// for the MXU, which touches every source tile for every destination tile;
-// here it is a direct gather-reduce that reads only the rows the edges name.
+// What bounds the forward on this card: bytes.  Each destination row reads
+// F edge ids and up to F source rows of D floats, and writes D floats; it
+// does one add per gathered float (about 0.25 flop per byte), far below
+// the ridge.  The TPU kernel built one-hot count matrices per (dst tile,
+// src tile) pair for the MXU, which touches every source tile for every
+// destination tile; here it is a direct gather-reduce that reads only the
+// rows the edges name.
 //
-// Design: one warp per destination row.  Lanes split the D columns, with
-// 16-byte float4 loads and stores when D is a multiple of 4 and both
-// pointers are 16-byte aligned (else a scalar path), so each gathered source
-// row is read by one coalesced warp-wide request.  The edge ids of the row
-// are read by every lane from the same address (one broadcast transaction).
-// The sum runs in f = 0..F-1 order over valid edges, the count of valid
-// edges stays in a register, and the result is sum / max(count, 1): a row
-// with no valid edge gives 0 and a duplicate edge counts by multiplicity.
+// What held the first design (one warp per destination row, a runtime
+// loop over f) below half of its bound, and what this one does instead:
+//   1. Every lane read all F ids to count them, then again for each of
+//      its float4 columns.  Now a block stages the ids of its tile of R
+//      rows in shared memory with one coalesced load, and each row's
+//      source-table base once (the 64-bit b * N * D offset).
+//   2. A lane waited for row f before it issued row f + 1: the 16-byte load
+//      sat behind a data-dependent branch in a loop of unknown trip count,
+//      so a row cost F memory latencies.  Now the kernel is specialised
+//      for the fanouts of the main path (F = 15, 10, 5), and each thread
+//      issues all F of its predicated loads before its first add (any other
+//      F goes through a generic path, 8 loads in flight at a time).
+//   3. At D = 100 a warp per row left 7 of 32 lanes idle (25 float4
+//      columns).  Now thread work is the tile's (row, float4 column)
+//      pairs, and R is picked so that they fill whole warps: at D = 100
+//      (F = 5), 64 rows on 800 threads, two pairs a thread and no idle
+//      lane; at D = 256, 4 rows on 256 threads, 64 threads per row.  At
+//      F <= 5 one pair holds too few loads to pay for a block's staging
+//      and barrier: two pairs a thread took 0.033 ms against 0.040 for
+//      one at the serving bottom layer (tools/forward_plan_sweep.py).
+//   4. A padding row (only -1 ids; about three rows in four when serving
+//      pads a worker's seeds to the bucket) still occupied a warp that
+//      re-read its ids.  Now its loads are predicated off, so it reads
+//      nothing past the staged ids and streams its +0.0 row (__stcs).
+// Each thread counts its row's valid ids itself, from the F ids it reads
+// out of shared memory anyway to form its addresses and predicates: a
+// separate count pass would cost one more barrier and shared-memory round
+// trip per block and save only F integer adds per thread.
+//
+// The bits do not depend on the launch shape, so a seed's aggregate does
+// not depend on its bucket (served == direct predict): each output column
+// is the sum over f = 0..F-1, in that order and starting from +0.0, of
+// h[e[f]][c] for a valid id and +0.0 for an invalid one, divided (IEEE
+// division) by the count of valid ids; a row with none is +0.0.  Adding
+// +0.0 gives the bits of skipping the slot, since a sum that starts at
+// +0.0 is never -0.0 (Inf and NaN included).  A duplicate edge counts by
+// multiplicity.  The float4 path (D a multiple of 4, both pointers
+// 16-byte aligned) and the scalar path (anything else) add in the same
+// order.  The launch shape (R, threads) is picked from D and F only
+// (`forward_plan` in kernels/sage_aggregate.py), with R * F at most
+// kMaxStagedIds so the staged ids fit in 32 KB of shared memory; the
+// wrapper refuses F above that.
 //
 // Layout: edges (B, S, F) int32, valid iff in [0, N); h (B, N, D) float32;
 // out (B, S, D) float32.  B is the worker axis.
@@ -60,62 +95,10 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kRowsPerWarp = 8;  // backward: source rows one warp walks
-
-template <bool kVec>
-__global__ void sage_aggregate_kernel(const int* __restrict__ edges,
-                                      const float* __restrict__ h,
-                                      long long rows, int S, int F, int N,
-                                      int D, float* __restrict__ out) {
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const long long b = row / S;
-  const int* e = edges + row * F;
-  const float* hb = h + b * (long long)N * D;
-  float* o = out + row * (long long)D;
-
-  int count = 0;
-  for (int f = 0; f < F; ++f) {
-    const int j = e[f];
-    count += (j >= 0 && j < N) ? 1 : 0;
-  }
-  const float denom = (float)max(count, 1);
-
-  if (kVec) {
-    const int D4 = D >> 2;
-    for (int c = lane; c < D4; c += 32) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int f = 0; f < F; ++f) {
-        const int j = e[f];
-        if (j >= 0 && j < N) {
-          const float4 x =
-              reinterpret_cast<const float4*>(hb + (long long)j * D)[c];
-          acc.x += x.x;
-          acc.y += x.y;
-          acc.z += x.z;
-          acc.w += x.w;
-        }
-      }
-      acc.x /= denom;
-      acc.y /= denom;
-      acc.z /= denom;
-      acc.w /= denom;
-      reinterpret_cast<float4*>(o)[c] = acc;
-    }
-  } else {
-    for (int c = lane; c < D; c += 32) {
-      float acc = 0.f;
-      for (int f = 0; f < F; ++f) {
-        const int j = e[f];
-        if (j >= 0 && j < N) acc += hb[(long long)j * D + c];
-      }
-      o[c] = acc / denom;
-    }
-  }
-}
+constexpr int kWarpsPerBlock = 8;  // backward
+constexpr int kRowsPerWarp = 8;    // backward: source rows one warp walks
+constexpr int kMaxStagedIds = 8192;  // forward: ids a block stages (32 KB)
+constexpr int kChunk = 8;  // forward, generic F: loads in flight per batch
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -135,6 +118,80 @@ __device__ __forceinline__ void add_div(float4& acc, const float4& g,
   acc.y += g.y / d;
   acc.z += g.z / d;
   acc.w += g.w / d;
+}
+
+__device__ __forceinline__ void add(float& acc, float x) { acc += x; }
+__device__ __forceinline__ void add(float4& acc, const float4& x) {
+  acc.x += x.x;
+  acc.y += x.y;
+  acc.z += x.z;
+  acc.w += x.w;
+}
+
+// The most threads a forward block may have: a thread of the F = 5 kernel
+// holds 5 loads in flight and fits 64 registers, the others hold up to 15
+// (60 registers of loads alone at float4).  `forward_plan` keeps to it.
+template <int kF>
+constexpr int kForwardMaxThreads = kF == 5 ? 1024 : 512;
+
+template <typename T>
+__device__ __forceinline__ T load(const T* p) {
+  return __ldg(p);
+}
+
+__device__ __forceinline__ float div(float a, float d) { return a / d; }
+__device__ __forceinline__ float4 div(const float4& a, float d) {
+  return make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
+}
+
+// T = float4 (D % 4 == 0, 16-byte aligned) or float; Dv = D in units of T.
+// kF = the fanout the kernel is specialised for, 0 for any F.  A block
+// takes R consecutive destination rows; thread work is the tile's R * Dv
+// (row, column) pairs, walked with a stride of the block's size.
+template <typename T, int kF>
+__global__ void __launch_bounds__(kForwardMaxThreads<kF>)
+    sage_aggregate_kernel(const int* __restrict__ edges,
+                          const T* __restrict__ h, long long rows, int S,
+                          int F, int N, int Dv, int R,
+                          T* __restrict__ out) {
+  constexpr int kLoads = kF ? kF : kChunk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T** s_h = reinterpret_cast<const T**>(smem);
+  int* s_ids = reinterpret_cast<int*>(smem + R * sizeof(const T*));
+  const int Fr = kF ? kF : F;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int nr = (int)min((long long)R, rows - row0);
+  const int* e = edges + row0 * Fr;
+  for (int i = threadIdx.x; i < nr * Fr; i += blockDim.x)
+    s_ids[i] = __ldg(e + i);
+  for (int i = threadIdx.x; i < nr; i += blockDim.x)
+    s_h[i] = h + (row0 + i) / S * (long long)N * Dv;
+  __syncthreads();
+  T* o = out + row0 * Dv;
+  for (int p = threadIdx.x; p < nr * Dv; p += blockDim.x) {
+    const int r = p / Dv;
+    const int* ids = s_ids + r * Fr;
+    const T* hc = s_h[r] + (p - r * Dv);
+    T acc = zero<T>();
+    int count = 0;
+    for (int f0 = 0; f0 < Fr; f0 += kLoads) {  // one trip when kF != 0
+      T x[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int j = (kF || f0 + u < Fr) ? ids[f0 + u] : -1;
+        const bool ok = (unsigned)j < (unsigned)N;
+        count += ok;
+        x[u] = ok ? load(hc + (long long)j * Dv) : zero<T>();
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) add(acc, x[u]);
+    }
+    if (count == 0) {
+      __stcs(o + p, zero<T>());
+    } else {
+      o[p] = div(acc, (float)count);
+    }
+  }
 }
 
 // T = float4 (D % 4 == 0, 16-byte aligned) or float; Dv = D in units of T.
@@ -225,21 +282,60 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 
 }  // namespace
 
+namespace {
+
+template <typename T, int kF>
+cudaError_t launch_forward(const int* edges, const float* h, long long rows,
+                           int S, int F, int N, int Dv, int R, int threads,
+                           float* out, cudaStream_t stream) {
+  const long long blocks = (rows + R - 1) / R;
+  if (threads > kForwardMaxThreads<kF> || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const size_t smem =
+      (size_t)R * sizeof(const T*) + (size_t)R * F * sizeof(int);
+  sage_aggregate_kernel<T, kF>
+      <<<(unsigned int)blocks, threads, smem, stream>>>(
+          edges, reinterpret_cast<const T*>(h), rows, S, F, N, Dv, R,
+          reinterpret_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_forward_f(const int* edges, const float* h, long long rows,
+                             int S, int F, int N, int Dv, int R, int threads,
+                             float* out, cudaStream_t stream) {
+  switch (F) {
+    case 5:
+      return launch_forward<T, 5>(edges, h, rows, S, F, N, Dv, R, threads,
+                                  out, stream);
+    case 10:
+      return launch_forward<T, 10>(edges, h, rows, S, F, N, Dv, R, threads,
+                                   out, stream);
+    case 15:
+      return launch_forward<T, 15>(edges, h, rows, S, F, N, Dv, R, threads,
+                                   out, stream);
+    default:
+      return launch_forward<T, 0>(edges, h, rows, S, F, N, Dv, R, threads,
+                                  out, stream);
+  }
+}
+
+}  // namespace
+
+// R rows per block and `threads` threads per block, from `forward_plan`.
 extern "C" int sage_aggregate_launch(const int* edges, const float* h, int B,
                                      int S, int F, int N, int D, int vec,
-                                     float* out, cudaStream_t stream) {
+                                     int R, int threads, float* out,
+                                     cudaStream_t stream) {
   const long long rows = (long long)B * S;
   if (rows == 0) return (int)cudaSuccess;
-  const unsigned int blocks =
-      (unsigned int)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (vec) {
-    sage_aggregate_kernel<true><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-        edges, h, rows, S, F, N, D, out);
-  } else {
-    sage_aggregate_kernel<false><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-        edges, h, rows, S, F, N, D, out);
-  }
-  return (int)cudaGetLastError();
+  if (R < 1 || (long long)R * F > kMaxStagedIds)
+    return (int)cudaErrorInvalidValue;
+  if (vec)
+    return (int)launch_forward_f<float4>(edges, h, rows, S, F, N, D >> 2, R,
+                                         threads, out, stream);
+  return (int)launch_forward_f<float>(edges, h, rows, S, F, N, D, R, threads,
+                                      out, stream);
 }
 
 extern "C" int sage_aggregate_backward_launch(

@@ -4,10 +4,13 @@ plain versions.
 Replaces ``repro.kernels.sage_aggregate.sage_aggregate`` (Pallas body
 ``_sage_aggregate_kernel``) and the gradient XLA derives for ``repro``'s
 jnp mean.  Both kernels are in ``csrc/sage_aggregate.cu``; its header says
-what bounds them and how they are laid out.  The backward gathers over a
-transpose built on the card by ``sage_backward_index``
-(``csrc/sage_backward_index.cu``); ``backward_index`` is its plain
-version and ``backward_prep_plain`` that of its first pass.
+what bounds them and how they are laid out.  The forward's launch shape
+(``forward_plan``) depends on D and F only, and its result on neither: each
+output column is an f-ordered sum from +0.0 divided by the valid count.
+The backward gathers over a transpose built on the card by
+``sage_backward_index`` (``csrc/sage_backward_index.cu``);
+``backward_index`` is its plain version and ``backward_prep_plain`` that
+of its first pass.
 
 ``sage_aggregate`` runs the plain version (and trains through autograd)
 for CPU tensors only; for CUDA tensors it is a ``torch.autograd.Function``
@@ -26,6 +29,46 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.scan import THREADS, scan_scratch, scan_tiles
 
 ROWPTR_TILE = 4 * THREADS   # kScanTile in csrc/sage_backward_index.cu
+# the forward kernel's launch shape (csrc/sage_aggregate.cu)
+MAX_STAGED_IDS = 8192       # kMaxStagedIds: edge ids a block stages
+MIN_THREADS = 256           # a block takes rows up to this many threads
+
+
+def forward_max_threads(F: int) -> int:
+    """The most threads a forward block may have (``kForwardMaxThreads``:
+    the F = 5 kernel fits 64 registers a thread, the others need more)."""
+    return 1024 if F == 5 else 512
+
+
+def forward_plan(D: int, F: int, vec: bool) -> tuple[int, int]:
+    """(rows per block R, threads per block) of the forward kernel.
+
+    A pure function of the row width D, the fanout F and the float4 path
+    (``vec``), never of S, B or N; the kernel's bits do not depend on it
+    either.  Thread work is the tile's (row, column) pairs, C = D / 4 float4
+    columns a row (D on the scalar path), ``pairs_per_thread(F)`` of them a
+    thread.  R makes the pairs an exact multiple of 32 threads (no idle
+    lane), then doubles until the block has ``MIN_THREADS`` threads, and
+    halves while the tile's R * F ids exceed ``MAX_STAGED_IDS``.
+    """
+    C = D // 4 if vec else D
+    k = pairs_per_thread(F)
+    R = 32 * k // math.gcd(C, 32 * k)
+    while R * C < MIN_THREADS * k and R < MIN_THREADS * k:
+        R *= 2
+    while R > 1 and R * F > MAX_STAGED_IDS:
+        R //= 2
+    threads = -(-R * C // k)
+    threads = min(max(32, -(-threads // 32) * 32), forward_max_threads(F))
+    return R, threads
+
+
+def pairs_per_thread(F: int) -> int:
+    """(row, column) pairs a forward thread takes: two at F <= 5, whose
+    single pair holds too few loads to pay for the block's id staging and
+    barrier (64 rows on 800 threads beat 32 rows on 800 at serving shapes,
+    ``tools/forward_plan_sweep.py``), else one."""
+    return 2 if F <= 5 else 1
 
 
 def sage_aggregate_plain(edges: torch.Tensor,
@@ -115,7 +158,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point: (source under csrc/, argument types, result type)
 _ENTRY_POINTS = {
     "sage_aggregate_launch": ("sage_aggregate",
-                              [_P] * 2 + [_I] * 6 + [_P] * 2, _I),
+                              [_P] * 2 + [_I] * 8 + [_P] * 2, _I),
     "sage_aggregate_backward_launch": ("sage_aggregate",
                                        [_P] * 4 + [_I] * 5 + [_P] * 2, _I),
     "sage_backward_index_temp_bytes": ("sage_backward_index", [_I] * 2,
@@ -270,6 +313,10 @@ def sage_aggregate(edges: torch.Tensor, h_src: torch.Tensor) -> torch.Tensor:
     plain version for CPU ones."""
     if h_src.device.type == "cpu" and edges.device.type == "cpu":
         return sage_aggregate_plain(edges, h_src)
+    if edges.shape[-1] > MAX_STAGED_IDS:
+        raise ValueError(f"sage_aggregate: fanout {edges.shape[-1]} exceeds "
+                         f"the {MAX_STAGED_IDS} edge ids a block of the "
+                         f"forward kernel stages in shared memory")
     _check_cuda("sage_aggregate", edges, h_src)
     return _SageAggregate.apply(edges, h_src)
 
@@ -282,12 +329,13 @@ def _forward(edges: torch.Tensor, h_src: torch.Tensor) -> torch.Tensor:
     B = math.prod(edges.shape[:-2])
     out = torch.empty((*edges.shape[:-1], D), dtype=h_src.dtype,
                       device=h_src.device)
-    vec = int(D % 4 == 0 and h_src.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
+    vec = D % 4 == 0 and h_src.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    R, threads = forward_plan(D, F, vec)
     with torch.cuda.device(h_src.device):
         err = _lib("sage_aggregate_launch")(
-            edges.data_ptr(), h_src.data_ptr(), B, S, F, N, D, vec,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            edges.data_ptr(), h_src.data_ptr(), B, S, F, N, D, int(vec), R,
+            threads, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     sage_aggregate.launches += 1
     _build.check_launch("sage_aggregate", err)
     return out

@@ -6,7 +6,10 @@
     window on a graph with hubs, where the overflow count is non-zero.
   * sage_aggregate: fp32 ``rtol=atol=1e-5`` against ``repro``'s Pallas
     kernel in interpret mode and ``ref_mean_aggregate`` (the sums run in
-    another order).
+    another order).  A numpy model of the CUDA forward's arithmetic (ids
+    staged per tile of ``forward_plan``, f-ordered predicated sums from
+    +0.0) equals an f-ordered torch loop bit for bit, is batch-invariant,
+    and agrees with the plain version and ``repro`` within 1e-5.
   * feature_gather: rows equal by value (``np.array_equal``) to ``repro``'s
     Pallas kernel in interpret mode.
   * gather_rows: exact against ``repro``'s ``gather_rows_reference`` (its
@@ -27,6 +30,7 @@ The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 each against its plain version there.  Here the wrappers must take the
 plain version for CPU tensors and refuse anything else.
 """
+import inspect
 import shutil
 
 import numpy as np
@@ -49,8 +53,12 @@ from repro_torch.kernels.feature_gather import (feature_gather,
                                                 feature_gather_plain)
 from repro_torch.kernels.fused_sample import fused_sample
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
-from repro_torch.kernels.sage_aggregate import (backward_index,
+from repro_torch.kernels.sage_aggregate import (MAX_STAGED_IDS,
+                                                backward_index,
                                                 backward_prep_plain,
+                                                forward_max_threads,
+                                                forward_plan,
+                                                pairs_per_thread,
                                                 sage_aggregate,
                                                 sage_aggregate_backward,
                                                 sage_aggregate_backward_plain,
@@ -189,6 +197,133 @@ def test_sage_aggregate_stacked_workers():
         ref = ref_mean_aggregate(jnp.asarray(edges[b]), jnp.asarray(h[b]))
         np.testing.assert_allclose(got[b].numpy(), np.asarray(ref),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _forward_walk(edges, h, vec=True):
+    """The CUDA forward's arithmetic in numpy, tile by tile as
+    ``forward_plan`` cuts the rows: a tile's ids staged once, each row's
+    valid count taken from them, each column summed over f in ascending
+    order from +0.0, adding +0.0 for an invalid slot (a predicated load,
+    not a skipped one), then divided by the count; a row with no valid id
+    writes +0.0."""
+    B, S, F = edges.shape
+    N, D = h.shape[1:]
+    R, _ = forward_plan(D, F, vec)
+    flat = h.reshape(B * N, D)
+    e = edges.reshape(B * S, F)
+    out = np.empty((B * S, D), np.float32)
+    for row0 in range(0, B * S, R):
+        rows = np.arange(row0, min(row0 + R, B * S))
+        ids = e[rows].copy()                         # staged once
+        ok = (ids >= 0) & (ids < N)
+        count = ok.sum(axis=1)
+        src = (rows // S)[:, None] * N + np.clip(ids, 0, max(N - 1, 0))
+        acc = np.zeros((rows.size, D), np.float32)
+        for f in range(F):
+            acc = acc + np.where(ok[:, f, None], flat[src[:, f]],
+                                 np.float32(0))
+        mean = acc / np.maximum(count, 1).astype(np.float32)[:, None]
+        out[rows] = np.where(count[:, None] > 0, mean, np.float32(0))
+    return out.reshape(B, S, D)
+
+
+def _f_ordered_mean(edges, h):
+    """The masked mean as an f-ordered torch loop: acc = 0, then acc +
+    where(valid_f, h[e_f], 0) for each f in order, over clamp(count, 1)."""
+    N, D = h.shape[-2:]
+    acc = torch.zeros((*edges.shape[:-1], D))
+    count = torch.zeros(edges.shape[:-1])
+    for f in range(edges.shape[-1]):
+        idx = edges[..., f].long()
+        ok = (idx >= 0) & (idx < N)
+        rows = torch.gather(h, 1, idx.clamp(0, N - 1)[..., None].expand(
+            -1, -1, D))
+        acc = acc + torch.where(ok[..., None], rows, 0.0)
+        count = count + ok
+    return acc / count.clamp(min=1)[..., None]
+
+
+def _forward_inputs(B, S, F, N, D, seed, lo=-1, hi=None):
+    """Edges with a tile of only -1 rows and a duplicate run; ids in
+    [lo, hi), N + 2 by default (ids >= N are invalid)."""
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(lo, N + 2 if hi is None else hi,
+                         (B, S, F)).astype(np.int32)
+    edges[0, :min(S, 5)] = -1
+    edges[-1, -1] = edges[-1, -1, 0]
+    h = rng.normal(0, 1, (B, N, D)).astype(np.float32)
+    return edges, h
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("F,D", [(5, 100), (10, 256), (15, 256), (1, 1),
+                                 (33, 33)])
+def test_forward_walk_matches_f_ordered_loop_and_repro(F, D):
+    """The kernel's arithmetic equals the f-ordered loop bit for bit (ids
+    -1 and >= N, duplicates, rows of only -1 ids: +0.0), and the plain
+    version and ``repro``'s Pallas kernel (interpret mode, ids < N, the
+    ids its count takes as valid) within 1e-5."""
+    B, S, N = 2, 40, 50
+    edges, h = _forward_inputs(B, S, F, N, D, F + D)
+    model = _forward_walk(edges, h)
+    loop = _f_ordered_mean(torch.from_numpy(edges), torch.from_numpy(h))
+    np.testing.assert_array_equal(_bits(model), _bits(loop.numpy()))
+    np.testing.assert_array_equal(_bits(_forward_walk(edges, h, vec=False)),
+                                  _bits(model))
+    assert not model[0, :5].any() and not np.signbit(model[0, :5]).any()
+    plain = sage_aggregate_plain(torch.from_numpy(edges), torch.from_numpy(h))
+    np.testing.assert_allclose(model, plain.numpy(), rtol=1e-5, atol=1e-5)
+    below, _ = _forward_inputs(B, S, F, N, D, F + D, hi=N)
+    model = _forward_walk(below, h)
+    for b in range(B):
+        kern = j_sage_aggregate(jnp.asarray(below[b]), jnp.asarray(h[b]),
+                                tile_s=32, tile_n=32, interpret=True)
+        np.testing.assert_allclose(model[b], np.asarray(kern), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("D", [100, 256])
+def test_forward_walk_is_batch_invariant(D):
+    """A row's bits do not depend on the bucket: the rows of a call on
+    ``edges[:, :k]`` (k = 1, 7, 32) equal the first k rows of the full
+    call, and a worker alone (B = 1) or over a taller table (larger N)
+    gives the same rows."""
+    F = 5 if D == 100 else 15
+    edges, h = _forward_inputs(3, 70, F, 40, D, D)
+    full = _forward_walk(edges, h)
+    for k in (1, 7, 32):
+        np.testing.assert_array_equal(
+            _bits(_forward_walk(edges[:, :k], h)), _bits(full[:, :k]))
+    np.testing.assert_array_equal(_bits(_forward_walk(edges[1:2], h[1:2])),
+                                  _bits(full[1:2]))
+    valid = np.where(edges < 40, edges, -1)
+    tall = np.concatenate([h, np.ones((3, 9, D), np.float32)], axis=1)
+    np.testing.assert_array_equal(_bits(_forward_walk(valid, tall)),
+                                  _bits(_forward_walk(valid, h)))
+
+
+def test_forward_plan_depends_on_d_and_f_only():
+    """The launch shape is a function of D, F and the float4 path alone;
+    on the main path no lane idles at D = 100 (two pairs a thread) and a
+    row gets 64 threads at D = 256; every plan fits the staged ids and the
+    thread bound."""
+    assert list(inspect.signature(forward_plan).parameters) == ["D", "F",
+                                                                "vec"]
+    R, threads = forward_plan(100, 5, True)
+    assert threads * pairs_per_thread(5) == R * 25 and threads % 32 == 0
+    for F in (10, 15):
+        R, threads = forward_plan(256, F, True)
+        assert pairs_per_thread(F) == 1 and threads == R * 64
+    for F in (0, 1, 5, 10, 15, 33, MAX_STAGED_IDS):
+        for D in (0, 1, 33, 100, 130, 256, 4096):
+            for vec in (True, False):
+                R, threads = forward_plan(D, F, vec)
+                assert R >= 1 and R * F <= MAX_STAGED_IDS
+                assert threads % 32 == 0
+                assert 32 <= threads <= forward_max_threads(F)
 
 
 @pytest.mark.parametrize("N,M,D", [(1, 1, 1), (50, 30, 8), (300, 129, 33),
@@ -380,13 +515,21 @@ def test_seeds_per_tile_grows_past_the_large_level():
 
 
 @pytest.mark.parametrize("which", ["fused_sample", "sage_backward_index",
-                                   "sage_aggregate_backward"])
+                                   "sage_aggregate_backward",
+                                   "sage_aggregate"])
 def test_kernel_size_guards_raise(which):
-    """Shapes past the kernels' int32 offsets raise before any launch."""
+    """Shapes past the kernels' int32 offsets, or a fanout past the ids
+    the forward stages per block, raise before any launch."""
     meta = torch.device("meta")
     idx = torch.zeros(3, dtype=torch.int32, device=meta)
-    with pytest.raises(ValueError, match=r"2\*\*31"):
-        if which == "fused_sample":
+    match = (str(MAX_STAGED_IDS) if which == "sage_aggregate"
+             else r"2\*\*31")
+    with pytest.raises(ValueError, match=match):
+        if which == "sage_aggregate":
+            sage_aggregate(torch.zeros((4, 2, MAX_STAGED_IDS + 1),
+                                       dtype=torch.int32, device=meta),
+                           torch.ones((4, 16, 4), device=meta))
+        elif which == "fused_sample":
             fused_sample(idx, idx, torch.zeros((4, 2 ** 28), dtype=torch.int32,
                                                device=meta), 0, fanout=2)
         elif which == "sage_backward_index":
