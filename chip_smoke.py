@@ -58,6 +58,27 @@ Phases (any failure raises and the script exits non-zero):
      through ``SyncDriver``: finite losses, 2 rounds per step, every one
      of the six kernel wrappers launched; the step's wall time, device busy
      time and idle share, and peak device memory.
+  9. overlap, on phase 8's layout and model: 10 steps each of the sync
+     driver without and with seed staging, ``double_buffer`` at depth 1
+     and 2, depth 1 with staging, and a ``staged``-store pipeline at depth
+     1 (same cache, device combine), each from phase 8's initial
+     parameters.  Each run: losses and final parameters equal phase 8's
+     synchronous run bit for bit, 2 feature rounds per step (0 for
+     ``staged``), the fused sampler's window overflow nonzero in some
+     step (the stager's host replay applies the window), every kernel of
+     the path launched, a restart at step 5 replays steps 5-9; its step
+     wall, host ms by part of the step (unfenced, and fenced by
+     synchronizes), device busy and idle share over 2 steps profiled one
+     by one (taken again when their counts of device ops differ), the
+     stager's produce time, ring-empty waits and pinned bytes, and peak
+     device memory.  Then phase 6's predictor and arrivals through
+     ``GNNServer`` with a ``RecyclingCache`` (``hot_set_admit`` over a
+     ``blend(0.5)`` ranking), every served output equal to direct
+     ``predict`` bit for bit, with its p50, p99, QPS and hit rate; a
+     ``frequency`` cache pipeline's hit rate; and
+     ``repro_torch.launch.serve_gnn`` with ``--recycle --hot-scorer
+     blend(0.5)`` at its own small defaults, as a launcher smoke: served
+     outputs equal direct ``predict`` bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -839,7 +860,8 @@ def feature_rows(layout, src):
 
 def training_phase(layout, data, cfg):
     """Phase 8: returns ({kernel name: its result at the step's shapes},
-    launch counts of the 10-step driver run)."""
+    launch counts of the 10-step driver run, that run as phase 9's
+    reference: {"params0", "losses", "params"})."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -965,6 +987,7 @@ def training_phase(layout, data, cfg):
     opt = init_opt_state(params)
     driver = pin.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
                               grad_clip=1.0)
+    reference = {"params0": params}
     K.reset_launch_counts()
     rounds_before = pin.counter.rounds
     losses, walls, hit_rates = [], [], []
@@ -975,6 +998,7 @@ def training_phase(layout, data, cfg):
         walls.append((time.perf_counter() - t0) * 1e3)
         hit_rates.append(float(m["cache_hit_rate"]))
     counts = K.launch_counts()
+    reference.update(losses=losses, params=params)
     rounds = (pin.counter.rounds - rounds_before) / TRAIN_STEPS
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1046,8 +1070,405 @@ def training_phase(layout, data, cfg):
         f"GB (torch.cuda.max_memory_allocated)")
     return {"gather_rows": gr, "sage_aggregate_backward": bw,
             "sage_backward_index": bidx, "fused_sample": fs,
-            "sage_aggregate": sa}, counts
+            "sage_aggregate": sa}, counts, reference
 
+
+def _union(spans) -> float:
+    """Time covered by at least one of the (start, end) ``spans``."""
+    spans = sorted(spans)
+    union, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            union += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    return union + cur_b - cur_a
+
+
+def device_streams(prof) -> tuple[float, list]:
+    """(time at least one device op ran, [(ops, summed ms, busy ms) of
+    each stream, the stream with the most ops first]) of a trace.  The
+    step runs on one stream; the stager's copies ride a stream of their
+    own and may overlap the step's kernels."""
+    from torch.autograd import DeviceType
+    by_stream = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_stream.setdefault(e.device_resource_id, []).append(
+                (e.time_range.start, e.time_range.end))
+    if not by_stream:
+        raise AssertionError("the profiler recorded no device operation")
+    streams = sorted(((len(v), sum(b - a for a, b in v) / 1e3,
+                       _union(v) / 1e3) for v in by_stream.values()),
+                     reverse=True)
+    return _union([x for v in by_stream.values() for x in v]) / 1e3, \
+        streams
+
+
+def profiled_steps(driver, params, opt, steps: int = 2):
+    """Profile ``steps`` driver steps, each in a trace of its own between
+    two synchronizes.  Returns (params, opt, per-step means: wall ms,
+    device busy ms, the step's own stream's ops and busy ms, the other
+    streams' ops and summed ms).  When the steps' counts of device ops on
+    their own stream differ, the tracer dropped records (as ``time_ms``
+    notes) and the set is taken again, up to five times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(5):
+        per = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                params, opt, loss, _ = driver.step(params, opt)
+                float(loss)
+                torch.cuda.synchronize()
+            per.append(((time.perf_counter() - t0) * 1e3,
+                        *device_streams(prof)))
+        own_ops = [streams[0][0] for _, _, streams in per]
+        if len(set(own_ops)) == 1:
+            break
+        log(f"  (trace set {attempt + 1}: the step's stream recorded "
+            f"{own_ops} device ops; tracing again)")
+    else:
+        raise RuntimeError("the profiler recorded no two steps alike in "
+                           "five trace sets")
+    mean = statistics.mean
+    return params, opt, {
+        "wall_ms": mean(w for w, _, _ in per),
+        "device_busy_ms": mean(b for _, b, _ in per),
+        "own_stream_ops": own_ops[0],
+        "own_stream_busy_ms": mean(s[0][2] for _, _, s in per),
+        "other_stream_ops": mean(sum(x[0] for x in s[1:])
+                                 for _, _, s in per),
+        "other_stream_ms": mean(sum(x[1] for x in s[1:])
+                                for _, _, s in per)}
+
+
+def h2d_ms(host, reps: int = 3) -> float:
+    """Median time of one copy of the pinned ``host`` tensor to the card,
+    by CUDA events around it."""
+    import torch
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev = host.to("cuda", non_blocking=True)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+        del dev
+    return statistics.median(times)
+
+
+def stage_times(driver, params, opt, fenced: bool, steps: int = 3):
+    """Host ms of each part of ``steps`` driver steps (median by part):
+    the seeds (the stream's draw or the stager's ``get``), then the
+    double-buffered driver's prepare of step k + depth, consume of step k
+    and update, or the sync driver's one step program.  ``fenced`` ends
+    each part with a synchronize (host + device ms); unfenced, ``wait``
+    is the rest of the step's wall, the host waiting for the loss."""
+    import torch
+    parts = [(driver, "_seeds_salt", "seeds")]
+    runner = getattr(driver, "_runner", None)
+    if runner is not None:
+        parts += [(runner, "_prep", "prepare"), (runner, "_cons", "consume"),
+                  (runner, "_update", "update")]
+    else:
+        parts.append((driver, "_fn", "prepare + consume + update"))
+    ms = {name: [] for _, _, name in parts}
+    originals = [getattr(obj, attr) for obj, attr, _ in parts]
+
+    def timed(fn, name):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if fenced:
+                torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    for (obj, attr, name), fn in zip(parts, originals):
+        setattr(obj, attr, timed(fn, name))
+    walls = []
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss, _ = driver.step(params, opt)
+            float(loss)
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for (obj, attr, _), fn in zip(parts, originals):
+            setattr(obj, attr, fn)
+    out = {name: statistics.median(v) for name, v in ms.items()}
+    if not fenced:
+        out["wait"] = statistics.median(
+            w - sum(v[i] for v in ms.values()) for i, w in enumerate(walls))
+    return params, opt, out
+
+
+def host_memory_gb() -> tuple[float, float]:
+    """(MemTotal, MemAvailable) of the host, GB, from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            info[key] = int(val.split()[0]) * 1024 / 1e9
+    return info["MemTotal"], info["MemAvailable"]
+
+
+OVERLAP_RUNS = (       # (label, prefetch depth, staging, feature store)
+    ("sync", 0, False, "pinned_hot"),
+    ("sync + staging", 0, True, "pinned_hot"),
+    ("double_buffer depth 1", 1, False, "pinned_hot"),
+    ("double_buffer depth 2", 2, False, "pinned_hot"),
+    ("double_buffer depth 1 + staging", 1, True, "pinned_hot"),
+    ("staged store, depth 1", 1, False, "staged"),
+)
+RESTART = 5            # phase 9 restarts each run here
+
+
+def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
+    """One phase-9 run: 10 steps from phase 8's initial parameters, held
+    to phase 8's synchronous run bit for bit, then a restart at step 5, 3
+    steps timed by part unfenced and 3 fenced, and 2 profiled steps.
+    Returns (launch counts of the 10 steps, numbers for PERF.md)."""
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.models.gnn import gnn_loss
+    from repro_torch.optim import init_opt_state, tree_leaves
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+
+    def loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+    def same_params(a, b) -> bool:
+        return all(torch.equal(x, y)
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    spec = PipelineSpec.from_scheme(
+        "hybrid+fused", num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+        cache_capacity=CACHE_K, cache_policy="degree", feature_store=store,
+        prefetch_depth=depth, staging=staging, data=data)
+    pipe = Pipeline.from_layout(layout, spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"-- {label}: {spec.prefetch.mode} driver, store {store}, staging "
+        f"{'on' if staging or store == 'staged' else 'off'}")
+    with pipe.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                           grad_clip=1.0) as driver:
+        params = ref["params0"]
+        opt = init_opt_state(params)
+        K.reset_launch_counts()
+        rounds_before = pipe.counter.rounds
+        losses, walls, overflow = [], [], []
+        for k in range(TRAIN_STEPS):
+            if k == RESTART:
+                snapshot = (params, opt)
+            t0 = time.perf_counter()
+            params, opt, loss, m = driver.step(params, opt)
+            losses.append(float(loss))          # synchronizes
+            walls.append((time.perf_counter() - t0) * 1e3)
+            overflow.append(int(m["sampler_window_overflow"]))
+        counts = K.launch_counts()
+        rounds = (pipe.counter.rounds - rounds_before) / TRAIN_STEPS
+        final = params
+        want_rounds = 0 if store == "staged" else 2
+        if rounds != want_rounds:
+            raise AssertionError(f"{label}: {rounds} rounds per step, "
+                                 f"expected {want_rounds}")
+        if losses != ref["losses"] or not same_params(final, ref["params"]):
+            raise AssertionError(
+                f"{label}: differs from phase 8's synchronous run: losses "
+                f"{losses} vs {ref['losses']}, parameters equal "
+                f"{same_params(final, ref['params'])}")
+        if max(overflow) == 0:
+            raise AssertionError(f"{label}: no window overflow in any step")
+        path = [k for k in counts
+                if not (store == "staged" and k == "feature_gather")]
+        missing = [k for k in path if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: "
+                                 f"{missing}")
+        params, opt = snapshot
+        replay = []
+        for k in range(RESTART, TRAIN_STEPS):
+            params, opt, loss, _ = driver.step(params, opt, step_idx=k)
+            replay.append(float(loss))
+        if replay != losses[RESTART:] or not same_params(params, final):
+            raise AssertionError(f"{label}: the restart at step {RESTART} "
+                                 f"gave {replay}, not {losses[RESTART:]}")
+        params, opt, host = stage_times(driver, params, opt, fenced=False)
+        params, opt, fenced = stage_times(driver, params, opt, fenced=True)
+        params, opt, prof = profiled_steps(driver, params, opt)
+        stats = driver.stager.stats() if driver.stager is not None else None
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if store == "staged":       # after the peak: it needs a buffer
+            buf = driver.stager._pool[0]
+            prof["row_copy_bytes"] = buf.numel() * buf.element_size()
+            prof["row_copy_ms"] = h2d_ms(buf)
+            del buf
+    median = statistics.median(walls)
+    out = {"label": label, "losses_equal": True,
+           "step_wall_median_ms": median,
+           "step_wall_min_ms": min(walls), "step_wall_max_ms": max(walls),
+           "step_walls_ms": walls, "profiled": prof,
+           "idle_share": 1 - prof["device_busy_ms"] / prof["wall_ms"],
+           "idle_share_of_median_wall": 1 - prof["device_busy_ms"] / median,
+           "host_stage_ms": host, "fenced_stage_ms": fenced,
+           "overflow_per_step": overflow, "rounds_per_step": rounds,
+           "peak_device_gb": peak, "pinned_bytes": 0}
+    log(f"losses and final parameters equal phase 8's run bit for bit; "
+        f"restart at step {RESTART} replays steps {RESTART}-"
+        f"{TRAIN_STEPS - 1}; {rounds:g} rounds per step; window overflow "
+        f"per step {overflow}")
+    log(f"step wall median {median:.3f} ms (min {min(walls):.3f}, max "
+        f"{max(walls):.3f}); profiled steps: wall {prof['wall_ms']:.3f} "
+        f"ms, device busy {prof['device_busy_ms']:.3f} ms (the step's "
+        f"stream {prof['own_stream_busy_ms']:.3f} ms in "
+        f"{prof['own_stream_ops']} ops; other streams "
+        f"{prof['other_stream_ops']:g} ops, {prof['other_stream_ms']:.3f} "
+        f"ms), idle share {out['idle_share']:.3f} (of the unprofiled "
+        f"median wall {out['idle_share_of_median_wall']:.3f}); peak device "
+        f"memory {peak:.2f} GB")
+    log("stages, host ms (median of 3): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in host.items()) + "; fenced, host + "
+        "device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items()))
+    if "row_copy_ms" in prof:
+        nbytes = prof["row_copy_bytes"]
+        log(f"one staged row buffer ({nbytes} B) copied to the device "
+            f"in {prof['row_copy_ms']:.3f} ms by CUDA events ("
+            f"{nbytes / prof['row_copy_ms'] / 1e6:.1f} GB/s)")
+    if stats is not None:
+        produce = stats["produce_ms"]
+        out.update(produce_median_ms=statistics.median(produce),
+                   produce_count=len(produce),
+                   empty_waits=stats["empty_waits"],
+                   pinned_bytes=stats["pinned_bytes"])
+        out["produce_stage_median_ms"] = {
+            k: statistics.median(v) for k, v in stats["stage_ms"].items()}
+        log(f"stager: produce median {out['produce_median_ms']:.3f} ms "
+            f"over {len(produce)} slots (min {min(produce):.3f}, max "
+            f"{max(produce):.3f}; by stage " + ", ".join(
+                f"{k} {v:.3f}"
+                for k, v in out["produce_stage_median_ms"].items())
+            + f"), ring found empty {stats['empty_waits']} times, pinned "
+            f"host bytes {stats['pinned_bytes']}")
+    log("launches in the 10 steps: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()))
+    return counts, out
+
+
+def recycled_serving(serving) -> tuple[dict, dict]:
+    """Phase 6's full-width predictor and its ``hotset`` arrivals (twice
+    the calibrated rate) through ``GNNServer`` with a ``RecyclingCache``
+    that admits the top 1024 of a ``blend(0.5)`` scorer, its frequency
+    term fed by another draw of the same traffic.  Every served output,
+    recycled or not, must equal direct ``predict`` bit for bit (fixed
+    salt, fixed parameters).  Returns (launch counts of the run, numbers
+    for PERF.md)."""
+    import numpy as np
+    import repro_torch.kernels as K
+    from repro_torch.core.cache import resolve_hot_scorer
+    from repro_torch.serve import GNNServer, RecyclingCache, hot_set_admit
+    from repro_torch.serve.traffic import hotset_arrivals
+
+    pred, arrivals, graph = (serving[k] for k in ("pred", "arrivals",
+                                                  "graph"))
+    scorer = resolve_hot_scorer("blend(0.5)")
+    scorer.scores(graph)                    # makes its frequency tracker
+    seen = hotset_arrivals(len(arrivals), serving["rate"], NUM_NODES,
+                           graph=graph, hot_k=64, seed=1)
+    scorer.observe(np.asarray([v for _, v in seen]))
+    recycler = RecyclingCache(capacity=1024, tau=64, rho=1.0,
+                              admit=hot_set_admit(
+                                  scorer.top_ids(graph, 1024)))
+    server = GNNServer(pred, max_delay=2e-3, recycler=recycler)
+    K.reset_launch_counts()
+    stats, served = server.run(arrivals, warmup=False, collect_outputs=True)
+    counts = K.launch_counts()
+    direct = pred.predict([v for _, v in arrivals])
+    if not np.array_equal(served, direct):
+        raise AssertionError(
+            f"served outputs (recycler on) differ from direct predict in "
+            f"{int((served != direct).any(axis=1).sum())} of "
+            f"{len(arrivals)} rows")
+    missing = [k for k in SERVING_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the recycled "
+                             f"serving path: {missing}")
+    s = stats.summary()
+    base = serving["summary"]
+    log(f"served {s['num_requests']} hotset requests at "
+        f"{serving['rate']:.0f} req/s: p50 {s['p50_ms']:.3f} ms, p99 "
+        f"{s['p99_ms']:.3f} ms, QPS {s['qps']:.1f}, flushes "
+        f"{s['num_flushes']}, recycled {s['num_recycled']} (hit rate "
+        f"{s['recycler']['hit_rate']:.4f}, {s['recycler']['entries']} "
+        f"entries); outputs == direct predict bit for bit.  Phase 6 "
+        f"without the recycler: p50 {base['p50_ms']:.3f} ms, p99 "
+        f"{base['p99_ms']:.3f} ms, QPS {base['qps']:.1f}")
+    log(f"kernel launches on the recycled serving path: {counts}")
+    return counts, {k: s[k] for k in ("p50_ms", "p99_ms", "qps",
+                                      "num_recycled", "num_flushes",
+                                      "recycler")}
+
+
+def overlap_phase(layout, data, cfg, ref, serving):
+    """Phase 9: the overlapped drivers and the staged store against phase
+    8's synchronous run, the recycler on phase 6's full-width serving
+    path, a ``frequency`` cache, and ``serve_gnn`` as a launcher smoke.
+    Returns (summed launch counts of the runs' 10-step windows, launch
+    counts of the recycled serving run, the numbers for PERF.md)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve_gnn
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+
+    total, avail = host_memory_gb()
+    log(f"host memory {total:.1f} GB, {avail:.1f} GB available; one staged "
+        f"row buffer {4 * 1_056_000 * cfg.in_dim * 4 / 1e9:.2f} GB")
+    counts, runs = {}, []
+    for label, depth, staging, store in OVERLAP_RUNS:
+        c, out = overlap_run(layout, data, cfg, ref, label, depth, staging,
+                             store)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        runs.append(out)
+
+    log("-- the recycler on phase 6's predictor (full width)")
+    recycled_counts, recycled = recycled_serving(serving)
+
+    log("-- the frequency cache policy (65 536 rows per worker)")
+    spec = PipelineSpec.from_scheme(
+        "hybrid+fused", num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+        cache_capacity=CACHE_K, cache_policy="frequency",
+        feature_store="pinned_hot", data=data)
+    t0 = time.perf_counter()
+    pipe = Pipeline.from_layout(layout, spec)
+    t_build = time.perf_counter() - t0
+    prepare, _ = pipe.make_prepare_consume(None, counted=False)
+    with torch.no_grad():
+        b = prepare(pipe.shards, pipe.seeds(TRAIN_BATCH, 0), 0, pipe.cache)
+    filled = int((pipe.cache.ids < 2 ** 31 - 1).sum())
+    hit_rate = float((b.hits / (b.mfgs[-1].src_nodes >= 0).sum(-1)).mean())
+    log(f"built in {t_build:.2f} s, {filled} of {4 * CACHE_K} slots filled; "
+        f"hit rate at step 0's frontier {hit_rate:.4f}")
+    del pipe, b
+
+    log("-- serve_gnn --recycle --hot-scorer blend(0.5), a launcher smoke "
+        "at its own small defaults (its times are not the port's)")
+    res = serve_gnn.main(["--recycle", "--hot-scorer", "blend(0.5)"])
+    direct = res["predictor"].predict(res["seeds"])
+    if not np.array_equal(res["outputs"], direct):
+        raise AssertionError("served outputs differ from direct predict")
+    log("served outputs (recycled ones included) equal direct predict bit "
+        "for bit")
+    return counts, recycled_counts, {"runs": runs,
+                                     "recycled_serving": recycled}
 
 def main() -> int:
     import numpy as np
@@ -1209,11 +1630,20 @@ def main() -> int:
     log("== phase 7: where the time of one predict goes")
     predict_breakdown(pred, batch_seeds, "predict(128 seeds), bucket 128")
     predict_breakdown(pred, batch_seeds[:1], "predict(1 seed), bucket 1")
-    del pred, server
+    del server
 
     log("== phase 8: training (pinned_hot store, AdamW)")
     cfg_train = dataclasses.replace(PRODUCTS, dropout=0.0)
-    train, train_counts = training_phase(pipe.layout, data, cfg_train)
+    train, train_counts, reference = training_phase(pipe.layout, data,
+                                                    cfg_train)
+
+    log("== phase 9: overlap (prefetch, staging, the staged store) and "
+        "serve_gnn")
+    overlap_counts, recycled_counts, overlap = overlap_phase(
+        pipe.layout, data, cfg_train, reference,
+        {"pred": pred, "arrivals": arrivals, "rate": rate, "graph": ds.graph,
+         "summary": s})
+    log(json.dumps({"overlap": overlap}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
@@ -1232,7 +1662,9 @@ def main() -> int:
             ("gather_rows", None, "src/repro/kernels/gather.py:49",
              "gather_rows")):
         by_path = {"serving": counts.get(name, 0),
-                   "training": train_counts[name]}
+                   "training": train_counts[name],
+                   "overlap": overlap_counts[name],
+                   "recycled serving": recycled_counts.get(name, 0)}
         at_step = train.get(name)
         res = serving or at_step
         entry = {

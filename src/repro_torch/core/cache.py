@@ -1,10 +1,12 @@
 """Remote-feature caching (the paper's §5 future-work item) and the hot-set
 scorer registry — the shared "who's hot" ranking.
 
-Counterpart of ``repro.core.cache`` with the ``degree`` scorer and the
-``degree`` cache policy (``frequency`` and ``blend`` are not ported yet).
-The serving traffic generator, the arrival-rate calibration and the cache
-policies rank hot nodes through the scorer registry.
+Counterpart of ``repro.core.cache``: the ``degree``, ``frequency(decay)``
+and ``blend(w)`` scorers, the online ``FrequencyTracker``, and the
+``degree`` and ``frequency`` cache policies.  The serving traffic
+generator, the recycler's admission, the arrival-rate calibration and the
+cache policies rank hot nodes through the scorer registry.  Host-side
+numpy, like ``repro``'s, so rankings and cached ids are bit-identical.
 
 A ``FeatureCache`` holds, per worker, the sorted ids of the remote nodes it
 caches and their feature rows, stacked on the worker axis.  Cache
@@ -46,6 +48,9 @@ class HotSetScorer:
         """Top-``k`` hottest node ids (all nodes if ``k`` is None)."""
         return rank_by_score(self.scores(graph), k)
 
+    def observe(self, ids) -> None:
+        """Fold an access batch into the scorer (no-op when static)."""
+
 
 class DegreeScorer(HotSetScorer):
     """Static: hotness = in-degree."""
@@ -54,6 +59,103 @@ class DegreeScorer(HotSetScorer):
 
     def scores(self, graph) -> np.ndarray:
         return graph.degrees().cpu().numpy()
+
+
+class FrequencyTracker:
+    """Online exponentially-decayed access counts over node ids: counts
+    decay by ``decay`` per ``observe`` call, so the hot set follows the
+    recent access distribution."""
+
+    def __init__(self, num_nodes: int, *, decay: float = 1.0):
+        if not 0.0 < decay <= 1.0:
+            raise ValueError(f"decay must be in (0, 1], got {decay}")
+        self.num_nodes = int(num_nodes)
+        self.decay = float(decay)
+        self.counts = np.zeros(self.num_nodes, np.float64)
+        self.total_observed = 0
+
+    def observe(self, ids) -> None:
+        """Fold one batch of node ids into the decayed counts (ids outside
+        ``[0, num_nodes)`` are dropped)."""
+        ids = np.asarray(ids).ravel()
+        ids = ids[(ids >= 0) & (ids < self.num_nodes)]
+        if self.decay < 1.0:
+            self.counts *= self.decay
+        np.add.at(self.counts, ids, 1.0)
+        self.total_observed += ids.size
+
+    def topk(self, k: int) -> np.ndarray:
+        """Top-``k`` ids by decayed count (``rank_by_score`` tie-break)."""
+        return rank_by_score(self.counts, k)
+
+    def is_hot(self, ids, k: int) -> np.ndarray:
+        """Boolean mask: is each id in the current top-``k`` set?"""
+        return np.isin(np.asarray(ids).ravel(), self.topk(k))
+
+
+class FrequencyScorer(HotSetScorer):
+    """Dynamic: hotness = a ``FrequencyTracker``'s decayed counts.  The
+    tracker is made at the first ``scores(graph)`` call unless one is
+    passed in; with no observations every score is 0 and ``top_ids``
+    falls back to id order."""
+
+    name = "frequency"
+
+    def __init__(self, tracker: FrequencyTracker | None = None, *,
+                 decay: float = 1.0):
+        self.tracker = tracker
+        self._decay = float(decay)
+
+    def observe(self, ids) -> None:
+        if self.tracker is None:
+            raise ValueError(
+                "frequency scorer has no tracker yet: call scores() or "
+                "top_ids() once, or pass FrequencyTracker(num_nodes)")
+        self.tracker.observe(ids)
+
+    def scores(self, graph) -> np.ndarray:
+        if self.tracker is None:
+            self.tracker = FrequencyTracker(graph.num_nodes,
+                                            decay=self._decay)
+        if self.tracker.num_nodes != graph.num_nodes:
+            raise ValueError(
+                f"frequency scorer's tracker covers "
+                f"{self.tracker.num_nodes} nodes, graph has "
+                f"{graph.num_nodes}")
+        return self.tracker.counts
+
+
+class BlendScorer(HotSetScorer):
+    """``w * degree + (1 - w) * frequency``, each divided by its max.  With
+    no observations the frequency term is 0, so ``blend(w > 0)`` starts at
+    the degree ranking."""
+
+    name = "blend"
+
+    def __init__(self, weight: float = 0.5, *extra,
+                 tracker: FrequencyTracker | None = None,
+                 decay: float = 1.0):
+        if extra:
+            raise ValueError(f"blend takes at most one parameter (the "
+                             f"degree weight), got {(weight,) + extra}")
+        weight = float(weight)
+        if not 0.0 <= weight <= 1.0:
+            raise ValueError(f"blend weight must be in [0, 1], got {weight}")
+        self.weight = weight
+        self.degree = DegreeScorer()
+        self.frequency = FrequencyScorer(tracker, decay=decay)
+
+    def observe(self, ids) -> None:
+        self.frequency.observe(ids)
+
+    def scores(self, graph) -> np.ndarray:
+        d = self.degree.scores(graph).astype(np.float64)
+        f = np.asarray(self.frequency.scores(graph), np.float64)
+        if d.size and d.max() > 0:
+            d = d / d.max()
+        if f.size and f.max() > 0:
+            f = f / f.max()
+        return self.weight * d + (1.0 - self.weight) * f
 
 
 _HOT_SCORERS: dict[str, Callable[..., HotSetScorer]] = {}
@@ -93,7 +195,16 @@ def _degree_factory(*params):
     return DegreeScorer()
 
 
+def _frequency_factory(*params):
+    if len(params) > 1:
+        raise ValueError(f"scorer 'frequency' takes at most one parameter "
+                         f"(the decay), got {params}")
+    return FrequencyScorer(decay=params[0] if params else 1.0)
+
+
 register_hot_scorer("degree", _degree_factory)
+register_hot_scorer("frequency", _frequency_factory)
+register_hot_scorer("blend", lambda *p: BlendScorer(*p))
 
 
 # --------------------------------------------------------------------------
@@ -159,6 +270,42 @@ def degree_caches(layout, capacity: int, **_ignored) -> FeatureCache:
     return _assemble_cache(layout, capacity, picks)
 
 
+def frequency_caches(layout, capacity: int, *, fanouts,
+                     trace_steps: int = 4, trace_batch: int = 64,
+                     seed: int = 0, **_ignored) -> FeatureCache:
+    """Per worker, cache the remote nodes it fetched most often over
+    ``trace_steps`` steps of the seed stream (``seeds_per_worker`` with
+    salt ``seed + s``) sampled by the ``reference`` backend, as ``repro``
+    traces them, so the cached ids are bit-identical to ``repro``'s.
+    Only accessed nodes are cached; ties go to the lower id."""
+    from repro_torch.core.partition import seeds_per_worker
+    from repro_torch.core.sampler import sample_mfgs
+
+    if fanouts is None:
+        raise ValueError("frequency cache policy needs the sampler fanouts "
+                         "(pass fanouts=... or use the pipeline API)")
+    offsets, _ = layout.host_offsets_labels()
+    P = layout.num_parts
+    n = layout.graph.num_nodes
+    counts = np.zeros((P, n), np.int64)
+    for s in range(trace_steps):
+        salt = (seed + s) % (2 ** 32)
+        seeds = seeds_per_worker(layout, trace_batch, epoch_salt=salt)
+        src = sample_mfgs(layout.graph, seeds, fanouts,
+                          salt)[-1].src_nodes.cpu().numpy()
+        for p in range(P):
+            np.add.at(counts[p], src[p][src[p] >= 0], 1)
+
+    owner = np.searchsorted(offsets, np.arange(n), side="right") - 1
+    picks = []
+    for p in range(P):
+        c = counts[p].copy()
+        c[owner == p] = 0                       # local rows are free anyway
+        ranked = rank_by_score(c)
+        picks.append(ranked[c[ranked] > 0][:capacity])
+    return _assemble_cache(layout, capacity, picks)
+
+
 # --------------------------------------------------------------------------
 # cache-policy registry
 # --------------------------------------------------------------------------
@@ -194,3 +341,4 @@ def resolve_cache_policy(name: str) -> Callable:
 
 
 register_cache_policy("degree", degree_caches)
+register_cache_policy("frequency", frequency_caches)

@@ -231,7 +231,8 @@ register_partitioner("ldg", _ldg_factory)
 @dataclasses.dataclass(frozen=True)
 class PartitionLayout:
     """Relabeled graph + ownership metadata, on the pipeline's device
-    (``perm`` stays on the host)."""
+    (``perm`` stays on the host, and so do the host copies of ``offsets``
+    and ``labels`` that the seed draw reads: ``host_offsets_labels``)."""
     graph: CSCGraph              # relabeled global topology
     offsets: torch.Tensor        # (P+1,) int32 ownership ranges
     perm: np.ndarray             # new id -> old id
@@ -239,6 +240,23 @@ class PartitionLayout:
     labels: torch.Tensor         # (P, n_max) int32, -1 where unlabeled/pad
     node_valid: torch.Tensor     # (P, n_max) bool
     num_parts: int
+    offsets_host: np.ndarray | None = dataclasses.field(default=None,
+                                                        compare=False)
+    labels_host: np.ndarray | None = dataclasses.field(default=None,
+                                                       compare=False)
+
+    def host_offsets_labels(self) -> tuple[np.ndarray, np.ndarray]:
+        """(offsets (P+1,) int64, labels (P, n_max) int32) on the host,
+        copied from the device once, at first use, when ``build_layout``
+        did not keep them.  The per-step seed draw reads these, so it
+        queues no device copy (which would wait behind the training step
+        on the default stream)."""
+        if self.offsets_host is None or self.labels_host is None:
+            object.__setattr__(self, "offsets_host",
+                               self.offsets.cpu().numpy().astype(np.int64))
+            object.__setattr__(self, "labels_host",
+                               self.labels.cpu().numpy())
+        return self.offsets_host, self.labels_host
 
     @property
     def n_max(self) -> int:
@@ -300,6 +318,8 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
         labels=torch.from_numpy(lab).to(device),
         node_valid=torch.from_numpy(valid).to(device),
         num_parts=num_parts,
+        offsets_host=offsets.astype(np.int64),
+        labels_host=lab,
     )
 
 
@@ -313,10 +333,11 @@ def seeds_per_worker_host(layout: PartitionLayout, batch: int,
     rank from (global id, epoch_salt) and every worker takes its ``batch``
     lowest-ranked labeled nodes (ties by column order).  Returns a host
     ``(P, batch)`` int32 array, -1 padded; the same numpy program as
-    ``repro``'s, so the seeds are bit-identical."""
+    ``repro``'s, so the seeds are bit-identical.  It reads the layout's
+    host copies only, so a staging thread can call it while the device is
+    busy."""
     P = layout.num_parts
-    offsets = layout.offsets.cpu().numpy().astype(np.int64)
-    labels = layout.labels.cpu().numpy()
+    offsets, labels = layout.host_offsets_labels()
     n_max = labels.shape[1]
 
     gids = offsets[:-1, None] + np.arange(n_max, dtype=np.int64)[None, :]

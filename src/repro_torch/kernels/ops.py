@@ -35,7 +35,10 @@ def fused_sample_level(graph: CSCGraph, seeds: torch.Tensor, fanout: int,
                edges=edges, edge_mask=valid, indptr=indptr)
 
 
-# advertises the overflow_sink keyword to the step builder
+# advertises the overflow_sink keyword to the step builder, and the
+# window the draw ranges over to the host replay of the sampler
+# (``repro_torch.pipeline.staging``), which must draw what the card draws
 fused_sample_level.supports_overflow_sink = True
+fused_sample_level.window = MAX_DEG_WINDOW
 
 register_backend("fused_cuda", fused_sample_level)

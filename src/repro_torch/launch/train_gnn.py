@@ -6,11 +6,16 @@ device (counterpart of ``repro.launch.train_gnn``, same defaults).
   python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
       --devices 4 --feature-store pinned_hot --cache-capacity 256 \\
       --epochs 1 --steps-per-epoch 3 --batch 32
+  python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
+      --devices 4 --prefetch-depth 2 --staging --epochs 1 \\
+      --steps-per-epoch 3 --batch 32
+  python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
+      --devices 4 --feature-store staged --prefetch-depth 1 --epochs 1 \\
+      --steps-per-epoch 3 --batch 32
 
-Not ported yet, and refused with an error: prefetch depth > 0, seed
-staging, executors other than the stacked one, tracing, the
-``frequency`` cache policy, the ``staged`` feature store, and schemes
-other than ``hybrid`` / ``hybrid+fused``.
+Not ported yet, and refused with an error: executors other than the
+stacked one, tracing, and schemes other than ``hybrid`` /
+``hybrid+fused``.
 """
 import argparse
 import time
@@ -19,22 +24,11 @@ _NOT_PORTED = "is not ported to repro_torch yet"
 
 
 def _refuse_unported(ap, args) -> None:
-    if args.prefetch_depth > 0:
-        ap.error(f"--prefetch-depth > 0 (double-buffered prefetch) "
-                 f"{_NOT_PORTED}")
-    if args.staging:
-        ap.error(f"--staging (host-side seed staging) {_NOT_PORTED}")
     if args.shard_map or args.executor not in (None, "stacked"):
         ap.error(f"executor {args.executor or 'shard_map'!r} {_NOT_PORTED}; "
                  f"the port runs the stacked executor")
     if args.trace:
         ap.error(f"--trace {_NOT_PORTED}")
-    if args.cache_policy != "degree":
-        ap.error(f"cache policy {args.cache_policy!r} {_NOT_PORTED}; "
-                 f"available: degree")
-    if args.feature_store not in ("exchange", "pinned_hot"):
-        ap.error(f"feature store {args.feature_store!r} {_NOT_PORTED}; "
-                 f"available: exchange, pinned_hot")
     if args.scheme not in ("hybrid", "hybrid+fused"):
         ap.error(f"scheme {args.scheme!r} {_NOT_PORTED}; available: "
                  f"hybrid, hybrid+fused")
@@ -59,16 +53,23 @@ def main(argv=None):
                     help="per-worker hot-remote-feature cache entries "
                          "(0 = off)")
     ap.add_argument("--cache-policy", default="degree",
-                    help="cache-construction policy (degree)")
+                    help="cache-construction policy (degree | frequency)")
     ap.add_argument("--feature-store", default="exchange",
                     help="exchange (two-round all_to_all fetch) | "
                          "pinned_hot (cache's hot rows pinned in device "
-                         "memory, needs --cache-capacity > 0); rows are "
-                         "bit-identical across stores")
+                         "memory, needs --cache-capacity > 0) | staged "
+                         "(rows gathered on a host thread and copied "
+                         "ahead of the step, needs --prefetch-depth >= "
+                         "1); rows are bit-identical across stores")
     ap.add_argument("--prefetch-depth", type=int, default=0,
-                    help="only 0 (synchronous) is ported")
+                    help="prepared minibatches in flight ahead of the "
+                         "model (0 = synchronous)")
     ap.add_argument("--staging", action="store_true",
-                    help="not ported")
+                    help="draw the seeds (and the staged store's rows) "
+                         "on a host thread ahead of the step")
+    ap.add_argument("--staging-lead", type=int, default=1,
+                    help="slots the stager rides ahead of the prefetch "
+                         "depth")
     ap.add_argument("--nodes", type=int, default=20000)
     ap.add_argument("--avg-degree", type=int, default=10)
     ap.add_argument("--epochs", type=int, default=3)
@@ -101,7 +102,8 @@ def main(argv=None):
         args.scheme, num_parts=args.devices, fanouts=fanouts,
         cache_capacity=args.cache_capacity, cache_policy=args.cache_policy,
         partitioner=args.partitioner, feature_store=args.feature_store,
-        data=data)
+        prefetch_depth=args.prefetch_depth, staging=args.staging,
+        staging_lead=args.staging_lead, data=data)
     pipe = Pipeline.build_from_source(spec=spec, device=device)
     ds = pipe.dataset
     print(f"dataset: {ds.name}, {ds.graph.num_nodes} nodes, "
@@ -117,17 +119,23 @@ def main(argv=None):
 
     params = init_gnn_params(cfg, torch.Generator().manual_seed(0), device)
     opt_state = init_opt_state(params, kind="adamw")
-    driver = pipe.train_driver(loss_fn, batch=args.batch, lr=args.lr,
-                               optimizer="adamw", grad_clip=1.0,
-                               device=device)
+    with pipe.train_driver(loss_fn, batch=args.batch, lr=args.lr,
+                           optimizer="adamw", grad_clip=1.0,
+                           device=device) as driver:
+        _train(args, pipe, driver, cfg, params, opt_state)
+
+
+def _train(args, pipe, driver, cfg, params, opt_state) -> None:
+    staging = "on" if driver.stager is not None else "off"
     for epoch in range(args.epochs):
         t0 = time.time()
         rounds_before = pipe.counter.rounds
         for s in range(args.steps_per_epoch):
             params, opt_state, loss, metrics = driver.step(params, opt_state)
             if epoch == 0 and s == 0:
-                print(f"scheme={args.scheme} executor=stacked prefetch=0 "
-                      f"staging=off store={args.feature_store}: "
+                print(f"scheme={args.scheme} executor=stacked "
+                      f"prefetch={args.prefetch_depth} staging={staging} "
+                      f"store={args.feature_store}: "
                       f"{pipe.counter.rounds} comm rounds/step "
                       f"({pipe.counter.sampling_rounds} sampling + "
                       f"{pipe.counter.feature_rounds} feature; "
@@ -142,7 +150,6 @@ def main(argv=None):
         if args.cache_capacity:
             msg += f" cache-hit {float(metrics['cache_hit_rate']):.1%}"
         print(msg)
-
 
 if __name__ == "__main__":
     main()

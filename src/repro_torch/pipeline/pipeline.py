@@ -152,9 +152,12 @@ class Pipeline:
                              device=None):
         """The *prepare* / *consume* halves of the training step
         (``repro_torch.pipeline.prefetch``): ``prepare(shard, seeds, salt,
-        cache) -> PreparedBatch`` and ``consume(params, batch) -> (loss,
-        grads, metrics)``, on ``device`` (the pipeline's; ``None`` means
-        CUDA)."""
+        cache=None, staged=None) -> PreparedBatch`` and ``consume(params,
+        batch, shard=None, cache=None) -> (loss, grads, metrics)``, with
+        the feature fetch in prepare unless ``spec.prefetch.features`` is
+        False, on ``device`` (the pipeline's; ``None`` means CUDA).
+        ``counted=False`` leaves the round counter alone (the drivers'
+        refill twin)."""
         from repro_torch.pipeline import prefetch as _prefetch
 
         self._check_device(device)
@@ -163,7 +166,7 @@ class Pipeline:
             fanouts=self.spec.sampler.fanouts, loss_fn=loss_fn,
             plan=self.placement, backend=self.spec.sampler.backend,
             counter=self.counter if counted else None,
-            store=self.feature_store)
+            store=self.feature_store, features=self.spec.prefetch.features)
 
     def step_fn(self, loss_fn, *, device=None):
         """The training step bound to the stacked executor: ``fn(params,
@@ -195,21 +198,24 @@ class Pipeline:
     def train_driver(self, loss_fn, *, batch: int, lr: float = 1e-3,
                      optimizer: str = "adamw",
                      grad_clip: float | None = 1.0, base_salt: int = 0,
-                     mode: str = "sync", device=None):
-        """The step driver: ``driver.step(params, opt_state, step_idx=None)
-        -> (params, opt_state, loss, metrics)`` over the deterministic seed
-        stream, on ``device`` (the pipeline's; ``None`` means CUDA).  Only
-        the synchronous (``"sync"``, depth 0) driver is ported;
-        ``"double_buffer"`` raises."""
-        from repro_torch.pipeline.prefetch import SyncDriver
+                     mode: str | None = None, staging=None, device=None):
+        """The step driver ``spec.prefetch`` selects (``mode`` overrides
+        its registry name: ``"sync"`` at depth 0, else
+        ``"double_buffer"``): ``driver.step(params, opt_state,
+        step_idx=None) -> (params, opt_state, loss, metrics)`` over the
+        deterministic seed stream, ``reset()`` and ``close()``, on
+        ``device`` (the pipeline's; ``None`` means CUDA).  ``staging``
+        (``None`` defers to ``spec.prefetch.staging``; a bool; or a
+        ``SeedStager`` to adopt) moves the seed draw, and for the
+        ``staged`` store the feature rows, onto a host thread
+        (``repro_torch.pipeline.staging``); results are bit-identical."""
+        from repro_torch.pipeline.prefetch import resolve_prefetcher
 
-        if mode != "sync":
-            raise NotImplementedError(
-                f"prefetch driver {mode!r} is not ported yet; the port "
-                f"runs the synchronous driver (prefetch depth 0) only")
-        return SyncDriver(self, loss_fn, batch=batch, lr=lr,
+        driver_cls = resolve_prefetcher(mode or self.spec.prefetch.mode)
+        return driver_cls(self, loss_fn, batch=batch, lr=lr,
                           optimizer=optimizer, grad_clip=grad_clip,
-                          base_salt=base_salt, device=device)
+                          base_salt=base_salt, staging=staging,
+                          device=device)
 
     def make_infer_prepare_consume(self, forward_fn, *,
                                    counted: bool = False, device=None):

@@ -3,6 +3,7 @@
 
   * ``PlanSpec``     — partitioning & placement;
   * ``SamplerSpec``  — fanouts + level-backend name (registry lookup);
+  * ``PrefetchSpec`` — prefetch depth, seed stream and host staging;
   * ``DataSpec``     — which graph (``repro_torch.data.spec``);
   * ``PipelineSpec`` — all of the above.
 
@@ -17,6 +18,7 @@ import dataclasses
 from repro_torch.data.spec import DataSpec
 
 LEGACY_SCHEMES = ("hybrid", "hybrid+fused")
+SEED_STREAMS = ("counter", "fold")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,14 +29,15 @@ class PlanSpec:
                     (``repro_torch.core.placement``): "hybrid".
     cache_capacity: per-worker hot-remote-feature cache entries; 0 = off.
     cache_policy:   cache-construction registry name
-                    (``repro_torch.core.cache``): "degree".
+                    (``repro_torch.core.cache``): "degree" | "frequency".
     feature_store:  feature-store registry name
                     (``repro_torch.core.feature_store``): "exchange" (the
                     two-round all_to_all fetch, the default) or
                     "pinned_hot" (the cache's hot rows pinned in device
                     memory, served by the ``gather_rows`` kernel; needs
-                    ``cache_capacity > 0``).  Every store serves
-                    bit-identical rows.
+                    ``cache_capacity > 0``) or "staged" (rows gathered on
+                    the host and copied ahead of the step; needs prefetch
+                    depth >= 1).  Every store serves bit-identical rows.
     partitioner:    partitioner registry name
                     (``repro_torch.core.partition``): "ldg".
     node_slack / labeled_slack: partitioner balance targets.
@@ -100,12 +103,80 @@ class SamplerSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class PrefetchSpec:
+    """Prefetch and host staging (counterpart of ``repro``'s).
+
+    depth:       prepared batches kept in flight ahead of the consume half;
+                 0 selects the ``"sync"`` driver, >= 1 ``"double_buffer"``.
+    seed_stream: how step k's salt derives from k: ``"counter"`` (base +
+                 k) or ``"fold"`` (a Knuth multiplicative hash of k).
+    sampling:    run the sampling stage in the prepare half.
+    features:    run the feature fetch in the prepare half too; when False
+                 the consume half fetches (only sampling is prefetched).
+    staging:     a background thread draws future steps' seeds on the
+                 host and copies them to the device ahead of the step
+                 (``repro_torch.pipeline.staging``).
+    lead:        slots the stager rides ahead of the driver's own
+                 lookahead (its ring holds depth + lead slots), >= 1.
+    """
+    depth: int = 0
+    seed_stream: str = "counter"
+    sampling: bool = True
+    features: bool = True
+    staging: bool = False
+    lead: int = 1
+
+    def __post_init__(self):
+        if self.depth < 0:
+            raise ValueError(f"prefetch depth must be >= 0, got {self.depth}")
+        if self.lead < 1:
+            raise ValueError(
+                f"staging lead must be >= 1, got {self.lead} (the staging "
+                f"ring holds depth + lead slots; lead 0 stages nothing "
+                f"ahead of the driver)")
+        if self.seed_stream not in SEED_STREAMS:
+            raise ValueError(
+                f"unknown seed_stream {self.seed_stream!r}; "
+                f"valid: {SEED_STREAMS}")
+        if self.features and not self.sampling:
+            raise ValueError(
+                "cannot prefetch features without sampling: the feature "
+                "fetch consumes the sampled frontier")
+        if self.depth > 0 and not self.sampling:
+            raise ValueError(
+                "prefetch depth > 0 with every stage disabled prefetches "
+                "nothing; set sampling=True or use depth=0")
+
+    @property
+    def mode(self) -> str:
+        """Prefetch-driver registry name: ``"sync"`` at depth 0, else
+        ``"double_buffer"``."""
+        return "sync" if self.depth == 0 else "double_buffer"
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineSpec:
-    """Everything ``Pipeline.build`` needs: plan + sampler (+ an optional
-    data source for ``Pipeline.build_from_source``)."""
+    """Everything ``Pipeline.build`` needs: plan + sampler + prefetch (+ an
+    optional data source for ``Pipeline.build_from_source``)."""
     plan: PlanSpec
     sampler: SamplerSpec
+    prefetch: PrefetchSpec = dataclasses.field(default_factory=PrefetchSpec)
     data: DataSpec | None = None
+
+    def __post_init__(self):
+        from repro_torch.core.feature_store import resolve_feature_store
+        if resolve_feature_store(self.plan.feature_store).external_rows:
+            if self.prefetch.depth < 1:
+                raise ValueError(
+                    f"feature store {self.plan.feature_store!r} streams "
+                    f"rows ahead of the step through the prefetch ring; "
+                    f"it needs PrefetchSpec(depth >= 1), got depth="
+                    f"{self.prefetch.depth}")
+            if not self.prefetch.features:
+                raise ValueError(
+                    f"feature store {self.plan.feature_store!r} needs the "
+                    f"feature stage inside the prefetched prepare half "
+                    f"(PrefetchSpec(features=True))")
 
     @property
     def expected_rounds(self) -> int:
@@ -119,10 +190,13 @@ class PipelineSpec:
                     cache_capacity: int = 0, partition_seed: int = 0,
                     partitioner: str = "ldg", cache_policy: str = "degree",
                     feature_store: str = "exchange",
+                    prefetch_depth: int = 0, staging: bool = False,
+                    staging_lead: int = 1,
                     data: DataSpec | None = None) -> "PipelineSpec":
         """``hybrid`` -> scheme hybrid, backend ``"unfused"``;
         ``hybrid+fused`` -> scheme hybrid, backend ``"fused_cuda"``; the
-        cache and feature-store arguments go to ``PlanSpec``."""
+        cache and feature-store arguments go to ``PlanSpec``, the prefetch
+        depth and staging to ``PrefetchSpec``."""
         if scheme not in LEGACY_SCHEMES:
             raise ValueError(f"unknown scheme {scheme!r}; "
                              f"valid: {LEGACY_SCHEMES}")
@@ -135,4 +209,6 @@ class PipelineSpec:
                           partitioner=partitioner,
                           feature_store=feature_store),
             sampler=SamplerSpec(fanouts=tuple(fanouts), backend=backend),
+            prefetch=PrefetchSpec(depth=prefetch_depth, staging=staging,
+                                  lead=staging_lead),
             data=data)

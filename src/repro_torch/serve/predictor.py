@@ -18,8 +18,8 @@ program training runs, minus loss/grad) behind a request-shaped API:
     the model's products run in fixed row blocks, so a seed's logits are
     bit-identical across bucket sizes and co-batched seeds.
 
-``predict`` always samples with the FIXED ``base_salt``, so the same seed
-always resamples the same subgraph (deterministic serving).
+``predict`` samples with the FIXED ``base_salt`` unless given ``salt=``,
+so the same seed resamples the same subgraph (deterministic serving).
 """
 from __future__ import annotations
 
@@ -79,11 +79,11 @@ class Predictor:
             raise ValueError("seed ids out of range for this graph")
         return self._old_to_new[seeds].astype(np.int32)
 
-    def _run(self, routed: np.ndarray):
+    def _run(self, routed: np.ndarray, salt: int | None = None):
+        salt = self.base_salt if salt is None else int(salt)
         with torch.inference_mode():
             seeds = torch.from_numpy(routed).to(self.device)
-            logits, metrics = self._infer(self.params, seeds,
-                                          self.base_salt)
+            logits, metrics = self._infer(self.params, seeds, salt)
             return (logits.cpu().numpy(),
                     {k: v.cpu().numpy() for k, v in metrics.items()})
 
@@ -95,10 +95,11 @@ class Predictor:
             seeds[:, 0] = self.offsets[:-1]        # one owned seed per row
             self._run(seeds)
 
-    def predict(self, seeds) -> np.ndarray:
+    def predict(self, seeds, *, salt: int | None = None) -> np.ndarray:
         """Logits for a flat batch of seed node ids: (N, num_classes)
-        float32 in request order.  Batches whose max per-owner count
-        exceeds the largest bucket are served in several chunks.
+        float32 in request order, sampled with ``salt`` (default
+        ``base_salt``).  Batches whose max per-owner count exceeds the
+        largest bucket are served in several chunks.
         ``self.last_metrics`` holds the final chunk's step metrics."""
         seeds = np.asarray(seeds, dtype=np.int64).ravel()
         if seeds.size == 0:
@@ -119,7 +120,7 @@ class Predictor:
             bucket = self.buckets.bucket_for(
                 max_owner_count(self.offsets, chunk))
             routed, pos = route_by_owner(self.offsets, chunk, bucket)
-            logits, metrics = self._run(routed)
+            logits, metrics = self._run(routed, salt)
             if out is None:
                 self.num_classes = logits.shape[-1]
                 out = np.empty((seeds.size, self.num_classes),

@@ -1,7 +1,6 @@
-"""``GNNServer``: the serving loop tying queue -> microbatcher ->
-``Predictor`` together, plus latency/throughput accounting (counterpart of
-``repro.serve.server`` without the recycling cache and tracing spans,
-which are not ported yet).
+"""``GNNServer``: the serving loop tying queue -> recycler -> microbatcher
+-> ``Predictor`` together, plus latency/throughput accounting (counterpart
+of ``repro.serve.server``; its tracing spans are not ported yet).
 
 The server runs an open-loop simulation on a virtual clock: arrival times
 come from the traffic generator, service times are MEASURED wall-clock
@@ -10,9 +9,15 @@ each duration ends after the device finished), and completions are
 scheduled on a single-server queue (a flush starts when both its trigger
 time has passed and the device is free).
 
-Every flush reuses the predictor's base salt (``repro``'s ``"fixed"`` salt
-policy): deterministic serving, outputs bit-identical to direct
-``predict``.
+Per request: a ``RecyclingCache`` hit completes at once (no sampling, no
+model); a miss joins the microbatcher, and the flush's fresh logits are
+inserted into the recycler, stamped with the fresh-flush counter (the
+recycler's ``tau`` clock).
+
+Salt policy: ``"fixed"`` (default) reuses the predictor's base salt every
+flush — deterministic serving, outputs and recycled hits bit-identical to
+direct ``predict``; ``"step"`` advances the salt per flush, so recycled
+entries are stale samples bounded by the recycler's tau / rho contract.
 """
 from __future__ import annotations
 
@@ -24,16 +29,19 @@ import numpy as np
 from repro_torch.device import resolve_device
 from repro_torch.serve.batcher import MicroBatcher, Request, max_owner_count
 from repro_torch.serve.predictor import Predictor
+from repro_torch.serve.recycler import RecyclingCache
 
 
 @dataclasses.dataclass
 class ServeStats:
     """Latency/throughput summary of one serving run."""
     latencies: np.ndarray          # (N,) seconds, request order
+    num_recycled: int
     num_flushes: int
     bucket_histogram: dict[int, int]
     compute_time: float            # total measured step seconds
     makespan: float                # first arrival -> last completion
+    recycler: dict | None          # RecyclingCache.stats() or None
 
     @property
     def num_requests(self) -> int:
@@ -64,11 +72,15 @@ class ServeStats:
             "p99_ms": self.p99 * 1e3,
             "mean_ms": self.mean * 1e3,
             "qps": self.qps,
+            "num_recycled": self.num_recycled,
+            "recycled_fraction": (self.num_recycled / self.num_requests
+                                  if self.num_requests else 0.0),
             "num_flushes": self.num_flushes,
             "bucket_histogram": {str(k): v for k, v
                                  in sorted(self.bucket_histogram.items())},
             "compute_time_s": self.compute_time,
             "makespan_s": self.makespan,
+            "recycler": self.recycler,
         }
 
 
@@ -82,18 +94,33 @@ class GNNServer:
     max_delay : float
         Deadline (seconds) a request may wait for batchmates; 0 serves
         every request alone.
+    recycler : RecyclingCache | None
+        None disables recycling.
+    salt_policy : "fixed" | "step"
+        See the module docstring.
     device
         ``None`` means CUDA; it must be the predictor's device.
     """
 
     def __init__(self, predictor: Predictor, *, max_delay: float = 2e-3,
-                 device=None):
+                 recycler: RecyclingCache | None = None,
+                 salt_policy: str = "fixed", device=None):
         if resolve_device(device).type != predictor.device.type:
             raise ValueError(f"GNNServer on {resolve_device(device)} over "
                              f"a predictor on {predictor.device}")
+        if salt_policy not in ("fixed", "step"):
+            raise ValueError(f"salt_policy must be 'fixed' or 'step', "
+                             f"got {salt_policy!r}")
         self.predictor = predictor
         self.buckets = predictor.buckets
         self.max_delay = float(max_delay)
+        self.recycler = recycler
+        self.salt_policy = salt_policy
+        self.step = 0              # fresh-flush counter (recycler clock)
+
+    def _salt(self) -> int:
+        base = self.predictor.base_salt
+        return base if self.salt_policy == "fixed" else base + self.step
 
     def run(self, arrivals, *, warmup: bool = True,
             collect_outputs: bool = False):
@@ -101,7 +128,7 @@ class GNNServer:
 
         Returns ``ServeStats``, or ``(ServeStats, outputs)`` with
         ``collect_outputs=True`` where ``outputs`` is (N, C) logits in
-        arrival order.
+        arrival order (recycled rows are the recycled logits).
         """
         if warmup:
             self.predictor.warmup(buckets=self.buckets.sizes)
@@ -117,7 +144,7 @@ class GNNServer:
         index_of: dict[int, int] = {}      # Request.uid -> arrival index
         bucket_hist: dict[int, int] = {}
         state = {"free": 0.0, "compute": 0.0, "flushes": 0,
-                 "last_done": 0.0}
+                 "recycled": 0, "last_done": 0.0}
 
         def flush(at: float) -> None:
             reqs = batcher.flush()
@@ -126,7 +153,7 @@ class GNNServer:
             start = max(at, state["free"])
             seeds = [r.seed for r in reqs]
             t0 = time.perf_counter()
-            logits = self.predictor.predict(seeds)
+            logits = self.predictor.predict(seeds, salt=self._salt())
             dt = time.perf_counter() - t0
             done = start + dt
             state["free"] = done
@@ -142,10 +169,23 @@ class GNNServer:
                 i = index_of.pop(r.uid)
                 latencies[i] = done - r.arrival
                 outputs[i] = row
+                if self.recycler is not None:
+                    self.recycler.insert(r.seed, row, self.step)
+            self.step += 1
 
         for i, (t, seed) in enumerate(arrivals):
             while batcher.next_due() <= t:
                 flush(batcher.next_due())
+            if self.recycler is not None:
+                t0 = time.perf_counter()
+                hit = self.recycler.lookup(seed, self.step)
+                dt = time.perf_counter() - t0
+                if hit is not None:
+                    latencies[i] = dt
+                    outputs[i] = hit
+                    state["recycled"] += 1
+                    state["last_done"] = max(state["last_done"], t + dt)
+                    continue
             req = Request(seed=seed, arrival=t)
             index_of[req.uid] = i
             batcher.add(req)
@@ -156,9 +196,11 @@ class GNNServer:
 
         makespan = state["last_done"] - arrivals[0][0] if arrivals else 0.0
         stats = ServeStats(
-            latencies=latencies, num_flushes=state["flushes"],
-            bucket_histogram=bucket_hist, compute_time=state["compute"],
-            makespan=makespan)
+            latencies=latencies, num_recycled=state["recycled"],
+            num_flushes=state["flushes"], bucket_histogram=bucket_hist,
+            compute_time=state["compute"], makespan=makespan,
+            recycler=(self.recycler.stats() if self.recycler is not None
+                      else None))
         if collect_outputs:
             return stats, np.stack(outputs) if n else np.zeros((0, 0))
         return stats

@@ -12,6 +12,8 @@ workload down.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 
 
@@ -54,3 +56,33 @@ def hotset_arrivals(num_requests: int, rate: float, num_nodes: int, *,
     cold = rng.integers(0, num_nodes, size=num_requests)
     nodes = np.where(is_hot, hot, cold)
     return [(float(t), int(v)) for t, v in zip(times, nodes)]
+
+
+_ARRIVALS: dict[str, Callable] = {}
+
+
+def register_arrival(name: str, gen: Callable, *,
+                     overwrite: bool = False) -> None:
+    """Register ``gen(num_requests, rate, num_nodes, *, seed, **kw)``."""
+    if not overwrite and name in _ARRIVALS and _ARRIVALS[name] is not gen:
+        raise ValueError(f"arrival generator {name!r} already registered; "
+                         f"pass overwrite=True to replace it")
+    _ARRIVALS[name] = gen
+
+
+def available_arrivals() -> tuple[str, ...]:
+    """Sorted names of registered arrival generators."""
+    return tuple(sorted(_ARRIVALS))
+
+
+def resolve_arrival(name: str) -> Callable:
+    """Look up an arrival generator by registry name."""
+    try:
+        return _ARRIVALS[name]
+    except KeyError:
+        raise KeyError(f"unknown arrival pattern {name!r}; "
+                       f"available: {available_arrivals()}") from None
+
+
+register_arrival("uniform", uniform_arrivals)
+register_arrival("hotset", hotset_arrivals)

@@ -20,10 +20,14 @@ class GNNTrainer:
 
     scheme: ``"hybrid"`` | ``"hybrid+fused"`` (``PipelineSpec.from_scheme``);
     ``cache_capacity`` / ``cache_policy`` attach the §5 feature cache and
-    ``feature_store`` selects how frontier rows are served (``"exchange"``
-    or ``"pinned_hot"``).  Only prefetch depth 0 is ported.  Parameters are
-    drawn from a CPU ``torch.Generator`` seeded with ``seed``; set
-    ``params`` and ``opt_state`` to start elsewhere.
+    ``feature_store`` selects how frontier rows are served (``"exchange"``,
+    ``"pinned_hot"`` or ``"staged"``); ``prefetch_depth`` double-buffers
+    the prepare half against the consume half and ``staging`` draws the
+    seeds on a host thread (``repro_torch.pipeline.staging``); every
+    choice gives the same losses bit for bit.  Parameters are drawn from a
+    CPU ``torch.Generator`` seeded with ``seed``; set ``params`` and
+    ``opt_state`` to start elsewhere.  ``close()`` stops the staging
+    thread.
     """
     layout: "PartitionLayout"                        # noqa: F821
     cfg: GNNConfig
@@ -34,20 +38,18 @@ class GNNTrainer:
     cache_policy: str = "degree"
     feature_store: str = "exchange"
     prefetch_depth: int = 0
+    staging: bool = False
     seed: int = 0
     device: object = None
 
     def __post_init__(self):
-        if self.prefetch_depth != 0:
-            raise NotImplementedError(
-                "prefetch depth > 0 (double-buffered prefetch) is not "
-                "ported yet; use prefetch_depth=0")
         self.device = resolve_device(self.device)
         spec = PipelineSpec.from_scheme(
             self.scheme, num_parts=self.layout.num_parts,
             fanouts=self.cfg.fanouts, cache_capacity=self.cache_capacity,
             cache_policy=self.cache_policy,
-            feature_store=self.feature_store)
+            feature_store=self.feature_store,
+            prefetch_depth=self.prefetch_depth, staging=self.staging)
         self.pipeline = Pipeline.from_layout(self.layout, spec,
                                              device=self.device)
         self.counter = self.pipeline.counter
@@ -93,3 +95,13 @@ class GNNTrainer:
         return Predictor(self.pipeline, self.params, self.cfg,
                          buckets=buckets, base_salt=base_salt,
                          device=self.device)
+
+    def close(self) -> None:
+        """Release the driver's staging thread (a no-op without one)."""
+        self.driver.close()
+
+    def __enter__(self) -> "GNNTrainer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -163,16 +163,17 @@ def test_cached_fetch_rows_equal_the_uncached_fetch(world):
 
 
 def test_registries_and_spec_validation():
-    assert available_feature_stores() == ("exchange", "pinned_hot")
-    assert available_cache_policies() == ("degree",)
+    assert available_feature_stores() == ("exchange", "pinned_hot",
+                                          "staged")
+    assert available_cache_policies() == ("degree", "frequency")
     assert resolve_feature_store("pinned_hot").needs_cache
     assert resolve_cache_policy("degree") is degree_caches
     with pytest.raises(ValueError, match="cache_capacity > 0"):
         PlanSpec(num_parts=2, feature_store="pinned_hot")
     with pytest.raises(ValueError, match="unknown feature store"):
-        PlanSpec(num_parts=2, feature_store="staged", cache_capacity=4)
+        PlanSpec(num_parts=2, feature_store="remote", cache_capacity=4)
     with pytest.raises(ValueError, match="unknown cache policy"):
-        PlanSpec(num_parts=2, cache_capacity=4, cache_policy="frequency")
+        PlanSpec(num_parts=2, cache_capacity=4, cache_policy="lru")
     with pytest.raises(ValueError, match="cache_capacity must be >= 0"):
         PlanSpec(num_parts=2, cache_capacity=-1)
     with pytest.raises(ValueError, match="needs a built cache"):

@@ -314,16 +314,29 @@ def test_trainer_epoch_matches_repro_trainer(pair):
 
 
 def test_trainer_refuses_prefetch_and_the_driver_double_buffer(pair):
-    _, pipes, _, _ = pair
+    """Once a refusal, now the contract that replaced it: the trainer at
+    ``prefetch_depth=1`` and the ``double_buffer`` driver give the
+    synchronous run's losses and parameters bit for bit."""
+    _, pipes, _, tparams = pair
     _, tp = pipes["exchange"]
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TTrainer(layout=tp.layout, cfg=tcfg, prefetch_depth=1,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tp.train_driver(None, batch=4, mode="double_buffer", device="cpu")
-
-
+    _, tloss_fn = _loss_fns()
+    runs = {}
+    for depth in (0, 1):
+        with TTrainer(layout=tp.layout, cfg=tcfg, batch_per_worker=BATCH,
+                      prefetch_depth=depth, device="cpu") as tt:
+            tt.params, tt.opt_state = tparams, topt.init_opt_state(tparams)
+            runs[depth] = (tt.run_epoch(0, steps_per_epoch=3), tt.params)
+            assert tt.driver.mode == ("sync", "double_buffer")[depth]
+    assert runs[1][0]["loss"] == runs[0][0]["loss"]
+    assert runs[1][0]["final_loss"] == runs[0][0]["final_loss"]
+    assert runs[1][0]["comm_rounds_per_step"] == 2
+    for a, b in zip(topt.tree_leaves(runs[1][1]),
+                    topt.tree_leaves(runs[0][1])):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="depth >= 1"):
+        tp.train_driver(tloss_fn, batch=BATCH, mode="double_buffer",
+                        device="cpu")
 def test_launcher_trains_on_the_cpu():
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -336,10 +349,27 @@ def test_launcher_trains_on_the_cpu():
     assert "epoch 0: loss" in text and "cache-hit" in text
 
 
+@pytest.mark.parametrize("flags,rounds", [
+    (["--prefetch-depth", "1"], 2), (["--staging"], 2),
+    (["--cache-policy", "frequency", "--cache-capacity", "64"], 2),
+    (["--feature-store", "staged", "--prefetch-depth", "1"], 0)],
+    ids=["prefetch-depth", "staging", "cache-policy-frequency",
+         "feature-store-staged"])
+def test_launcher_runs_the_overlap_and_cache_flags(flags, rounds):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        t_launch.main(["--device", "cpu", "--nodes", "800", "--devices",
+                       "4", "--epochs", "1", "--steps-per-epoch", "2",
+                       "--batch", "16", *flags])
+    text = out.getvalue()
+    assert f"{rounds} comm rounds/step (0 sampling + {rounds} feature" \
+        in text
+    assert "epoch 0: loss" in text and f"rounds/step {rounds} " in text
+
+
 @pytest.mark.parametrize("flags", [
-    ["--prefetch-depth", "1"], ["--staging"], ["--executor", "vmap"],
-    ["--shard-map"], ["--trace", "t.json"], ["--cache-policy", "frequency"],
-    ["--feature-store", "staged"], ["--scheme", "vanilla"]],
+    ["--executor", "vmap"], ["--shard-map"], ["--trace", "t.json"],
+    ["--scheme", "vanilla"]],
     ids=lambda f: f[0].lstrip("-"))
 def test_launcher_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
