@@ -79,6 +79,23 @@ Phases (any failure raises and the script exits non-zero):
      ``repro_torch.launch.serve_gnn`` with ``--recycle --hot-scorer
      blend(0.5)`` at its own small defaults, as a launcher smoke: served
      outputs equal direct ``predict`` bit for bit.
+ 10. placement schemes, on phase 8's layout, model, cache and store: the
+     plans of ``vanilla``, ``hybrid``, ``hybrid_partial(0.0 / 0.25 /
+     1.0)`` built (seconds, local topology bytes, replicated edge share),
+     one step's MFGs equal across all five bit for bit; then 10
+     ``SyncDriver`` steps each of ``vanilla``, ``hybrid`` (unfused
+     backend) and ``hybrid_partial(0.25)`` from phase 8's initial
+     parameters, with every launch count set to 0 first: losses and final
+     parameters equal across the three bit for bit, 6 / 2 / 6 rounds per
+     step, every kernel of the path launched and ``fused_sample`` never
+     (these schemes draw windowless through their own samplers); then
+     ``hybrid+fused`` the same way beside them, for time only (its window
+     makes its draws differ on this graph).  Each run: step wall, fenced
+     stages (``stage_times``), the prepare half's fenced ms and device
+     busy ms, device busy and idle share over 2 profiled steps, peak
+     device memory, utilized sampling bytes, expected rounds.  Last, one
+     128-seed ``predict`` under ``vanilla`` equal to ``hybrid``'s bit for
+     bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -998,7 +1015,7 @@ def training_phase(layout, data, cfg):
         walls.append((time.perf_counter() - t0) * 1e3)
         hit_rates.append(float(m["cache_hit_rate"]))
     counts = K.launch_counts()
-    reference.update(losses=losses, params=params)
+    reference.update(losses=losses, params=params, walls=walls)
     rounds = (pin.counter.rounds - rounds_before) / TRAIN_STEPS
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1470,6 +1487,262 @@ def overlap_phase(layout, data, cfg, ref, serving):
     return counts, recycled_counts, {"runs": runs,
                                      "recycled_serving": recycled}
 
+PLACEMENT_RUNS = ("vanilla", "hybrid", "hybrid_partial(0.25)")
+PLACEMENT_PLANS = PLACEMENT_RUNS + ("hybrid_partial(0.0)",
+                                    "hybrid_partial(1.0)")
+PLACEMENT_ROUNDS = {"vanilla": 6, "hybrid": 2, "hybrid_partial(0.25)": 6,
+                    "hybrid+fused": 2}
+
+
+def same_mfgs(a, b) -> bool:
+    """Every field of every level equal bit for bit."""
+    import torch
+    return len(a) == len(b) and all(
+        torch.equal(getattr(x, f.name), getattr(y, f.name))
+        for x, y in zip(a, b) for f in dataclasses.fields(x))
+
+
+def prepare_profile(pipe, prep, seeds, salt, reps: int = 3) -> dict:
+    """The prepare half alone on one step's seeds: median fenced ms (host
+    + device, by the host clock around a synchronize) and median device
+    busy ms (``torch.profiler``: time at least one device op ran)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fenced, busy = [], []
+    with torch.no_grad():
+        prep(pipe.shards, seeds, salt, pipe.cache)
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep(pipe.shards, seeds, salt, pipe.cache)
+            torch.cuda.synchronize()
+            fenced.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(reps):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                prep(pipe.shards, seeds, salt, pipe.cache)
+                torch.cuda.synchronize()
+            busy.append(device_streams(prof)[0])
+    return {"fenced_ms": statistics.median(fenced),
+            "device_busy_ms": statistics.median(busy)}
+
+
+def placement_plans(layout, cfg) -> tuple[dict, dict]:
+    """Build the five plans alone and hold one step's MFGs of each to
+    vanilla's bit for bit.  Returns (numbers by scheme, vanilla's MFGs)."""
+    import torch
+    from repro_torch.core.dist import RoundCounter, WorkerShard
+    from repro_torch.core.partition import seeds_per_worker
+    from repro_torch.core.placement import resolve_scheme
+    from repro_torch.core.sampler import resolve_backend
+
+    seeds = seeds_per_worker(layout, TRAIN_BATCH, TRAIN_SALT)
+    out, ref = {}, None
+    for name in PLACEMENT_PLANS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = resolve_scheme(name).build(layout)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        li, lx = plan.shard_topology()
+        shard = WorkerShard(layout.features, layout.labels, li, lx)
+        topo = sum(t.numel() * t.element_size() for t in (li, lx)
+                   if t is not None)
+        hot = getattr(plan, "hot_graph", None)
+        if hot is not None:
+            topo += sum(t.numel() * t.element_size()
+                        for t in (hot.indptr, hot.indices))
+        counter = RoundCounter()
+        with torch.no_grad():
+            mfgs, util = plan.sample(shard, seeds, cfg.fanouts, TRAIN_SALT,
+                                     level_fn=resolve_backend("unfused"),
+                                     counter=counter)
+        if ref is None:
+            ref = mfgs
+        elif not same_mfgs(mfgs, ref):
+            raise AssertionError(f"{name}: one step's MFGs differ from "
+                                 f"vanilla's")
+        out[name] = {"plan_build_s": t_build, "topology_bytes": topo,
+                     "replicated_edge_fraction": getattr(
+                         plan, "replicated_edge_fraction", None),
+                     "sampling_rounds": counter.sampling_rounds,
+                     "sampling_utilized_bytes": float(util.sum())}
+        log(f"{name}: plan built in {t_build:.3f} s, local topology "
+            f"{topo / 1e6:.1f} MB on the card (all workers stacked), "
+            f"replicated edge share "
+            f"{out[name]['replicated_edge_fraction']}, one step: "
+            f"{counter.sampling_rounds} sampling rounds, "
+            f"{out[name]['sampling_utilized_bytes']:.0f} utilized sampling "
+            f"bytes")
+        del plan, shard, mfgs
+    log(f"one step's MFGs ({', '.join(str(tuple(m.edges.shape)) for m in ref)}"
+        f") equal across {', '.join(PLACEMENT_PLANS)} bit for bit")
+    return out, ref
+
+
+def placement_run(layout, data, cfg, ref, name) -> tuple[dict, dict]:
+    """One phase-10 run: ``name``'s pipeline (pinned_hot, phase 8's cache),
+    10 ``SyncDriver`` steps from phase 8's initial parameters with the
+    launch counts set to 0 first, then fenced stages, the prepare half,
+    and 2 profiled steps.  Returns (launch counts of the 10 steps,
+    numbers)."""
+    import numpy as np
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.models.gnn import gnn_loss
+    from repro_torch.optim import init_opt_state
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+
+    def loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spec = PipelineSpec.from_scheme(
+        name, num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+        cache_capacity=CACHE_K, cache_policy="degree",
+        feature_store="pinned_hot", data=data)
+    t0 = time.perf_counter()
+    pipe = Pipeline.from_layout(layout, spec)
+    t_build = time.perf_counter() - t0
+    log(f"-- {name}: scheme {spec.plan.scheme}, backend "
+        f"{spec.sampler.backend}; pipeline (plan and cache) built in "
+        f"{t_build:.2f} s")
+    with pipe.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                           grad_clip=1.0) as driver:
+        params = ref["params0"]
+        opt = init_opt_state(params)
+        K.reset_launch_counts()
+        rounds_before = pipe.counter.rounds
+        sampling_before = pipe.counter.sampling_rounds
+        losses, walls, util = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, opt, loss, m = driver.step(params, opt)
+            losses.append(float(loss))          # synchronizes
+            walls.append((time.perf_counter() - t0) * 1e3)
+            util.append(float(m["sampling_utilized_bytes"]))
+        counts = K.launch_counts()
+        rounds = (pipe.counter.rounds - rounds_before) / TRAIN_STEPS
+        sampling = (pipe.counter.sampling_rounds - sampling_before) \
+            / TRAIN_STEPS
+        final = params
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        if rounds != PLACEMENT_ROUNDS[name]:
+            raise AssertionError(f"{name}: {rounds} rounds per step, "
+                                 f"expected {PLACEMENT_ROUNDS[name]}")
+        windowed = pipe.placement.scheme.uses_level_backend \
+            and spec.sampler.backend == "fused_cuda"
+        missing = [k for k, v in counts.items()
+                   if v == 0 and (windowed or k != "fused_sample")]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: "
+                                 f"{missing}")
+        if not windowed and counts["fused_sample"]:
+            raise AssertionError(f"{name}: fused_sample launched "
+                                 f"{counts['fused_sample']} times")
+        params, opt, fenced = stage_times(driver, params, opt, fenced=True)
+        prep, _ = pipe.make_prepare_consume(loss_fn, counted=False)
+        prepare = prepare_profile(pipe, prep,
+                                  pipe.seeds(TRAIN_BATCH, TRAIN_SALT),
+                                  TRAIN_SALT)
+        params, opt, prof = profiled_steps(driver, params, opt)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    median = statistics.median(walls)
+    out = {"scheme": name, "backend": spec.sampler.backend,
+           "build_s": t_build, "losses": losses, "final_params": final,
+           "step_wall_median_ms": median, "step_wall_min_ms": min(walls),
+           "step_wall_max_ms": max(walls), "rounds_per_step": rounds,
+           "sampling_utilized_bytes_per_step": statistics.mean(util),
+           "expected_rounds_estimate": pipe.expected_rounds_estimate,
+           "fenced_stage_ms": fenced, "prepare": prepare, "profiled": prof,
+           "idle_share": 1 - prof["device_busy_ms"] / prof["wall_ms"],
+           "idle_share_of_median_wall": 1 - prof["device_busy_ms"] / median,
+           "peak_device_gb": peak, "launches": counts}
+    log(f"losses: " + ", ".join(f"{x:.6f}" for x in losses))
+    log(f"{rounds:g} rounds per step ({sampling:g} sampling); utilized "
+        f"sampling bytes per "
+        f"step {out['sampling_utilized_bytes_per_step']:.0f}; expected "
+        f"rounds estimate {out['expected_rounds_estimate']:.4f}")
+    log(f"step wall median {median:.3f} ms (min {min(walls):.3f}, max "
+        f"{max(walls):.3f}); fenced stages, host + device ms (median of "
+        f"3): " + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items()))
+    log(f"prepare half: fenced {prepare['fenced_ms']:.3f} ms, device busy "
+        f"{prepare['device_busy_ms']:.3f} ms; profiled steps: wall "
+        f"{prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['device_busy_ms']:.3f} ms in {prof['own_stream_ops']} ops "
+        f"on the step's stream, idle share {out['idle_share']:.3f} (of the "
+        f"unprofiled median wall {out['idle_share_of_median_wall']:.3f}); "
+        f"peak device memory {peak:.2f} GB")
+    log("launches in the 10 steps: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()))
+    return counts, out
+
+
+def placement_phase(layout, data, cfg, ref, pred_seeds):
+    """Phase 10: the placement schemes on phase 8's configuration.
+    Returns ({path: launch counts}, numbers for PERF.md)."""
+    import numpy as np
+    import torch
+    from repro_torch.optim import tree_leaves
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+    from repro_torch.serve import Predictor
+
+    plans, _ = placement_plans(layout, cfg)
+    counts, runs = {}, {}
+    for name in PLACEMENT_RUNS + ("hybrid+fused",):
+        c, runs[name] = placement_run(layout, data, cfg, ref, name)
+        counts[f"placement {name}"] = c
+    first = runs[PLACEMENT_RUNS[0]]
+    for name in PLACEMENT_RUNS[1:]:
+        r = runs[name]
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(r["final_params"]),
+            tree_leaves(first["final_params"])))
+        if r["losses"] != first["losses"] or not same:
+            raise AssertionError(
+                f"{name} differs from {PLACEMENT_RUNS[0]}: losses "
+                f"{r['losses']} vs {first['losses']}, final parameters "
+                f"equal {same}")
+    log(f"losses and final parameters of {', '.join(PLACEMENT_RUNS)} equal "
+        f"bit for bit")
+    if runs["hybrid+fused"]["losses"] != ref["losses"]:
+        raise AssertionError("the hybrid+fused run differs from phase 8's")
+
+    log("-- one 128-seed predict under vanilla against hybrid")
+    logits = {}
+    for name in ("vanilla", "hybrid"):
+        pipe = Pipeline.from_layout(layout, PipelineSpec.from_scheme(
+            name, num_parts=NUM_PARTS, fanouts=cfg.fanouts, data=data))
+        pred = Predictor(pipe, first["final_params"], cfg, buckets=(128,),
+                         base_salt=SALT)
+        logits[name] = pred.predict(pred_seeds)
+        del pred, pipe
+    if logits["vanilla"].shape != (128, cfg.num_classes) \
+            or not np.isfinite(logits["vanilla"]).all() \
+            or not np.array_equal(logits["vanilla"], logits["hybrid"]):
+        raise AssertionError("vanilla's predict differs from hybrid's")
+    log("vanilla's logits (128, 47) equal hybrid's bit for bit")
+
+    ref_walls = ref["walls"]
+    log("schemes beside phase 8's hybrid+fused run (step wall median ms | "
+        "prepare device ms | rounds per step | utilized sampling bytes per "
+        "step | peak GB):")
+    log(f"  phase 8 hybrid+fused: {statistics.median(ref_walls):.3f} | - | "
+        f"2 | 0 | -")
+    for name, r in runs.items():
+        log(f"  {name}: {r['step_wall_median_ms']:.3f} | "
+            f"{r['prepare']['device_busy_ms']:.3f} | "
+            f"{r['rounds_per_step']:g} | "
+            f"{r['sampling_utilized_bytes_per_step']:.0f} | "
+            f"{r['peak_device_gb']:.2f}")
+    for r in runs.values():
+        del r["final_params"]
+    return counts, {"plans": plans, "runs": runs,
+                    "phase8_step_wall_median_ms": statistics.median(
+                        ref_walls)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1644,6 +1917,12 @@ def main() -> int:
         {"pred": pred, "arrivals": arrivals, "rate": rate, "graph": ds.graph,
          "summary": s})
     log(json.dumps({"overlap": overlap}))
+
+    log("== phase 10: placement schemes (vanilla, hybrid, hybrid_partial) "
+        "on phase 8's configuration")
+    placement_counts, placement = placement_phase(
+        pipe.layout, data, cfg_train, reference, batch_seeds)
+    log(json.dumps({"placement": placement}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
@@ -1665,6 +1944,8 @@ def main() -> int:
                    "training": train_counts[name],
                    "overlap": overlap_counts[name],
                    "recycled serving": recycled_counts.get(name, 0)}
+        by_path.update({path: c[name]
+                        for path, c in placement_counts.items()})
         at_step = train.get(name)
         res = serving or at_step
         entry = {

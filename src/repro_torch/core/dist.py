@@ -4,8 +4,8 @@
 Counterpart of ``repro.core.dist``.  ``repro`` writes one per-worker program
 against a named axis and runs it under ``jax.vmap``; the port has no vmap,
 so every function here takes the P workers' data stacked on a leading axis
-and does all workers' work at once.  Collectives become tensor operations
-on that axis:
+and does all workers' work at once (worker p is row p).  Collectives
+become tensor operations on that axis:
 
   * ``exchange`` (all_to_all) is a transpose of the stacked ``(P, P, cap,
     ...)`` buffer: row q of sender p lands in row p of receiver q.  It
@@ -13,9 +13,14 @@ on that axis:
   * ``pmean_ordered`` / ``psum_ordered`` reduce over the worker axis in
     index order and return the one replicated value.
 
-Under the hybrid scheme (topology replicated, features partitioned)
-sampling needs 0 rounds and the feature fetch 2, which ``RoundCounter``
-records per step.
+Communication schemes (the paper's accounting), which ``RoundCounter``
+records per step:
+
+  * vanilla: topology and features partitioned.  The top level samples
+    locally; each of the L-1 lower levels needs a request round and a
+    reply round (``exchange_sample_level``); the feature fetch 2 more:
+    2L rounds.
+  * hybrid: topology replicated, features partitioned: 2 rounds.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ import torch
 
 from repro_torch.core.graph import CSCGraph
 from repro_torch.core.mfg import MFG
-from repro_torch.core.sampler import sample_level, sample_mfgs
+from repro_torch.core.sampler import (build_indptr, draw_columns,
+                                      level_salt, relabel, sample_level,
+                                      sample_mfgs, unfused_coo_csc_pass)
 from repro_torch.kernels.feature_gather import feature_gather
 
 
@@ -151,15 +158,109 @@ def pack_by_owner(ids: torch.Tensor, owner: torch.Tensor, num_parts: int):
 class WorkerShard:
     """The workers' slices of the partitioned data, stacked on axis 0.
 
-    Hybrid workers read the replicated topology, so unlike ``repro``'s
-    shard this one holds no local topology (the vanilla scheme adds it).
+    ``local_indptr`` / ``local_indices`` are each worker's in-edge slice
+    (``repro_torch.core.partition.build_vanilla``), read by the schemes
+    whose workers sample their own partition (vanilla, hybrid_partial);
+    hybrid workers read the replicated topology and leave them ``None``.
     """
     features: torch.Tensor      # (P, n_max, D)
     labels: torch.Tensor        # (P, n_max)
+    local_indptr: torch.Tensor | None = None   # (P, n_max + 1) int32
+    local_indices: torch.Tensor | None = None  # (P, nnz_max) int32
 
 
 # --------------------------------------------------------------------------
-# the hybrid scheme's programs
+# local-CSC sampling (partitioned workers store only their in-edges)
+# --------------------------------------------------------------------------
+
+def worker_ranges(offsets: torch.Tensor):
+    """(my_offset (P,), n_local (P,)) of every worker, int64."""
+    offsets = offsets.long()
+    return offsets[:-1], offsets[1:] - offsets[:-1]
+
+
+def sample_neighbors_local(local_indptr: torch.Tensor,
+                           local_indices: torch.Tensor,
+                           my_offset: torch.Tensor, n_local: torch.Tensor,
+                           ids: torch.Tensor, fanout: int, salt
+                           ) -> torch.Tensor:
+    """Each worker's draws for the (globally identified) ``ids`` it owns.
+
+    local_indptr (P, n_max+1) / local_indices (P, nnz_max): the workers'
+    slices; my_offset, n_local: (P,); ids: (P, N) global ids.  Row p
+    draws from worker p's slice only, with the hash stream of
+    ``sampler.sample_neighbors`` (``draw_columns``), so partitioned and
+    replicated sampling draw the same neighbours.  Returns (P, N, F) int32
+    global ids, -1 where the id is padding or not the worker's.
+    """
+    P, nnz_max = local_indices.shape
+    n_rows = local_indptr.shape[1]
+    local = ids.long() - my_offset.view(P, 1)
+    owned = (ids >= 0) & (local >= 0) & (local < n_local.view(P, 1))
+    # jnp clamps out-of-range gathers; the clamped rows are never owned
+    lrow = local.clamp(0, n_rows - 2)
+    start = torch.gather(local_indptr, 1, lrow).long()
+    end = torch.gather(local_indptr, 1, lrow + 1).long()
+    deg = torch.where(owned, end - start, 0)
+    col, valid = draw_columns(ids.clamp(min=0).long(), deg, fanout, salt)
+    # a flat (P * nnz_max) view with a per-row base; masked slots clamp
+    # inside their own row, so no draw reads a neighbour's slice
+    pos = (start[..., None] + col).clamp(0, nnz_max - 1)
+    base = torch.arange(P, device=ids.device).view(P, 1, 1) * nnz_max
+    samples = local_indices.reshape(-1)[base + pos]
+    return torch.where(valid, samples, -1).to(torch.int32)
+
+
+def exchange_sample_level(shard: WorkerShard, offsets: torch.Tensor,
+                          num_parts: int, frontier: torch.Tensor,
+                          fanout: int, salt,
+                          counter: RoundCounter | None):
+    """One lower level of the partitioned sampling protocol (2 rounds):
+    pack each worker's frontier by owner, ``exchange`` the requests, draw
+    on the owning worker, ``exchange`` the replies back to the requesting
+    slots.  Shared by the vanilla scheme (its whole frontier) and
+    ``hybrid_partial`` (the cold remainder).
+
+    frontier: (P, N) global ids, -1 padded.  Returns ``(samples (P, N, F)
+    int32, utilized_bytes (P,) f32)``: the valid request ids and their
+    replies each worker contributed, ``m * 4 * (1 + fanout)``.
+    """
+    P, N = frontier.shape
+    my_offset, n_local = worker_ranges(offsets)
+    own = owner_of(offsets, frontier)
+    buf, oidx, sidx = pack_by_owner(frontier, own, num_parts)
+    reqs = exchange(buf, counter, kind="sampling")          # round: ids
+    got = sample_neighbors_local(
+        shard.local_indptr, shard.local_indices, my_offset, n_local,
+        reqs.reshape(P, -1), fanout, salt)
+    reply = exchange(got.view(P, num_parts, N, fanout), counter,
+                     kind="sampling")                      # round: nbrs
+    p = torch.arange(P, device=frontier.device).view(P, 1)
+    samples = reply[p, oidx.long(), sidx.long()]
+    ok = frontier >= 0
+    samples = torch.where(ok[..., None], samples, -1)
+    m = ok.sum(dim=-1).to(torch.float32)
+    return samples, m * 4.0 * (1.0 + fanout)
+
+
+def finish_level(frontier: torch.Tensor, samples: torch.Tensor,
+                 fused: bool) -> MFG:
+    """One level's raw draws -> its MFG, the level-construction tail the
+    partitioned protocols share.  ``fused`` builds the row pointer
+    directly; False pays the DGL-style COO->CSC passes first (the values
+    are the same either way, the cost is not)."""
+    valid = samples >= 0
+    if fused:
+        indptr = build_indptr(valid)
+    else:
+        samples, valid, indptr = unfused_coo_csc_pass(samples, valid)
+    edges, src_nodes, num_src = relabel(frontier, samples, valid)
+    return MFG(dst_nodes=frontier, src_nodes=src_nodes, num_src=num_src,
+               edges=edges, edge_mask=valid, indptr=indptr)
+
+
+# --------------------------------------------------------------------------
+# the two sampling schemes
 # --------------------------------------------------------------------------
 
 def hybrid_sample(graph: CSCGraph, seeds: torch.Tensor,
@@ -169,6 +270,40 @@ def hybrid_sample(graph: CSCGraph, seeds: torch.Tensor,
     so sampling is local (0 communication rounds).  ``seeds`` is (P,
     batch), one row per worker; every MFG field carries the P axis."""
     return sample_mfgs(graph, seeds, fanouts, salt, level_fn=level_fn)
+
+
+def vanilla_sample(shard: WorkerShard, offsets: torch.Tensor,
+                   num_parts: int, seeds: torch.Tensor,
+                   fanouts: Sequence[int], salt,
+                   counter: RoundCounter | None, fused: bool = False):
+    """Multi-level sampling under the vanilla scheme: topology
+    partitioned, so 2 rounds per level below the top (Fig. 3).  The draws
+    equal ``hybrid_sample``'s (the paper's §4.2 equivalence).
+
+    seeds: (P, batch), each worker's own labeled nodes.  Returns ``(mfgs,
+    sampling_utilized_bytes (P,) f32)``.
+    """
+    my_offset, n_local = worker_ranges(offsets)
+    util = torch.zeros(seeds.shape[0], dtype=torch.float32,
+                       device=seeds.device)
+    mfgs = []
+    frontier = seeds
+    for depth, fanout in enumerate(fanouts):
+        fanout = int(fanout)
+        if depth == 0:
+            # top level: the seeds are the worker's own nodes
+            samples = sample_neighbors_local(
+                shard.local_indptr, shard.local_indices, my_offset, n_local,
+                frontier, fanout, level_salt(salt, depth))
+        else:
+            samples, level_bytes = exchange_sample_level(
+                shard, offsets, num_parts, frontier, fanout,
+                level_salt(salt, depth), counter)
+            util = util + level_bytes
+        mfg = finish_level(frontier, samples, fused)
+        mfgs.append(mfg)
+        frontier = mfg.src_nodes
+    return mfgs, util
 
 
 def owner_local_ids(reqs: torch.Tensor, offsets: torch.Tensor,

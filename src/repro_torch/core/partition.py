@@ -9,7 +9,10 @@ assignments and layouts are bit-identical.
 After partitioning, nodes are relabeled so partition p owns the contiguous
 id range [offsets[p], offsets[p+1]); ownership is then one searchsorted and
 a local index is ``id - offsets[p]``.  ``build_layout`` moves the relabeled
-topology and the per-owner feature shards to the pipeline's device.
+topology and the per-owner feature shards to the pipeline's device;
+``build_vanilla`` slices each partition's in-edge lists out of it for the
+schemes whose workers sample their own partition (``vanilla``,
+``hybrid_partial``).
 """
 from __future__ import annotations
 
@@ -124,6 +127,13 @@ def partition_graph(graph: CSCGraph, num_parts: int,
                              out_indices[out_indptr[v]:out_indptr[v + 1]]])
         state.place(v, nb)
     return state.assign
+
+
+def edge_cut(graph: CSCGraph, assign: np.ndarray) -> int:
+    """Number of edges whose endpoints live in different partitions."""
+    _, indices = graph.numpy()
+    dsts = csr_view(graph).dsts
+    return int(np.sum(assign[dsts] != assign[indices]))
 
 
 # --------------------------------------------------------------------------
@@ -321,6 +331,41 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
         offsets_host=offsets.astype(np.int64),
         labels_host=lab,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaPlan:
+    """The paper's baseline topology: each worker stores only its
+    partition's in-edge lists, stacked on the worker axis."""
+    layout: PartitionLayout
+    local_indptr: torch.Tensor   # (P, n_max+1) int32
+    local_indices: torch.Tensor  # (P, nnz_max) int32 global src ids, -1 pad
+
+
+def build_vanilla(layout: PartitionLayout) -> VanillaPlan:
+    """Slice each partition's in-edge lists out of the global CSC, on the
+    host, and place them on the layout's device.  Row p of
+    ``local_indptr`` is worker p's row pointer from 0, its tail repeating
+    the last entry; ``local_indices`` is padded with -1 to the largest
+    slice (at least 1 wide), as ``repro`` pads it."""
+    indptr, indices = layout.graph.numpy()
+    offsets = layout.host_offsets_labels()[0]
+    P = layout.num_parts
+    n_max = layout.n_max
+
+    nnz = [int(indptr[offsets[p + 1]] - indptr[offsets[p]]) for p in range(P)]
+    nnz_max = max(max(nnz), 1)
+    li = np.zeros((P, n_max + 1), np.int32)
+    lx = np.full((P, nnz_max), -1, np.int32)
+    for p in range(P):
+        lo, hi = offsets[p], offsets[p + 1]
+        rows = indptr[lo:hi + 1] - indptr[lo]
+        li[p, :rows.size] = rows
+        li[p, rows.size:] = rows[-1]
+        lx[p, :nnz[p]] = indices[indptr[lo]:indptr[hi]]
+    return VanillaPlan(layout=layout,
+                       local_indptr=torch.from_numpy(li).to(layout.device),
+                       local_indices=torch.from_numpy(lx).to(layout.device))
 
 
 # --------------------------------------------------------------------------

@@ -1,47 +1,118 @@
-"""Placement schemes as a registry (counterpart of ``repro.core.placement``;
-the ``hybrid`` scheme only so far).
+"""Placement schemes as a registry (counterpart of
+``repro.core.placement``).
 
-A ``PlacementScheme`` owns its plan construction (``build(layout) ->
-plan``), its sampling program (``sample(plan, shard, seeds, fanouts, salt,
-...) -> (mfgs, utilized bytes)``) and its round accounting.  ``hybrid``
-(the paper's contribution) replicates the topology and partitions the
-features, so sampling needs no communication and a step has exactly the 2
-feature rounds.
+The paper's two placements are the ends of a memory <-> rounds trade-off:
+``"vanilla"`` partitions topology and features (2L communication rounds a
+step), ``"hybrid"`` replicates the topology and partitions the features (2
+rounds).  A ``PlacementScheme`` owns its plan construction (``build(layout)
+-> plan``), its sampling program (``sample(plan, shard, seeds, fanouts,
+salt, ...) -> (mfgs, utilized bytes (P,))``) and its round accounting:
+``trace_sampling_rounds`` (the program's structure) and
+``expected_sampling_rounds`` (a data-dependent estimate of the rounds whose
+payload leaves its worker).
+
+Built-in schemes:
+
+  ``"vanilla"``         the partitioned protocol (``dist.vanilla_sample``).
+  ``"hybrid"``          the replicated protocol (``dist.hybrid_sample``);
+                        the only scheme that samples through the level
+                        backend (``level_fn``).
+  ``"hybrid_partial"``  degree-aware partial replication: every worker
+                        replicates the in-edge lists of the top-``frac``
+                        nodes by in-degree and falls back to the vanilla
+                        2-round exchange for cold frontier nodes.  Named
+                        ``PlanSpec(scheme="hybrid_partial",
+                        replicate_frac=0.25)`` or inline
+                        ``"hybrid_partial(0.25)"``.
+
+All three draw the same minibatches for the same seeds and salt: a draw is
+a stateless hash of (node id, level salt, slot), so where a node's
+neighbours are drawn never changes what is drawn.  ``vanilla`` and
+``hybrid_partial`` draw windowless; ``hybrid`` draws through its level
+backend, whose fused kernel draws from at most ``window`` neighbours.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import dist
 from repro_torch.core.graph import CSCGraph
+from repro_torch.core.mfg import MFG
+from repro_torch.core.sampler import level_salt, sample_neighbors
 
+
+# --------------------------------------------------------------------------
+# plans
+# --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class PlacementPlan:
-    """Product of ``scheme.build(layout)``: partition boundaries plus
-    whatever the scheme's sampling program reads."""
+    """Product of ``scheme.build(layout)``: partition boundaries, the
+    stacked per-worker topology when the scheme's workers read one, and
+    whatever else the scheme's sampling program reads.
+
+    ``remote_source_fraction`` is the share of edges whose source another
+    partition owns than their destination's: the first-order chance that
+    an exchanged frontier request leaves its worker (1.0 for plans built
+    without a layout).
+    """
     scheme: "PlacementScheme"
     offsets: torch.Tensor
     num_parts: int
+    local_indptr: torch.Tensor | None = None
+    local_indices: torch.Tensor | None = None
+    remote_source_fraction: float = 1.0
 
     def sample(self, shard, seeds, fanouts, salt, *, level_fn=None,
-               counter=None):
+               fused: bool = False, counter=None):
         """``scheme.sample`` with this plan bound."""
         return self.scheme.sample(self, shard, seeds, fanouts, salt,
-                                  level_fn=level_fn, counter=counter)
+                                  level_fn=level_fn, fused=fused,
+                                  counter=counter)
+
+    def shard_topology(self):
+        """(local_indptr, local_indices) for the ``WorkerShard``: both
+        ``None`` for schemes whose workers read no local topology (the
+        port's shard is no pytree, so it needs no placeholder)."""
+        return self.local_indptr, self.local_indices
 
     def trace_rounds(self, num_layers: int) -> int:
         """all_to_all rounds per step: the scheme's sampling rounds + 2
         feature rounds."""
         return self.scheme.trace_sampling_rounds(num_layers, plan=self) + 2
 
+    def expected_rounds(self, num_layers: int) -> float:
+        """Data-dependent estimate of the utilized rounds per step: the
+        scheme's expected sampling rounds + 2 feature rounds."""
+        return self.scheme.expected_sampling_rounds(self, num_layers) + 2.0
+
     @property
     def replicated_graph(self) -> CSCGraph | None:
         """Fully replicated topology, when the scheme has one."""
         return None
+
+
+def _remote_edge_mass(layout, src_mask: np.ndarray | None = None) -> float:
+    """Share of the layout's edges whose source another partition owns
+    than their destination (optionally only edges whose source satisfies
+    ``src_mask``): the mass of frontier draws that cross workers in an
+    exchange round.  Host numpy over the relabeled CSC, as ``repro``'s."""
+    indptr, indices = layout.graph.numpy()
+    if indices.size == 0:
+        return 0.0
+    offsets = layout.host_offsets_labels()[0]
+    node_owner = (np.searchsorted(offsets, np.arange(layout.graph.num_nodes),
+                                  side="right") - 1)
+    owner_dst = np.repeat(node_owner, np.diff(indptr))
+    remote = node_owner[indices] != owner_dst
+    if src_mask is not None:
+        remote &= src_mask[indices]
+    return float(np.mean(remote))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,26 +125,116 @@ class HybridPlacementPlan(PlacementPlan):
         return self.graph
 
 
+@dataclasses.dataclass(frozen=True)
+class PartialPlacementPlan(PlacementPlan):
+    """Degree-aware partial replication plan.
+
+    hot_graph:    full-width CSC whose in-edge lists are filled only for
+                  hot nodes, in the global CSC's order (so draws equal the
+                  other schemes'); replicated on every worker.
+    hot_mask:     (n,) bool, True for hot nodes.
+    frac:         the requested replication fraction.
+    hot_count:    number of hot nodes (``complete`` when it is n).
+    cold_source_fraction: share of edges whose source is cold: the draws
+                  that fall back to the exchange.
+    cold_remote_source_fraction: share of edges whose source is cold and
+                  owned by another partition than the destination's: the
+                  cold mass that crosses workers, behind the expected-round
+                  estimate.
+    replicated_edges / replicated_edge_fraction: in-edges replicated per
+                  worker, and their share of all edges (the memory cost).
+    """
+    hot_graph: CSCGraph | None = None
+    hot_mask: torch.Tensor | None = None
+    frac: float = 0.0
+    hot_count: int = 0
+    cold_source_fraction: float = 1.0
+    cold_remote_source_fraction: float = 1.0
+    replicated_edges: int = 0
+    replicated_edge_fraction: float = 0.0
+
+    @property
+    def complete(self) -> bool:
+        """True when every node is hot: the program is the hybrid one (no
+        sampling exchange)."""
+        n = int(self.hot_mask.shape[0]) if self.hot_mask is not None else -1
+        return self.hot_count >= n >= 0
+
+
+# --------------------------------------------------------------------------
+# scheme objects
+# --------------------------------------------------------------------------
+
 class PlacementScheme:
-    """Base class: plan construction, sampling program, round count."""
+    """Base class: plan construction, sampling program, round accounting.
+
+    ``sample(plan, shard, seeds, fanouts, salt, *, level_fn, fused,
+    counter) -> (mfgs, sampling_utilized_bytes)`` runs all P workers at
+    once on the stacked axis; the bytes are (P,) f32, the valid id and
+    reply payload each worker put into sampling ``exchange`` rounds.  A
+    scheme with ``uses_level_backend`` samples every level through
+    ``level_fn``; the others draw through their own windowless samplers,
+    and ``fused`` only picks how a level's row pointer is built.
+    """
 
     name: str = "?"
+    uses_level_backend: bool = False
 
     def build(self, layout) -> PlacementPlan:
         raise NotImplementedError
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
-               counter=None):
+               fused: bool = False, counter=None):
         raise NotImplementedError
 
     def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
         raise NotImplementedError
 
+    def expected_sampling_rounds(self, plan, num_layers: int) -> float:
+        return float(self.trace_sampling_rounds(num_layers, plan=plan))
+
+
+class VanillaScheme(PlacementScheme):
+    """The paper's baseline: topology and features partitioned, 2 rounds
+    per level below the top."""
+
+    name = "vanilla"
+
+    def build(self, layout) -> PlacementPlan:
+        from repro_torch.core.partition import build_vanilla
+        vplan = build_vanilla(layout)
+        return PlacementPlan(scheme=self, offsets=layout.offsets,
+                             num_parts=layout.num_parts,
+                             local_indptr=vplan.local_indptr,
+                             local_indices=vplan.local_indices,
+                             remote_source_fraction=_remote_edge_mass(
+                                 layout))
+
+    def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
+               fused: bool = False, counter=None):
+        return dist.vanilla_sample(shard, plan.offsets, plan.num_parts,
+                                   seeds, fanouts, salt, counter,
+                                   fused=fused)
+
+    def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
+        return 2 * (num_layers - 1)
+
+    def expected_sampling_rounds(self, plan, num_layers: int) -> float:
+        """Each of the 2(L-1) rounds, utilized in proportion to the
+        request mass that leaves its worker (the partitioner's remote edge
+        mass)."""
+        if plan is None:
+            return float(self.trace_sampling_rounds(num_layers))
+        return (2.0 * (num_layers - 1)
+                * float(plan.remote_source_fraction))
+
 
 class HybridScheme(PlacementScheme):
-    """Topology replicated, features partitioned: sampling is local."""
+    """The paper's contribution: topology replicated, features
+    partitioned, so sampling is local."""
 
     name = "hybrid"
+    uses_level_backend = True
 
     def build(self, layout) -> HybridPlacementPlan:
         return HybridPlacementPlan(scheme=self, offsets=layout.offsets,
@@ -81,24 +242,178 @@ class HybridScheme(PlacementScheme):
                                    graph=layout.graph)
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
-               counter=None):
+               fused: bool = False, counter=None):
         if plan.graph is None:
             raise ValueError("hybrid scheme needs the replicated topology")
         mfgs = dist.hybrid_sample(plan.graph, seeds, fanouts, salt,
                                   level_fn=level_fn)
-        return mfgs, torch.zeros((), dtype=torch.float32,
+        return mfgs, torch.zeros(seeds.shape[0], dtype=torch.float32,
                                  device=seeds.device)
 
     def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
         return 0
 
 
-_SCHEMES: dict[str, Callable[[], PlacementScheme]] = {}
+class HybridPartialScheme(PlacementScheme):
+    """Degree-aware partial replication: the in-edge lists of the
+    top-``frac`` nodes by in-degree are replicated; cold frontier nodes
+    fall back to the vanilla 2-round exchange.  ``frac=1.0`` is the hybrid
+    program (no sampling exchange), ``frac=0.0`` the vanilla one; in
+    between the program keeps the 2(L-1) rounds and their utilized payload
+    shrinks with the hot set's edge coverage.  Hot and cold draws merge
+    before the relabel, so both run through the protocol's own windowless
+    samplers."""
+
+    name = "hybrid_partial"
+    # hot-set scorer ranking the replication candidates
+    # (``repro_torch.core.cache.resolve_hot_scorer``)
+    hot_scorer = "degree"
+
+    def __init__(self, frac: float | None = None):
+        if frac is None:
+            raise ValueError(
+                "hybrid_partial needs a replication fraction: use "
+                "PlanSpec(scheme='hybrid_partial', replicate_frac=...) or "
+                "the inline form scheme='hybrid_partial(0.25)'")
+        frac = float(frac)
+        if not 0.0 <= frac <= 1.0:
+            raise ValueError(f"replicate_frac must be in [0, 1], got {frac}")
+        self.frac = frac
+
+    def build(self, layout) -> PartialPlacementPlan:
+        from repro_torch.core.cache import resolve_hot_scorer
+        from repro_torch.core.partition import build_vanilla
+
+        graph = layout.graph
+        indptr, indices = graph.numpy()
+        n = graph.num_nodes
+        deg = np.diff(indptr)
+
+        k = int(np.round(self.frac * n))
+        hot_ids = resolve_hot_scorer(self.hot_scorer).top_ids(graph, k)
+        hot_mask = np.zeros(n, bool)
+        hot_mask[hot_ids] = True
+
+        keep = np.repeat(hot_mask, deg)
+        hot_indices = indices[keep]
+        hot_deg = np.where(hot_mask, deg, 0)
+        hot_indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(hot_deg, out=hot_indptr[1:])
+        if hot_indices.size == 0:       # keep indexing well-defined
+            hot_indices = np.full(1, -1, np.int64)
+        dev = layout.device
+        hot_graph = CSCGraph(
+            indptr=torch.from_numpy(hot_indptr.astype(np.int32)).to(dev),
+            indices=torch.from_numpy(hot_indices.astype(np.int32)).to(dev))
+
+        num_edges = max(int(indices.size), 1)
+        cold_src = float(np.mean(~hot_mask[indices])) if indices.size else 0.0
+        cold_remote = _remote_edge_mass(layout, src_mask=~hot_mask)
+        replicated = int(hot_deg.sum())
+
+        # workers keep their vanilla slice to serve cold requests
+        vplan = build_vanilla(layout)
+        return PartialPlacementPlan(
+            scheme=self, offsets=layout.offsets,
+            num_parts=layout.num_parts,
+            local_indptr=vplan.local_indptr,
+            local_indices=vplan.local_indices,
+            remote_source_fraction=_remote_edge_mass(layout),
+            hot_graph=hot_graph,
+            hot_mask=torch.from_numpy(hot_mask).to(dev),
+            frac=self.frac, hot_count=k,
+            cold_source_fraction=cold_src,
+            cold_remote_source_fraction=cold_remote,
+            replicated_edges=replicated,
+            replicated_edge_fraction=replicated / num_edges)
+
+    def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
+               fused: bool = False, counter=None):
+        offsets, P = plan.offsets, plan.num_parts
+        my_offset, n_local = dist.worker_ranges(offsets)
+        hot_any = plan.hot_count > 0
+        complete = plan.complete
+
+        util = torch.zeros(seeds.shape[0], dtype=torch.float32,
+                           device=seeds.device)
+        mfgs: list[MFG] = []
+        frontier = seeds
+        for depth, fanout in enumerate(fanouts):
+            fanout = int(fanout)
+            salt_d = level_salt(salt, depth)
+            if depth == 0:
+                # the seeds are the worker's own nodes: no communication
+                samples = dist.sample_neighbors_local(
+                    shard.local_indptr, shard.local_indices, my_offset,
+                    n_local, frontier, fanout, salt_d)
+            else:
+                if hot_any:
+                    is_hot = (plan.hot_mask[frontier.clamp(min=0).long()]
+                              & (frontier >= 0))
+                    hot_samples, _ = sample_neighbors(
+                        plan.hot_graph, torch.where(is_hot, frontier, -1),
+                        fanout, salt_d)
+                if complete:
+                    samples = hot_samples
+                else:
+                    cold = (torch.where(is_hot, -1, frontier) if hot_any
+                            else frontier)
+                    cold_samples, level_bytes = dist.exchange_sample_level(
+                        shard, offsets, P, cold, fanout, salt_d, counter)
+                    samples = (torch.where(is_hot[..., None], hot_samples,
+                                           cold_samples)
+                               if hot_any else cold_samples)
+                    util = util + level_bytes
+            mfg = dist.finish_level(frontier, samples, fused)
+            mfgs.append(mfg)
+            frontier = mfg.src_nodes
+        return mfgs, util
+
+    def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
+        if plan is not None:
+            return 0 if plan.complete else 2 * (num_layers - 1)
+        # no data: frac pins the two degenerate ends
+        return 0 if self.frac >= 1.0 else 2 * (num_layers - 1)
+
+    def expected_sampling_rounds(self, plan, num_layers: int) -> float:
+        """Each of the 2(L-1) rounds, utilized in proportion to the cold
+        request mass that crosses workers; at ``frac=0`` this is the
+        vanilla estimate on the same layout."""
+        if plan is None:
+            return 0.0 if self.frac >= 1.0 else 2.0 * (num_layers - 1)
+        if plan.complete:
+            return 0.0
+        return (2.0 * (num_layers - 1)
+                * float(plan.cold_remote_source_fraction))
 
 
-def register_scheme(name: str, factory: Callable[[], PlacementScheme], *,
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+
+_SCHEMES: dict[str, Callable[..., PlacementScheme]] = {}
+
+_PARAM_RE = re.compile(r"^([A-Za-z_][\w+-]*)\(([^()]*)\)$")
+
+
+def parse_scheme_name(name: str) -> tuple[str, float | None]:
+    """Split an optionally parameterized scheme name:
+    ``"hybrid"`` -> ``("hybrid", None)``, ``"hybrid_partial(0.25)"`` ->
+    ``("hybrid_partial", 0.25)``."""
+    m = _PARAM_RE.match(name)
+    if m is None:
+        return name, None
+    try:
+        return m.group(1), float(m.group(2))
+    except ValueError:
+        raise ValueError(
+            f"scheme parameter in {name!r} must be a float") from None
+
+
+def register_scheme(name: str, factory: Callable[..., PlacementScheme], *,
                     overwrite: bool = False) -> None:
-    """Register ``factory() -> PlacementScheme`` under ``name``."""
+    """Register ``factory(frac=None) -> PlacementScheme`` under ``name``;
+    factories of unparameterized schemes reject a non-None ``frac``."""
     if not overwrite and name in _SCHEMES and _SCHEMES[name] is not factory:
         raise ValueError(f"placement scheme {name!r} already registered; "
                          f"pass overwrite=True to replace it")
@@ -110,14 +425,61 @@ def available_schemes() -> tuple[str, ...]:
     return tuple(sorted(_SCHEMES))
 
 
-def resolve_scheme(name: str) -> PlacementScheme:
-    """Instantiate the scheme registered under ``name``."""
+def resolve_scheme(name: str, *, frac: float | None = None
+                   ) -> PlacementScheme:
+    """Instantiate the scheme registered under ``name``, which may carry an
+    inline parameter (``"hybrid_partial(0.25)"``); a ``frac`` keyword must
+    then agree with it.  Raises ``KeyError`` for an unknown name."""
+    base, inline = parse_scheme_name(name)
+    if inline is not None:
+        if frac is not None and float(frac) != inline:
+            raise ValueError(
+                f"conflicting replication fractions: scheme name carries "
+                f"{inline}, keyword gives {frac}")
+        frac = inline
     try:
-        factory = _SCHEMES[name]
+        factory = _SCHEMES[base]
     except KeyError:
         raise KeyError(f"unknown placement scheme {name!r}; "
                        f"available: {available_schemes()}") from None
-    return factory()
+    return factory(frac=frac)
 
 
-register_scheme("hybrid", HybridScheme)
+def _unparameterized(cls):
+    def factory(frac: float | None = None):
+        if frac is not None:
+            raise ValueError(
+                f"scheme {cls.name!r} takes no replication fraction")
+        return cls()
+    return factory
+
+
+register_scheme("vanilla", _unparameterized(VanillaScheme))
+register_scheme("hybrid", _unparameterized(HybridScheme))
+register_scheme("hybrid_partial",
+                lambda frac=None: HybridPartialScheme(frac))
+
+
+def plan_from_legacy(scheme: str, *, graph_replicated=None, offsets=None,
+                     num_parts: int = 0) -> PlacementPlan:
+    """A layout-free plan from a (scheme string, replicated graph) pair:
+    enough to run the sampling program when the caller's ``WorkerShard``
+    carries the local topology.  Parameterized schemes need a plan built
+    from a layout: ``resolve_scheme(...).build(layout)``."""
+    base, frac = parse_scheme_name(scheme)
+    if base == "vanilla":
+        return PlacementPlan(scheme=resolve_scheme("vanilla"),
+                             offsets=offsets, num_parts=num_parts)
+    if base == "hybrid":
+        if graph_replicated is None:
+            raise ValueError("hybrid scheme needs the replicated topology")
+        return HybridPlacementPlan(scheme=resolve_scheme("hybrid"),
+                                   offsets=offsets, num_parts=num_parts,
+                                   graph=graph_replicated)
+    if frac is not None or base in _SCHEMES:
+        raise ValueError(
+            f"scheme {scheme!r} needs a layout-built plan; construct it "
+            f"with resolve_scheme({scheme!r}).build(layout) and pass "
+            f"plan=... (or use repro_torch.pipeline.Pipeline)")
+    raise ValueError(f"unknown scheme {scheme!r}; "
+                     f"available: {available_schemes()}")

@@ -8,12 +8,16 @@ queue -> recycler -> microbatcher -> sampler path, and report latency/QPS.
       --requests 400 --arrival hotset --recycle --hot-scorer "blend(0.5)"
   python -m repro_torch.launch.serve_gnn --device cpu --devices 4 \\
       --no-batching --rate 500        # baseline arm: one request per step
+  python -m repro_torch.launch.serve_gnn --device cpu --devices 4 \\
+      --scheme vanilla                # the paper's partitioned baseline
 
 ``--rate 0`` (default) calibrates the arrival rate to twice the measured
 single-request service capacity.  ``main(argv)`` returns the run's
 summary, outputs and arrivals and the predictor, so a caller can check the
-served outputs.  Not ported yet, and refused with an error: ``--trace``
-and schemes other than ``hybrid`` / ``hybrid+fused``.
+served outputs.  ``--scheme`` takes ``vanilla``, ``hybrid``,
+``hybrid+fused`` or any registered placement scheme
+(``"hybrid_partial(0.25)"``).  Not ported yet, and refused with an error:
+``--trace``.
 """
 import argparse
 
@@ -32,7 +36,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--avg-degree", type=int, default=10)
     ap.add_argument("--scheme", default="hybrid",
-                    help="hybrid | hybrid+fused")
+                    help="vanilla | hybrid | hybrid+fused, or any "
+                         "registered placement scheme, e.g. "
+                         "'hybrid_partial(0.25)'")
     ap.add_argument("--cache-capacity", type=int, default=0,
                     help="per-worker remote-feature cache entries")
     ap.add_argument("--train-steps", type=int, default=5,
@@ -78,9 +84,6 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.trace:
         ap.error(f"--trace {_NOT_PORTED}")
-    if args.scheme not in ("hybrid", "hybrid+fused"):
-        ap.error(f"scheme {args.scheme!r} {_NOT_PORTED}; available: "
-                 f"hybrid, hybrid+fused")
 
     import time
 

@@ -7,31 +7,38 @@ device (counterpart of ``repro.launch.train_gnn``, same defaults).
       --devices 4 --feature-store pinned_hot --cache-capacity 256 \\
       --epochs 1 --steps-per-epoch 3 --batch 32
   python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
+      --devices 4 --scheme vanilla --epochs 1 --steps-per-epoch 3 \\
+      --batch 32
+  python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
+      --devices 4 --scheme "hybrid_partial(0.25)" --epochs 1 \\
+      --steps-per-epoch 3 --batch 32
+  python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
       --devices 4 --prefetch-depth 2 --staging --epochs 1 \\
       --steps-per-epoch 3 --batch 32
   python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
       --devices 4 --feature-store staged --prefetch-depth 1 --epochs 1 \\
       --steps-per-epoch 3 --batch 32
 
-Not ported yet, and refused with an error: executors other than the
-stacked one, tracing, and schemes other than ``hybrid`` /
-``hybrid+fused``.
+``--scheme`` takes ``vanilla``, ``hybrid``, ``hybrid+fused`` or any
+registered placement scheme (``"hybrid_partial(0.25)"``).  ``--executor``
+takes ``vmap`` (``repro``'s name, the default) or ``stacked``: both are
+the port's ``StackedExecutor``.  Not ported yet, and refused with an
+error: the ``shard_map`` and ``multiprocess`` executors and tracing.
 """
 import argparse
 import time
 
 _NOT_PORTED = "is not ported to repro_torch yet"
+_EXECUTORS = ("vmap", "stacked")    # both name the StackedExecutor
 
 
 def _refuse_unported(ap, args) -> None:
-    if args.shard_map or args.executor not in (None, "stacked"):
+    if args.shard_map or args.executor not in (None,) + _EXECUTORS:
         ap.error(f"executor {args.executor or 'shard_map'!r} {_NOT_PORTED}; "
-                 f"the port runs the stacked executor")
+                 f"the port runs the stacked executor (--executor vmap or "
+                 f"stacked)")
     if args.trace:
         ap.error(f"--trace {_NOT_PORTED}")
-    if args.scheme not in ("hybrid", "hybrid+fused"):
-        ap.error(f"scheme {args.scheme!r} {_NOT_PORTED}; available: "
-                 f"hybrid, hybrid+fused")
 
 
 def main(argv=None):
@@ -46,7 +53,10 @@ def main(argv=None):
     ap.add_argument("--split", default="random(0.3)",
                     help="labeled-node split policy (random(frac))")
     ap.add_argument("--scheme", default="hybrid+fused",
-                    help="hybrid | hybrid+fused")
+                    help="vanilla | hybrid | hybrid+fused, or any "
+                         "registered placement scheme, e.g. "
+                         "'hybrid_partial(0.25)' for degree-aware partial "
+                         "replication")
     ap.add_argument("--partitioner", default="ldg",
                     help="partitioner registry name (ldg)")
     ap.add_argument("--cache-capacity", type=int, default=0,
@@ -79,11 +89,14 @@ def main(argv=None):
     ap.add_argument("--shard-map", action="store_true",
                     help="not ported (the port runs the stacked executor)")
     ap.add_argument("--executor", default=None,
-                    help="stacked (the one executor ported)")
+                    help="vmap (the default) | stacked: both run the "
+                         "port's stacked executor; shard_map and "
+                         "multiprocess are not ported")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="not ported")
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
+    executor = args.executor or "vmap"
 
     from repro_torch.data.spec import DataSpec
     from repro_torch.device import resolve_device
@@ -107,12 +120,19 @@ def main(argv=None):
     pipe = Pipeline.build_from_source(spec=spec, device=device)
     ds = pipe.dataset
     print(f"dataset: {ds.name}, {ds.graph.num_nodes} nodes, "
-          f"{ds.graph.num_edges} edges; partitioned into {args.devices} by "
-          f"{args.partitioner!r}; device {device}")
+          f"{ds.graph.num_edges} edges; device {device}")
 
     cfg = GNNConfig(in_dim=ds.features.shape[1], hidden_dim=256,
                     num_classes=ds.num_classes, num_layers=len(fanouts),
                     fanouts=fanouts, dropout=0.0)
+    print(f"partitioned into {args.devices} by {args.partitioner!r}: "
+          f"edge-cut {pipe.edge_cut_fraction:.1%}")
+    if hasattr(pipe.placement, "replicated_edge_fraction"):
+        print(f"partial replication: "
+              f"{pipe.placement.replicated_edge_fraction:.1%} of edges "
+              f"replicated, expected rounds/step "
+              f"{pipe.expected_rounds_estimate:.2f} "
+              f"(hybrid=2, vanilla={2 * cfg.num_layers})")
 
     def loss_fn(p, mfgs, h_src, labels, valid):
         return gnn_loss(p, mfgs, h_src, labels, valid, cfg)
@@ -122,10 +142,10 @@ def main(argv=None):
     with pipe.train_driver(loss_fn, batch=args.batch, lr=args.lr,
                            optimizer="adamw", grad_clip=1.0,
                            device=device) as driver:
-        _train(args, pipe, driver, cfg, params, opt_state)
+        _train(args, executor, pipe, driver, cfg, params, opt_state)
 
 
-def _train(args, pipe, driver, cfg, params, opt_state) -> None:
+def _train(args, executor, pipe, driver, cfg, params, opt_state) -> None:
     staging = "on" if driver.stager is not None else "off"
     for epoch in range(args.epochs):
         t0 = time.time()
@@ -133,7 +153,7 @@ def _train(args, pipe, driver, cfg, params, opt_state) -> None:
         for s in range(args.steps_per_epoch):
             params, opt_state, loss, metrics = driver.step(params, opt_state)
             if epoch == 0 and s == 0:
-                print(f"scheme={args.scheme} executor=stacked "
+                print(f"scheme={args.scheme} executor={executor} "
                       f"prefetch={args.prefetch_depth} staging={staging} "
                       f"store={args.feature_store}: "
                       f"{pipe.counter.rounds} comm rounds/step "

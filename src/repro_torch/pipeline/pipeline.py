@@ -28,8 +28,10 @@ class Pipeline:
 
     spec:             the ``PipelineSpec`` it was built from.
     layout:           relabeled topology + ownership metadata (on device).
-    shards:           per-worker features and labels, stacked on axis 0.
-    graph_replicated: the replicated topology (hybrid scheme).
+    shards:           per-worker features and labels, and the local
+                      topology of the partitioned schemes, stacked on
+                      axis 0.
+    graph_replicated: the replicated topology (hybrid scheme), else None.
     cache:            stacked ``FeatureCache`` when cache_capacity > 0
                       (built by the spec'd ``cache_policy``), else None.
     counter:          communication-round counter, ticked on every call of
@@ -49,6 +51,8 @@ class Pipeline:
     placement: "PlacementPlan"                      # noqa: F821
     feature_store: "FeatureStore"                   # noqa: F821
     dataset: "GraphDataset | None" = None           # noqa: F821
+    _edge_cut: float | None = dataclasses.field(default=None, init=False,
+                                                repr=False)
 
     # ---------------------------------------------------------------- build
 
@@ -110,10 +114,14 @@ class Pipeline:
             raise ValueError(
                 f"layout has {layout.num_parts} parts, spec asks for "
                 f"{spec.plan.num_parts}")
-        placement = resolve_scheme(spec.plan.scheme).build(layout)
-        shards = dist.WorkerShard(features=layout.features,
-                                  labels=layout.labels)
         plan = spec.plan
+        placement = resolve_scheme(plan.scheme,
+                                   frac=plan.replicate_frac).build(layout)
+        local_indptr, local_indices = placement.shard_topology()
+        shards = dist.WorkerShard(features=layout.features,
+                                  labels=layout.labels,
+                                  local_indptr=local_indptr,
+                                  local_indices=local_indices)
         cache = None
         if plan.cache_capacity > 0:
             cache = resolve_cache_policy(plan.cache_policy)(
@@ -276,9 +284,36 @@ class Pipeline:
         return self.layout.device
 
     @property
+    def edge_cut_fraction(self) -> float:
+        """Share of edges crossing partitions (an O(E) host scan, done
+        once)."""
+        if self._edge_cut is None:
+            from repro_torch.core.graph import csr_view_release
+            from repro_torch.core.partition import edge_cut
+            offsets = self.layout.host_offsets_labels()[0]
+            assign = (np.searchsorted(
+                offsets, np.arange(self.layout.graph.num_nodes),
+                side="right") - 1)
+            cut = edge_cut(self.layout.graph, assign)
+            self._edge_cut = cut / max(self.layout.graph.num_edges, 1)
+            # the long-lived topology does not keep its O(nnz) CSR view
+            csr_view_release(self.layout.graph)
+        return self._edge_cut
+
+    @property
     def expected_rounds(self) -> int:
-        """all_to_all rounds per step from the placement's accounting."""
+        """all_to_all rounds per step from the placement's structure
+        (vanilla 2L, hybrid 2, hybrid_partial 2L unless the replication is
+        complete)."""
         return self.placement.trace_rounds(self.spec.sampler.num_layers)
+
+    @property
+    def expected_rounds_estimate(self) -> float:
+        """Data-dependent estimate of the utilized rounds per step: 2
+        feature rounds + the scheme's expected sampling rounds (vanilla's
+        scale with the layout's remote edge mass, hybrid_partial's with
+        the cold mass that crosses workers; hybrid's are 0)."""
+        return self.placement.expected_rounds(self.spec.sampler.num_layers)
 
     @property
     def num_parts(self) -> int:

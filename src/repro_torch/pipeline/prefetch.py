@@ -75,7 +75,8 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                                plan, backend: str | None = None,
                                level_fn: Callable | None = None,
                                counter: dist.RoundCounter | None = None,
-                               store=None, features: bool = True):
+                               store=None, features: bool = True,
+                               vanilla_fused: bool | None = None):
     """Build ``(prepare, fetch, consume)``, the training step's halves with
     the feature stage exposed.
 
@@ -89,6 +90,10 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
     ``FeatureStore``, default ``"exchange"``) serves the frontier's rows,
     in prepare unless ``features`` is False.  Backends that count window
     overflow (``supports_overflow_sink``) surface it in ``comm``.
+    ``vanilla_fused`` picks how the schemes that never call the level
+    backend (vanilla, hybrid_partial) build a level's row pointer: fused
+    (True) or through the DGL-style COO->CSC passes; by default fused
+    unless the backend is ``"unfused"`` (or a ``level_fn`` was given).
 
     ``fetch(shard, batch, cache=None, staged=None)`` fills the feature
     stage of a batch prepared without it (identity when ``h_src`` is
@@ -103,7 +108,10 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
     if backend is not None and level_fn is not None:
         raise ValueError("pass either backend or level_fn, not both")
     if level_fn is None:
-        level_fn = resolve_backend(backend or "reference")
+        backend = backend or "reference"
+        level_fn = resolve_backend(backend)
+    if vanilla_fused is None:
+        vanilla_fused = backend is not None and backend != "unfused"
     if store is None:
         store = ExchangeStore()
     if store.external_rows and not features:
@@ -136,7 +144,8 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                 return level_fn(graph, frontier, fanout, level_salt,
                                 overflow_sink=sink)
         mfgs, samp_bytes = plan.sample(shard, seeds, fanouts, salt,
-                                       level_fn=lf, counter=counter)
+                                       level_fn=lf, fused=vanilla_fused,
+                                       counter=counter)
         P = seeds.shape[0]
         per_level = torch.zeros((P, L), dtype=torch.int64,
                                 device=seeds.device)
@@ -146,7 +155,7 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
             0, shard.labels.shape[1] - 1)
         seed_labels = torch.gather(shard.labels, 1, local_seed.long())
         zeros = torch.zeros(P, dtype=torch.float32, device=seeds.device)
-        comm = {"sampling_utilized_bytes": samp_bytes.expand(P),
+        comm = {"sampling_utilized_bytes": samp_bytes,
                 "feature_utilized_bytes": zeros,
                 "sampler_window_overflow": per_level.sum(dim=-1),
                 "sampler_window_overflow_per_level": per_level}
@@ -196,14 +205,14 @@ def make_prepare(*, offsets: torch.Tensor, num_parts: int,
                  backend: str | None = None,
                  level_fn: Callable | None = None,
                  counter: dist.RoundCounter | None = None,
-                 store=None):
+                 store=None, vanilla_fused: bool | None = None):
     """The prepare half alone (``make_prepare_fetch_consume``'s first
     callable, features fetched): ``prepare(shard, seeds, salt, cache=None,
     staged=None) -> PreparedBatch``."""
     prepare, _, _ = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts, loss_fn=None,
         plan=plan, backend=backend, level_fn=level_fn, counter=counter,
-        store=store)
+        store=store, vanilla_fused=vanilla_fused)
     return prepare
 
 
@@ -212,13 +221,15 @@ def make_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
                          backend: str | None = None,
                          level_fn: Callable | None = None,
                          counter: dist.RoundCounter | None = None,
-                         store=None, features: bool = True):
+                         store=None, features: bool = True,
+                         vanilla_fused: bool | None = None):
     """The *prepare* / *consume* halves of the training step
     (``make_prepare_fetch_consume`` without the standalone fetch)."""
     prepare, _, consume = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         loss_fn=loss_fn, plan=plan, backend=backend, level_fn=level_fn,
-        counter=counter, store=store, features=features)
+        counter=counter, store=store, features=features,
+        vanilla_fused=vanilla_fused)
     return prepare, consume
 
 

@@ -7,9 +7,11 @@
   * ``DataSpec``     — which graph (``repro_torch.data.spec``);
   * ``PipelineSpec`` — all of the above.
 
-``PipelineSpec.from_scheme`` parses the ``"hybrid" | "hybrid+fused"``
-strings: ``hybrid+fused`` is the hybrid placement with the fused sampling
-kernel (level backend ``"fused_cuda"``).
+``PipelineSpec.from_scheme`` parses the ``"vanilla" | "hybrid" |
+"hybrid+fused"`` strings and any registered scheme name (e.g.
+``"hybrid_partial(0.25)"``): ``hybrid+fused`` is the hybrid placement with
+the fused sampling kernel (level backend ``"fused_cuda"``), every other
+name takes the unfused backend.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import dataclasses
 
 from repro_torch.data.spec import DataSpec
 
-LEGACY_SCHEMES = ("hybrid", "hybrid+fused")
+LEGACY_SCHEMES = ("vanilla", "hybrid", "hybrid+fused")
 SEED_STREAMS = ("counter", "fold")
 
 
@@ -26,7 +28,9 @@ class PlanSpec:
     """Partitioning & placement plan (paper §3.3).
 
     scheme:         placement-scheme registry name
-                    (``repro_torch.core.placement``): "hybrid".
+                    (``repro_torch.core.placement``): "vanilla" |
+                    "hybrid" | "hybrid_partial"; the inline form
+                    "hybrid_partial(0.25)" sets ``replicate_frac``.
     cache_capacity: per-worker hot-remote-feature cache entries; 0 = off.
     cache_policy:   cache-construction registry name
                     (``repro_torch.core.cache``): "degree" | "frequency".
@@ -41,6 +45,8 @@ class PlanSpec:
     partitioner:    partitioner registry name
                     (``repro_torch.core.partition``): "ldg".
     node_slack / labeled_slack: partitioner balance targets.
+    replicate_frac: the replicated share of nodes of ``hybrid_partial``
+                    (top by in-degree), in [0, 1]; None for the others.
     """
     num_parts: int
     scheme: str = "hybrid"
@@ -49,6 +55,7 @@ class PlanSpec:
     labeled_slack: float | None = None
     partition_seed: int = 0
     cache_policy: str = "degree"
+    replicate_frac: float | None = None
     feature_store: str = "exchange"
     partitioner: str = "ldg"
 
@@ -57,12 +64,29 @@ class PlanSpec:
         from repro_torch.core.feature_store import (available_feature_stores,
                                                     resolve_feature_store)
         from repro_torch.core.partition import resolve_partitioner
-        from repro_torch.core.placement import resolve_scheme
+        from repro_torch.core.placement import (available_schemes,
+                                                parse_scheme_name,
+                                                resolve_scheme)
 
-        try:
-            resolve_scheme(self.scheme)
-        except KeyError as e:
-            raise ValueError(str(e)) from None
+        base, inline = parse_scheme_name(self.scheme)
+        if inline is not None:
+            if self.replicate_frac is not None \
+                    and float(self.replicate_frac) != inline:
+                raise ValueError(
+                    f"conflicting replication fractions: scheme "
+                    f"{self.scheme!r} vs replicate_frac="
+                    f"{self.replicate_frac}")
+            object.__setattr__(self, "scheme", base)
+            object.__setattr__(self, "replicate_frac", inline)
+        if base not in available_schemes():
+            raise ValueError(
+                f"unknown scheme {self.scheme!r}; valid: "
+                f"{available_schemes()} (legacy 'hybrid+fused' = scheme "
+                f"'hybrid' + backend 'fused_cuda'; see "
+                f"PipelineSpec.from_scheme)")
+        # instantiating checks the scheme's parameter (hybrid_partial
+        # needs a replicate_frac in [0, 1]; vanilla and hybrid take none)
+        resolve_scheme(base, frac=self.replicate_frac)
         if self.num_parts < 1:
             raise ValueError(f"num_parts must be >= 1, got {self.num_parts}")
         if self.cache_capacity < 0:
@@ -180,9 +204,13 @@ class PipelineSpec:
 
     @property
     def expected_rounds(self) -> int:
-        """all_to_all rounds per step (hybrid: 2, features only)."""
+        """all_to_all rounds per step from the scheme's structure: hybrid
+        2 (features only), vanilla 2L, hybrid_partial 2L unless the
+        replication is complete (``Pipeline.expected_rounds_estimate``
+        gives the data-dependent utilized rounds)."""
         from repro_torch.core.placement import resolve_scheme
-        scheme = resolve_scheme(self.plan.scheme)
+        scheme = resolve_scheme(self.plan.scheme,
+                                frac=self.plan.replicate_frac)
         return scheme.trace_sampling_rounds(self.sampler.num_layers) + 2
 
     @classmethod
@@ -193,16 +221,32 @@ class PipelineSpec:
                     prefetch_depth: int = 0, staging: bool = False,
                     staging_lead: int = 1,
                     data: DataSpec | None = None) -> "PipelineSpec":
-        """``hybrid`` -> scheme hybrid, backend ``"unfused"``;
-        ``hybrid+fused`` -> scheme hybrid, backend ``"fused_cuda"``; the
-        cache and feature-store arguments go to ``PlanSpec``, the prefetch
-        depth and staging to ``PrefetchSpec``."""
-        if scheme not in LEGACY_SCHEMES:
-            raise ValueError(f"unknown scheme {scheme!r}; "
-                             f"valid: {LEGACY_SCHEMES}")
+        """Parse a scheme string into a spec:
+
+          vanilla               -> scheme vanilla, backend "unfused"
+          hybrid                -> scheme hybrid, backend "unfused"
+          hybrid+fused          -> scheme hybrid, backend "fused_cuda"
+          hybrid_partial(0.25)  -> scheme hybrid_partial, replicate_frac
+                                   0.25, backend "unfused"
+          <registered name>     -> passed to ``PlanSpec``, "unfused"
+
+        The cache and feature-store arguments go to ``PlanSpec``, the
+        prefetch depth and staging to ``PrefetchSpec``."""
+        from repro_torch.core.placement import (available_schemes,
+                                                parse_scheme_name)
+
+        if scheme in LEGACY_SCHEMES:
+            placement = "vanilla" if scheme == "vanilla" else "hybrid"
+        else:
+            if parse_scheme_name(scheme)[0] not in available_schemes():
+                extras = tuple(s for s in available_schemes()
+                               if s not in LEGACY_SCHEMES)
+                raise ValueError(f"unknown scheme {scheme!r}; "
+                                 f"valid: {LEGACY_SCHEMES + extras}")
+            placement = scheme          # PlanSpec parses an inline frac
         backend = "fused_cuda" if scheme == "hybrid+fused" else "unfused"
         return cls(
-            plan=PlanSpec(num_parts=num_parts, scheme="hybrid",
+            plan=PlanSpec(num_parts=num_parts, scheme=placement,
                           cache_capacity=cache_capacity,
                           cache_policy=cache_policy,
                           partition_seed=partition_seed,

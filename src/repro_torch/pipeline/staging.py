@@ -303,8 +303,9 @@ class FeatureStager(SeedStager):
 
       1. draws ``(seeds, salt)`` as ``SeedStager`` does;
       2. replays the sampler on the host (``_frontier_src_nodes_host``,
-         with the level backend's window), giving the frontier the device
-         will sample;
+         with the level backend's window when the placement samples
+         through the backend, else windowless), giving the frontier the
+         device will sample;
       3. gathers the frontier's rows from a host copy of the (P, n_max, D)
          table into a pooled (P, N, D) buffer (+0.0 rows for padding), and
          zeroes the slots the pinned cache will serve when the store takes
@@ -328,8 +329,14 @@ class FeatureStager(SeedStager):
         if graph is None:
             graph = layout.graph
         self._fanouts = tuple(int(f) for f in pipeline.spec.sampler.fanouts)
-        self._window = getattr(resolve_backend(pipeline.spec.sampler.backend),
-                               "window", None)
+        # the device draws through the level backend (and its window) only
+        # under a scheme that samples through it; the others draw
+        # windowless whatever the backend
+        self._window = None
+        if pipeline.placement.scheme.uses_level_backend:
+            self._window = getattr(
+                resolve_backend(pipeline.spec.sampler.backend), "window",
+                None)
         self._indptr_np, self._indices_np = graph.numpy()
         self._offsets_np = layout.host_offsets_labels()[0]
         self._feats_np = layout.features.cpu().numpy()

@@ -23,11 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Sequence
 
 import numpy as np
 
 from repro_torch.device import resolve_device
-from repro_torch.serve.batcher import MicroBatcher, Request, max_owner_count
+from repro_torch.serve.batcher import (BucketSpec, MicroBatcher, Request,
+                                      max_owner_count)
 from repro_torch.serve.predictor import Predictor
 from repro_torch.serve.recycler import RecyclingCache
 
@@ -90,7 +92,10 @@ class GNNServer:
     Parameters
     ----------
     predictor : Predictor
-        Its buckets size the microbatcher's flushes.
+    buckets : sequence of int, optional
+        Batch-shape buckets that size the microbatcher's flushes; the
+        predictor's own when None.  The predictor still pads each flush
+        to its own buckets, so keep them equal (the default does).
     max_delay : float
         Deadline (seconds) a request may wait for batchmates; 0 serves
         every request alone.
@@ -102,7 +107,9 @@ class GNNServer:
         ``None`` means CUDA; it must be the predictor's device.
     """
 
-    def __init__(self, predictor: Predictor, *, max_delay: float = 2e-3,
+    def __init__(self, predictor: Predictor, *,
+                 buckets: Sequence[int] | None = None,
+                 max_delay: float = 2e-3,
                  recycler: RecyclingCache | None = None,
                  salt_policy: str = "fixed", device=None):
         if resolve_device(device).type != predictor.device.type:
@@ -112,7 +119,8 @@ class GNNServer:
             raise ValueError(f"salt_policy must be 'fixed' or 'step', "
                              f"got {salt_policy!r}")
         self.predictor = predictor
-        self.buckets = predictor.buckets
+        self.buckets = (BucketSpec(buckets) if buckets is not None
+                        else predictor.buckets)
         self.max_delay = float(max_delay)
         self.recycler = recycler
         self.salt_policy = salt_policy

@@ -18,14 +18,18 @@ class GNNTrainer:
     """Distributed sampling-based GNN training (the paper's §4 setup) over
     the stacked worker axis on one device.
 
-    scheme: ``"hybrid"`` | ``"hybrid+fused"`` (``PipelineSpec.from_scheme``);
-    ``cache_capacity`` / ``cache_policy`` attach the §5 feature cache and
-    ``feature_store`` selects how frontier rows are served (``"exchange"``,
-    ``"pinned_hot"`` or ``"staged"``); ``prefetch_depth`` double-buffers
-    the prepare half against the consume half and ``staging`` draws the
-    seeds on a host thread (``repro_torch.pipeline.staging``); every
-    choice gives the same losses bit for bit.  Parameters are drawn from a
-    CPU ``torch.Generator`` seeded with ``seed``; set ``params`` and
+    scheme: ``"vanilla"`` | ``"hybrid"`` | ``"hybrid+fused"`` |
+    ``"hybrid_partial(f)"`` or any registered placement scheme
+    (``PipelineSpec.from_scheme``); every scheme draws the same minibatches
+    (``hybrid+fused`` too while no frontier node's in-degree exceeds its
+    kernel's window).  ``cache_capacity`` / ``cache_policy`` attach the §5
+    feature cache and ``feature_store`` selects how frontier rows are
+    served (``"exchange"``, ``"pinned_hot"`` or ``"staged"``);
+    ``prefetch_depth`` double-buffers the prepare half against the consume
+    half and ``staging`` draws the seeds on a host thread
+    (``repro_torch.pipeline.staging``); each of these choices gives the
+    same losses bit for bit.  Parameters are drawn from a CPU
+    ``torch.Generator`` seeded with ``seed``; set ``params`` and
     ``opt_state`` to start elsewhere.  ``close()`` stops the staging
     thread.
     """

@@ -175,9 +175,21 @@ def test_serve_gnn_launcher_serves_with_the_recycler():
                                   res["predictor"].predict(res["seeds"]))
 
 
-@pytest.mark.parametrize("flags", [["--trace", "t.json"],
-                                   ["--scheme", "vanilla"]],
-                         ids=["trace", "scheme"])
+@pytest.mark.parametrize("scheme", ["vanilla", "hybrid_partial(0.25)"])
+def test_serve_gnn_launcher_serves_every_scheme(scheme):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = serve_gnn.main(["--device", "cpu", "--nodes", "800",
+                              "--requests", "60", "--train-steps", "1",
+                              "--scheme", scheme])
+    text = out.getvalue()
+    assert f"scheme={scheme}" in text and "p50 " in text
+    assert res["summary"]["num_requests"] == 60
+    np.testing.assert_array_equal(res["outputs"],
+                                  res["predictor"].predict(res["seeds"]))
+
+
+@pytest.mark.parametrize("flags", [["--trace", "t.json"]], ids=["trace"])
 def test_serve_gnn_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
         serve_gnn.main(["--device", "cpu", *flags])

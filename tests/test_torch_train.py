@@ -367,10 +367,33 @@ def test_launcher_runs_the_overlap_and_cache_flags(flags, rounds):
     assert "epoch 0: loss" in text and f"rounds/step {rounds} " in text
 
 
+@pytest.mark.parametrize("flags,rounds", [
+    (["--executor", "vmap"], "2 comm rounds/step (0 sampling + 2 feature"),
+    (["--executor", "stacked"],
+     "2 comm rounds/step (0 sampling + 2 feature"),
+    (["--scheme", "vanilla"], "6 comm rounds/step (4 sampling + 2 feature"),
+    (["--scheme", "hybrid_partial(0.25)"],
+     "6 comm rounds/step (4 sampling + 2 feature")],
+    ids=["executor-vmap", "executor-stacked", "scheme-vanilla",
+         "scheme-hybrid_partial"])
+def test_launcher_trains_every_scheme_and_executor_name(flags, rounds):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        t_launch.main(["--device", "cpu", "--nodes", "800", "--devices",
+                       "4", "--epochs", "1", "--steps-per-epoch", "2",
+                       "--batch", "16", *flags])
+    text = out.getvalue()
+    assert rounds in text and "epoch 0: loss" in text
+    assert "edge-cut" in text
+    assert ("partial replication:" in text) == ("hybrid_partial" in flags[1])
+    if flags[0] == "--executor":
+        assert f"executor={flags[1]}" in text
+
+
 @pytest.mark.parametrize("flags", [
-    ["--executor", "vmap"], ["--shard-map"], ["--trace", "t.json"],
-    ["--scheme", "vanilla"]],
-    ids=lambda f: f[0].lstrip("-"))
+    ["--executor", "shard_map"], ["--shard-map"], ["--trace", "t.json"],
+    ["--executor", "multiprocess"]],
+    ids=["executor", "shard-map", "trace", "executor-multiprocess"])
 def test_launcher_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
         t_launch.main(["--device", "cpu", *flags])
