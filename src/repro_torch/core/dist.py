@@ -33,7 +33,8 @@ from repro_torch.core.graph import CSCGraph
 from repro_torch.core.mfg import MFG
 from repro_torch.core.sampler import (build_indptr, draw_columns,
                                       level_salt, relabel, sample_level,
-                                      sample_mfgs, unfused_coo_csc_pass)
+                                      sample_mfgs, sample_neighbors,
+                                      unfused_coo_csc_pass)
 from repro_torch.kernels.feature_gather import feature_gather
 
 
@@ -275,10 +276,19 @@ def hybrid_sample(graph: CSCGraph, seeds: torch.Tensor,
 def vanilla_sample(shard: WorkerShard, offsets: torch.Tensor,
                    num_parts: int, seeds: torch.Tensor,
                    fanouts: Sequence[int], salt,
-                   counter: RoundCounter | None, fused: bool = False):
+                   counter: RoundCounter | None, fused: bool = False, *,
+                   hot_graph: CSCGraph | None = None,
+                   hot_mask: torch.Tensor | None = None,
+                   all_hot: bool = False):
     """Multi-level sampling under the vanilla scheme: topology
     partitioned, so 2 rounds per level below the top (Fig. 3).  The draws
     equal ``hybrid_sample``'s (the paper's §4.2 equivalence).
+
+    With ``hot_graph`` / ``hot_mask`` (``hybrid_partial``'s replicated
+    in-edge lists of the hot nodes) each lower level draws the hot
+    frontier on the replica and exchanges only the cold remainder; with
+    ``all_hot`` no level exchanges at all.  Hot and cold draws merge
+    before the relabel.
 
     seeds: (P, batch), each worker's own labeled nodes.  Returns ``(mfgs,
     sampling_utilized_bytes (P,) f32)``.
@@ -290,16 +300,31 @@ def vanilla_sample(shard: WorkerShard, offsets: torch.Tensor,
     frontier = seeds
     for depth, fanout in enumerate(fanouts):
         fanout = int(fanout)
+        salt_d = level_salt(salt, depth)
         if depth == 0:
             # top level: the seeds are the worker's own nodes
             samples = sample_neighbors_local(
                 shard.local_indptr, shard.local_indices, my_offset, n_local,
-                frontier, fanout, level_salt(salt, depth))
+                frontier, fanout, salt_d)
         else:
-            samples, level_bytes = exchange_sample_level(
-                shard, offsets, num_parts, frontier, fanout,
-                level_salt(salt, depth), counter)
-            util = util + level_bytes
+            cold = frontier
+            if hot_graph is not None:
+                is_hot = (hot_mask[frontier.clamp(min=0).long()]
+                          & (frontier >= 0))
+                hot_samples, _ = sample_neighbors(
+                    hot_graph, torch.where(is_hot, frontier, -1), fanout,
+                    salt_d)
+                cold = torch.where(is_hot, -1, frontier)
+            if all_hot:
+                samples = hot_samples
+            else:
+                samples, level_bytes = exchange_sample_level(
+                    shard, offsets, num_parts, cold, fanout, salt_d,
+                    counter)
+                util = util + level_bytes
+                if hot_graph is not None:
+                    samples = torch.where(is_hot[..., None], hot_samples,
+                                          samples)
         mfg = finish_level(frontier, samples, fused)
         mfgs.append(mfg)
         frontier = mfg.src_nodes

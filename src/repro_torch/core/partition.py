@@ -333,18 +333,12 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
     )
 
 
-@dataclasses.dataclass(frozen=True)
-class VanillaPlan:
+def build_vanilla(layout: PartitionLayout
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The paper's baseline topology: each worker stores only its
-    partition's in-edge lists, stacked on the worker axis."""
-    layout: PartitionLayout
-    local_indptr: torch.Tensor   # (P, n_max+1) int32
-    local_indices: torch.Tensor  # (P, nnz_max) int32 global src ids, -1 pad
-
-
-def build_vanilla(layout: PartitionLayout) -> VanillaPlan:
-    """Slice each partition's in-edge lists out of the global CSC, on the
-    host, and place them on the layout's device.  Row p of
+    partition's in-edge lists.  Slices them out of the global CSC, on the
+    host, and returns ``(local_indptr (P, n_max+1), local_indices (P,
+    nnz_max))`` int32 (global source ids) on the layout's device.  Row p of
     ``local_indptr`` is worker p's row pointer from 0, its tail repeating
     the last entry; ``local_indices`` is padded with -1 to the largest
     slice (at least 1 wide), as ``repro`` pads it."""
@@ -363,9 +357,8 @@ def build_vanilla(layout: PartitionLayout) -> VanillaPlan:
         li[p, :rows.size] = rows
         li[p, rows.size:] = rows[-1]
         lx[p, :nnz[p]] = indices[indptr[lo]:indptr[hi]]
-    return VanillaPlan(layout=layout,
-                       local_indptr=torch.from_numpy(li).to(layout.device),
-                       local_indices=torch.from_numpy(lx).to(layout.device))
+    return (torch.from_numpy(li).to(layout.device),
+            torch.from_numpy(lx).to(layout.device))
 
 
 # --------------------------------------------------------------------------

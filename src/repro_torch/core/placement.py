@@ -42,8 +42,6 @@ import torch
 
 from repro_torch.core import dist
 from repro_torch.core.graph import CSCGraph
-from repro_torch.core.mfg import MFG
-from repro_torch.core.sampler import level_salt, sample_neighbors
 
 
 # --------------------------------------------------------------------------
@@ -97,22 +95,23 @@ class PlacementPlan:
         return None
 
 
-def _remote_edge_mass(layout, src_mask: np.ndarray | None = None) -> float:
-    """Share of the layout's edges whose source another partition owns
-    than their destination (optionally only edges whose source satisfies
-    ``src_mask``): the mass of frontier draws that cross workers in an
-    exchange round.  Host numpy over the relabeled CSC, as ``repro``'s."""
-    indptr, indices = layout.graph.numpy()
-    if indices.size == 0:
-        return 0.0
+def _remote_edges(layout, indptr: np.ndarray,
+                  indices: np.ndarray) -> np.ndarray:
+    """(E,) bool over the layout's CSC edges: True where another partition
+    owns the source than the destination.  Host numpy over the relabeled
+    CSC, as ``repro``'s ``_remote_edge_mass``."""
     offsets = layout.host_offsets_labels()[0]
     node_owner = (np.searchsorted(offsets, np.arange(layout.graph.num_nodes),
                                   side="right") - 1)
     owner_dst = np.repeat(node_owner, np.diff(indptr))
-    remote = node_owner[indices] != owner_dst
-    if src_mask is not None:
-        remote &= src_mask[indices]
-    return float(np.mean(remote))
+    return node_owner[indices] != owner_dst
+
+
+def _edge_share(mask: np.ndarray) -> float:
+    """Share of edges where ``mask`` holds (0.0 on an empty graph): with
+    ``_remote_edges``, the mass of frontier draws that cross workers in an
+    exchange round."""
+    return float(np.mean(mask)) if mask.size else 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,8 +134,6 @@ class PartialPlacementPlan(PlacementPlan):
     hot_mask:     (n,) bool, True for hot nodes.
     frac:         the requested replication fraction.
     hot_count:    number of hot nodes (``complete`` when it is n).
-    cold_source_fraction: share of edges whose source is cold: the draws
-                  that fall back to the exchange.
     cold_remote_source_fraction: share of edges whose source is cold and
                   owned by another partition than the destination's: the
                   cold mass that crosses workers, behind the expected-round
@@ -148,7 +145,6 @@ class PartialPlacementPlan(PlacementPlan):
     hot_mask: torch.Tensor | None = None
     frac: float = 0.0
     hot_count: int = 0
-    cold_source_fraction: float = 1.0
     cold_remote_source_fraction: float = 1.0
     replicated_edges: int = 0
     replicated_edge_fraction: float = 0.0
@@ -202,13 +198,13 @@ class VanillaScheme(PlacementScheme):
 
     def build(self, layout) -> PlacementPlan:
         from repro_torch.core.partition import build_vanilla
-        vplan = build_vanilla(layout)
+        local_indptr, local_indices = build_vanilla(layout)
+        remote = _remote_edges(layout, *layout.graph.numpy())
         return PlacementPlan(scheme=self, offsets=layout.offsets,
                              num_parts=layout.num_parts,
-                             local_indptr=vplan.local_indptr,
-                             local_indices=vplan.local_indices,
-                             remote_source_fraction=_remote_edge_mass(
-                                 layout))
+                             local_indptr=local_indptr,
+                             local_indices=local_indices,
+                             remote_source_fraction=_edge_share(remote))
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
                fused: bool = False, counter=None):
@@ -265,9 +261,6 @@ class HybridPartialScheme(PlacementScheme):
     samplers."""
 
     name = "hybrid_partial"
-    # hot-set scorer ranking the replication candidates
-    # (``repro_torch.core.cache.resolve_hot_scorer``)
-    hot_scorer = "degree"
 
     def __init__(self, frac: float | None = None):
         if frac is None:
@@ -290,7 +283,7 @@ class HybridPartialScheme(PlacementScheme):
         deg = np.diff(indptr)
 
         k = int(np.round(self.frac * n))
-        hot_ids = resolve_hot_scorer(self.hot_scorer).top_ids(graph, k)
+        hot_ids = resolve_hot_scorer("degree").top_ids(graph, k)
         hot_mask = np.zeros(n, bool)
         hot_mask[hot_ids] = True
 
@@ -307,67 +300,34 @@ class HybridPartialScheme(PlacementScheme):
             indices=torch.from_numpy(hot_indices.astype(np.int32)).to(dev))
 
         num_edges = max(int(indices.size), 1)
-        cold_src = float(np.mean(~hot_mask[indices])) if indices.size else 0.0
-        cold_remote = _remote_edge_mass(layout, src_mask=~hot_mask)
+        remote = _remote_edges(layout, indptr, indices)
         replicated = int(hot_deg.sum())
 
         # workers keep their vanilla slice to serve cold requests
-        vplan = build_vanilla(layout)
+        local_indptr, local_indices = build_vanilla(layout)
         return PartialPlacementPlan(
             scheme=self, offsets=layout.offsets,
             num_parts=layout.num_parts,
-            local_indptr=vplan.local_indptr,
-            local_indices=vplan.local_indices,
-            remote_source_fraction=_remote_edge_mass(layout),
+            local_indptr=local_indptr,
+            local_indices=local_indices,
+            remote_source_fraction=_edge_share(remote),
             hot_graph=hot_graph,
             hot_mask=torch.from_numpy(hot_mask).to(dev),
             frac=self.frac, hot_count=k,
-            cold_source_fraction=cold_src,
-            cold_remote_source_fraction=cold_remote,
+            cold_remote_source_fraction=_edge_share(
+                remote & ~hot_mask[indices]),
             replicated_edges=replicated,
             replicated_edge_fraction=replicated / num_edges)
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
                fused: bool = False, counter=None):
-        offsets, P = plan.offsets, plan.num_parts
-        my_offset, n_local = dist.worker_ranges(offsets)
-        hot_any = plan.hot_count > 0
-        complete = plan.complete
-
-        util = torch.zeros(seeds.shape[0], dtype=torch.float32,
-                           device=seeds.device)
-        mfgs: list[MFG] = []
-        frontier = seeds
-        for depth, fanout in enumerate(fanouts):
-            fanout = int(fanout)
-            salt_d = level_salt(salt, depth)
-            if depth == 0:
-                # the seeds are the worker's own nodes: no communication
-                samples = dist.sample_neighbors_local(
-                    shard.local_indptr, shard.local_indices, my_offset,
-                    n_local, frontier, fanout, salt_d)
-            else:
-                if hot_any:
-                    is_hot = (plan.hot_mask[frontier.clamp(min=0).long()]
-                              & (frontier >= 0))
-                    hot_samples, _ = sample_neighbors(
-                        plan.hot_graph, torch.where(is_hot, frontier, -1),
-                        fanout, salt_d)
-                if complete:
-                    samples = hot_samples
-                else:
-                    cold = (torch.where(is_hot, -1, frontier) if hot_any
-                            else frontier)
-                    cold_samples, level_bytes = dist.exchange_sample_level(
-                        shard, offsets, P, cold, fanout, salt_d, counter)
-                    samples = (torch.where(is_hot[..., None], hot_samples,
-                                           cold_samples)
-                               if hot_any else cold_samples)
-                    util = util + level_bytes
-            mfg = dist.finish_level(frontier, samples, fused)
-            mfgs.append(mfg)
-            frontier = mfg.src_nodes
-        return mfgs, util
+        hot = plan.hot_count > 0
+        return dist.vanilla_sample(
+            shard, plan.offsets, plan.num_parts, seeds, fanouts, salt,
+            counter, fused=fused,
+            hot_graph=plan.hot_graph if hot else None,
+            hot_mask=plan.hot_mask if hot else None,
+            all_hot=plan.complete)
 
     def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
         if plan is not None:
@@ -459,27 +419,3 @@ register_scheme("hybrid", _unparameterized(HybridScheme))
 register_scheme("hybrid_partial",
                 lambda frac=None: HybridPartialScheme(frac))
 
-
-def plan_from_legacy(scheme: str, *, graph_replicated=None, offsets=None,
-                     num_parts: int = 0) -> PlacementPlan:
-    """A layout-free plan from a (scheme string, replicated graph) pair:
-    enough to run the sampling program when the caller's ``WorkerShard``
-    carries the local topology.  Parameterized schemes need a plan built
-    from a layout: ``resolve_scheme(...).build(layout)``."""
-    base, frac = parse_scheme_name(scheme)
-    if base == "vanilla":
-        return PlacementPlan(scheme=resolve_scheme("vanilla"),
-                             offsets=offsets, num_parts=num_parts)
-    if base == "hybrid":
-        if graph_replicated is None:
-            raise ValueError("hybrid scheme needs the replicated topology")
-        return HybridPlacementPlan(scheme=resolve_scheme("hybrid"),
-                                   offsets=offsets, num_parts=num_parts,
-                                   graph=graph_replicated)
-    if frac is not None or base in _SCHEMES:
-        raise ValueError(
-            f"scheme {scheme!r} needs a layout-built plan; construct it "
-            f"with resolve_scheme({scheme!r}).build(layout) and pass "
-            f"plan=... (or use repro_torch.pipeline.Pipeline)")
-    raise ValueError(f"unknown scheme {scheme!r}; "
-                     f"available: {available_schemes()}")

@@ -26,8 +26,7 @@ def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
                                forward_fn: Callable, plan,
                                backend: str | None = None,
                                level_fn: Callable | None = None,
-                               counter: dist.RoundCounter | None = None,
-                               vanilla_fused: bool | None = None):
+                               counter: dist.RoundCounter | None = None):
     """Build the *prepare* / *consume* halves of the inference step.
 
     ``forward_fn(params, mfgs, h_src) -> (P, batch, C) logits``; the other
@@ -36,8 +35,7 @@ def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
     """
     prepare = make_prepare(offsets=offsets, num_parts=num_parts,
                            fanouts=fanouts, plan=plan, backend=backend,
-                           level_fn=level_fn, counter=counter,
-                           vanilla_fused=vanilla_fused)
+                           level_fn=level_fn, counter=counter)
 
     def consume(params, batch: PreparedBatch):
         logits = forward_fn(params, list(batch.mfgs), batch.h_src)
@@ -58,14 +56,13 @@ def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
 def make_infer_step(*, offsets, num_parts, fanouts, forward_fn, plan,
                     backend: str | None = None,
                     level_fn: Callable | None = None,
-                    counter: dist.RoundCounter | None = None,
-                    vanilla_fused: bool | None = None):
+                    counter: dist.RoundCounter | None = None):
     """The composed inference program: ``step(params, shard, seeds, salt,
     cache=None) -> (logits, metrics)`` over the stacked worker axis."""
     prepare, consume = make_infer_prepare_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         forward_fn=forward_fn, plan=plan, backend=backend,
-        level_fn=level_fn, counter=counter, vanilla_fused=vanilla_fused)
+        level_fn=level_fn, counter=counter)
 
     def step(params, shard, seeds, salt, cache=None):
         return consume(params, prepare(shard, seeds, salt, cache))

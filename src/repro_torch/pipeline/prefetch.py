@@ -75,8 +75,7 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                                plan, backend: str | None = None,
                                level_fn: Callable | None = None,
                                counter: dist.RoundCounter | None = None,
-                               store=None, features: bool = True,
-                               vanilla_fused: bool | None = None):
+                               store=None, features: bool = True):
     """Build ``(prepare, fetch, consume)``, the training step's halves with
     the feature stage exposed.
 
@@ -89,11 +88,11 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
     resolves by registry name unless ``level_fn`` is given; ``store`` (a
     ``FeatureStore``, default ``"exchange"``) serves the frontier's rows,
     in prepare unless ``features`` is False.  Backends that count window
-    overflow (``supports_overflow_sink``) surface it in ``comm``.
-    ``vanilla_fused`` picks how the schemes that never call the level
-    backend (vanilla, hybrid_partial) build a level's row pointer: fused
-    (True) or through the DGL-style COO->CSC passes; by default fused
-    unless the backend is ``"unfused"`` (or a ``level_fn`` was given).
+    overflow (``supports_overflow_sink``) surface it in ``comm``.  The
+    schemes that never call the level backend (vanilla, hybrid_partial)
+    build a level's row pointer directly, or through the DGL-style
+    COO->CSC passes when the backend is ``"unfused"`` (or a ``level_fn``
+    was given).
 
     ``fetch(shard, batch, cache=None, staged=None)`` fills the feature
     stage of a batch prepared without it (identity when ``h_src`` is
@@ -110,8 +109,7 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
     if level_fn is None:
         backend = backend or "reference"
         level_fn = resolve_backend(backend)
-    if vanilla_fused is None:
-        vanilla_fused = backend is not None and backend != "unfused"
+    fused = backend is not None and backend != "unfused"
     if store is None:
         store = ExchangeStore()
     if store.external_rows and not features:
@@ -144,7 +142,7 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                 return level_fn(graph, frontier, fanout, level_salt,
                                 overflow_sink=sink)
         mfgs, samp_bytes = plan.sample(shard, seeds, fanouts, salt,
-                                       level_fn=lf, fused=vanilla_fused,
+                                       level_fn=lf, fused=fused,
                                        counter=counter)
         P = seeds.shape[0]
         per_level = torch.zeros((P, L), dtype=torch.int64,
@@ -205,14 +203,14 @@ def make_prepare(*, offsets: torch.Tensor, num_parts: int,
                  backend: str | None = None,
                  level_fn: Callable | None = None,
                  counter: dist.RoundCounter | None = None,
-                 store=None, vanilla_fused: bool | None = None):
+                 store=None):
     """The prepare half alone (``make_prepare_fetch_consume``'s first
     callable, features fetched): ``prepare(shard, seeds, salt, cache=None,
     staged=None) -> PreparedBatch``."""
     prepare, _, _ = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts, loss_fn=None,
         plan=plan, backend=backend, level_fn=level_fn, counter=counter,
-        store=store, vanilla_fused=vanilla_fused)
+        store=store)
     return prepare
 
 
@@ -221,15 +219,13 @@ def make_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
                          backend: str | None = None,
                          level_fn: Callable | None = None,
                          counter: dist.RoundCounter | None = None,
-                         store=None, features: bool = True,
-                         vanilla_fused: bool | None = None):
+                         store=None, features: bool = True):
     """The *prepare* / *consume* halves of the training step
     (``make_prepare_fetch_consume`` without the standalone fetch)."""
     prepare, _, consume = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         loss_fn=loss_fn, plan=plan, backend=backend, level_fn=level_fn,
-        counter=counter, store=store, features=features,
-        vanilla_fused=vanilla_fused)
+        counter=counter, store=store, features=features)
     return prepare, consume
 
 

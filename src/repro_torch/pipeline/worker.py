@@ -23,22 +23,20 @@ def make_worker_step(*, offsets: torch.Tensor, num_parts: int,
                      backend: str | None = None,
                      level_fn: Callable | None = None,
                      counter: dist.RoundCounter | None = None,
-                     use_cache: bool = False, store=None,
-                     vanilla_fused: bool | None = None):
+                     use_cache: bool = False, store=None):
     """Build the step for the placement plan ``plan`` (any registered
     scheme).
 
     ``loss_fn(params, mfgs, h_src, seed_labels, seed_valid)`` returns the
     per-worker losses; ``backend`` / ``level_fn`` select the level backend
-    (mutually exclusive); ``vanilla_fused`` the row-pointer construction
-    of the schemes that do not sample through it; ``store`` serves the
-    frontier's rows (``None`` = the exchange store).  With ``use_cache``
-    the step takes a trailing ``FeatureCache`` argument.
+    (mutually exclusive); ``store`` serves the frontier's rows (``None``
+    = the exchange store).  With ``use_cache`` the step takes a trailing
+    ``FeatureCache`` argument.
     """
     prepare, consume = make_prepare_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         loss_fn=loss_fn, plan=plan, backend=backend, level_fn=level_fn,
-        counter=counter, store=store, vanilla_fused=vanilla_fused)
+        counter=counter, store=store)
 
     if use_cache:
         def step(params, shard, seeds, salt, cache):

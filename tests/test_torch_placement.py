@@ -139,12 +139,6 @@ def test_registry_matches_repro():
     assert [tplace.resolve_scheme(n).uses_level_backend
             for n in ("vanilla", "hybrid", "hybrid_partial(0.5)")] \
         == [False, True, False]
-    for mod in (jplace, tplace):
-        with pytest.raises(ValueError, match="layout-built plan"):
-            mod.plan_from_legacy("hybrid_partial(0.25)")
-        with pytest.raises(ValueError, match="unknown scheme"):
-            mod.plan_from_legacy("ring")
-        assert mod.plan_from_legacy("vanilla").scheme.name == "vanilla"
 
 
 def test_plan_spec_replicate_frac_matches_repro():
@@ -187,14 +181,15 @@ def test_from_scheme_mapping_and_expected_rounds_match_repro(name):
 
 def test_build_vanilla_bit_identical(world):
     P, _, jlayout, tlayout = world
-    jv, tv = jpart.build_vanilla(jlayout), tpart.build_vanilla(tlayout)
-    assert tv.local_indptr.dtype == tv.local_indices.dtype == torch.int32
-    _eq(tv.local_indptr, jv.local_indptr)
-    _eq(tv.local_indices, jv.local_indices)
+    jv = jpart.build_vanilla(jlayout)
+    local_indptr, local_indices = tpart.build_vanilla(tlayout)
+    assert local_indptr.dtype == local_indices.dtype == torch.int32
+    _eq(local_indptr, jv.local_indptr)
+    _eq(local_indices, jv.local_indices)
     # -1 padding past each worker's slice, the row pointer's tail flat
-    assert (tv.local_indices < 0).any() or P == 1
-    last = tv.local_indptr[:, -1]
-    assert int(last.max()) == tv.local_indices.shape[1]
+    assert (local_indices < 0).any() or P == 1
+    last = local_indptr[:, -1]
+    assert int(last.max()) == local_indices.shape[1]
 
 
 @pytest.mark.parametrize("scheme", ["vanilla", "hybrid_partial(0.0)",
@@ -212,9 +207,8 @@ def test_plan_fields_bit_identical(world, scheme):
     _eq(tp.hot_graph.indptr, jp.hot_graph.indptr, "hot indptr")
     _eq(tp.hot_graph.indices, jp.hot_graph.indices, "hot indices")
     _eq(tp.hot_mask, jp.hot_mask, "hot mask")
-    for f in ("frac", "hot_count", "cold_source_fraction",
-              "cold_remote_source_fraction", "replicated_edges",
-              "replicated_edge_fraction", "complete"):
+    for f in ("frac", "hot_count", "cold_remote_source_fraction",
+              "replicated_edges", "replicated_edge_fraction", "complete"):
         assert getattr(tp, f) == getattr(jp, f), f
 
 
