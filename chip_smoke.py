@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, training and exact-inference paths on
+one CUDA card and check them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -57,7 +57,9 @@ Phases (any failure raises and the script exits non-zero):
      gradients.  Then, with every launch count set to 0 first, 10 steps
      through ``SyncDriver``: finite losses, 2 rounds per step, every one
      of the six kernel wrappers launched; the step's wall time, device busy
-     time and idle share, and peak device memory.
+     time and idle share, and peak device memory; and the sampling /
+     feature / compute split of a step (``repro_torch.obs.profile.
+     profile_stages``, arm ``hybrid+fused``).
   9. overlap, on phase 8's layout and model: 10 steps each of the sync
      driver without and with seed staging, ``double_buffer`` at depth 1
      and 2, depth 1 with staging, and a ``staged``-store pipeline at depth
@@ -67,10 +69,11 @@ Phases (any failure raises and the script exits non-zero):
      ``staged``), the fused sampler's window overflow nonzero in some
      step (the stager's host replay applies the window), every kernel of
      the path launched, a restart at step 5 replays steps 5-9; its step
-     wall, host ms by part of the step (unfenced, and fenced by
-     synchronizes), device busy and idle share over 2 steps profiled one
+     wall, the mean host ms of each driver, executor and stager span over
+     3 traced steps (``repro_torch.obs``; unfenced, and fenced), device
+     busy and idle share over 2 steps profiled one
      by one (taken again when their counts of device ops differ), the
-     stager's produce time, ring-empty waits and pinned bytes, and peak
+     stager's ring-empty waits and pinned bytes, and peak
      device memory.  Then phase 6's predictor and arrivals through
      ``GNNServer`` with a ``RecyclingCache`` (``hot_set_admit`` over a
      ``blend(0.5)`` ranking), every served output equal to direct
@@ -90,12 +93,32 @@ Phases (any failure raises and the script exits non-zero):
      step, every kernel of the path launched and ``fused_sample`` never
      (these schemes draw windowless through their own samplers); then
      ``hybrid+fused`` the same way beside them, for time only (its window
-     makes its draws differ on this graph).  Each run: step wall, fenced
-     stages (``stage_times``), the prepare half's fenced ms and device
-     busy ms, device busy and idle share over 2 profiled steps, peak
-     device memory, utilized sampling bytes, expected rounds.  Last, one
-     128-seed ``predict`` under ``vanilla`` equal to ``hybrid``'s bit for
-     bit.
+     makes its draws differ on this graph).  Each run: step wall, the
+     stage split (``profile_stages``, with the scheme as its arm), the
+     prepare half's device busy ms, device busy and idle share over 2
+     profiled steps, peak device memory, utilized sampling bytes, expected
+     rounds.  Then one 128-seed ``predict`` under ``vanilla`` equal to
+     ``hybrid``'s bit for bit, and the report's share table
+     (``repro_torch.obs.report``) over every profiled arm.
+     Traced run: 3 ``SyncDriver`` steps, 3 ``double_buffer`` depth-1
+     steps with staging, one ``profile_stages`` step and 100 of phase 6's
+     arrivals through ``GNNServer``, under ``start(path, fenced=True)``:
+     the exported trace passes ``validate_trace`` and holds the driver,
+     executor, stager, profile and serving spans; the report CLI prints
+     its share and summary tables.
+ 11. exact inference: ``layerwise_inference``, uncapped, over the whole
+     500 000-node graph at full width (100 -> 256 -> 256 -> 47) with phase
+     8's trained parameters, with every launch count set to 0 first:
+     finite (500 000, 47) logits, one forward launch per batch and layer
+     (the wide-row kernel: every batch is padded to the max in-degree,
+     11 361); per-layer wall and device busy, peak device memory and the
+     share of edge slots that are padding.  On the batch holding the max
+     in-degree node, each layer's aggregate equals the f-ordered loop bit
+     for bit and its rows are within 1e-4 of a plain-version forward; the
+     forward at that (512, 11 361, D) shape is timed beside its plain
+     version and ``embedding_bag``.  Last, exact accuracy on the test
+     split (the unlabelled nodes) beside the sampled ``predict``'s on the
+     same nodes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -127,6 +150,7 @@ SERVING_KERNELS = ("fused_sample", "sage_aggregate", "feature_gather")
 # the device kernels of csrc/ by name (sage_backward_index runs two of its
 # own and CUB's radix sort)
 HAND_WRITTEN = ("fused_sample_kernel", "sage_aggregate_kernel",
+                "sage_aggregate_wide_kernel",
                 "backward_prep_kernel", "rowptr_scan_kernel",
                 "sage_aggregate_backward_kernel", "feature_gather_kernel",
                 "gather_rows_kernel")
@@ -142,6 +166,9 @@ LOSS_TOL = 1e-5                  # kernel step vs plain step, absolute
 BWD_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 FLUSH_KERNEL = "bitwise_not"     # the L2 flush's device kernel, by name
+# the forward's fanouts at and past the ids a block stages (MAX_STAGED_IDS)
+WIDE_FANOUTS = (8192, 8193, 11361, 16384)
+INFER_BATCH = 512                # layerwise_inference's default batch
 
 
 def log(*args) -> None:
@@ -198,6 +225,15 @@ def time_ms(fn, reps: int = REPS, flush=None,
         if launches is not None:
             launches[key] = launches.get(key, 0) + e.count / reps
     device_ms = sum(by_name.values())
+    return device_ms, event_ms(fn, reps, flush, warmup=0), by_name
+
+
+def event_ms(fn, reps: int = 5, flush=None, warmup: int = 2) -> float:
+    """Median ms of one ``fn()`` by CUDA events around each call (``flush``
+    before each, outside the events), after ``warmup`` untimed runs."""
+    import torch
+    for _ in range(warmup):
+        fn()
     times = []
     for _ in range(reps):
         if flush is not None:
@@ -209,7 +245,7 @@ def time_ms(fn, reps: int = REPS, flush=None,
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    return device_ms, statistics.median(times), by_name
+    return statistics.median(times)
 
 
 def l2_flush():
@@ -335,11 +371,24 @@ def f_ordered_mean(edges, h):
     return acc / count.clamp(min=1)[..., None]
 
 
+def wide_sum_tol(F: int, h) -> float:
+    """Absolute tolerance of the forward against its plain version at a
+    fanout of F >= MAX_STAGED_IDS ids a row: the bound on the rounding of
+    an F-term fp32 sum taken in f order, over the count (F * 2**-24 *
+    max |h|), since the plain version sums in another order; SAGE_TOL
+    at the narrower fanouts.  The bits are held to ``f_ordered_mean``
+    exactly either way."""
+    from repro_torch.kernels.sage_aggregate import MAX_STAGED_IDS
+    if F < MAX_STAGED_IDS or h.numel() == 0:
+        return SAGE_TOL
+    return max(SAGE_TOL, F * 2.0 ** -24 * float(h.abs().max()))
+
+
 def check_forward_once(edges, h, label: str):
     """The forward kernel equal to ``f_ordered_mean`` bit for bit and
-    within SAGE_TOL of the plain version; rows with no valid id +0.0.
-    Returns (the kernel's result, its max abs error against the plain
-    version)."""
+    within SAGE_TOL (``wide_sum_tol`` for wide rows) of the plain version;
+    rows with no valid id +0.0.  Returns (the kernel's result, its max abs
+    error against the plain version)."""
     import torch
     from repro_torch.kernels.sage_aggregate import (sage_aggregate,
                                                     sage_aggregate_plain)
@@ -352,9 +401,10 @@ def check_forward_once(edges, h, label: str):
         raise AssertionError(f"sage_aggregate, {label}: {diff} rows differ "
                              f"in bits from the f-ordered loop")
     err = float((got - ref).abs().max()) if got.numel() else 0.0
-    if not torch.allclose(got, ref, rtol=SAGE_TOL, atol=SAGE_TOL):
+    atol = wide_sum_tol(edges.shape[-1], h)
+    if not torch.allclose(got, ref, rtol=SAGE_TOL, atol=atol):
         raise AssertionError(f"sage_aggregate, {label}: max abs error {err} "
-                             f"against the plain version")
+                             f"against the plain version (atol {atol:.3g})")
     empty = ~((edges >= 0) & (edges < h.shape[1])).any(dim=-1)
     if torch.signbit(got[empty]).any() or got[empty].any():
         raise AssertionError(f"sage_aggregate, {label}: a row with no valid "
@@ -453,11 +503,15 @@ def check_forward_invariance(layer_inputs) -> None:
 def check_forward_edge_shapes(rng) -> None:
     """The forward against the f-ordered loop (bits) and the plain version
     on edge shapes: S = 1, B = 1, a tile of only -1 rows, S = 0, F = 1 and
-    F = 33 (the generic path), D = 1, 33, 100, 130, 256, and h off 16-byte
-    alignment (the scalar path at D = 100); ids -1 and >= N, and
-    duplicates, everywhere."""
+    F = 33 (the generic path), D = 1, 33, 100, 130, 256, h off 16-byte
+    alignment (the scalar path at D = 100), and wide rows (F = 8192, the
+    most ids a block stages, and 8193, 11 361, 16 384 past it, at D = 100
+    and 256: one hand-written kernel a call, the wide-row one past 8192);
+    ids -1 and >= N, and duplicates, everywhere."""
     import numpy as np
     import torch
+    from repro_torch.kernels.sage_aggregate import (MAX_STAGED_IDS,
+                                                    sage_aggregate)
     # (label, B, S, F, N, D)
     cases = [("S = 1, B = 1", 1, 1, 5, 60, 100),
              ("B = 1", 1, 700, 10, 900, 256),
@@ -470,20 +524,40 @@ def check_forward_edge_shapes(rng) -> None:
              ("D = 130", 2, 400, 15, 300, 130),
              ("D = 256", 4, 1000, 15, 3000, 256),
              ("h off 16-byte alignment", 2, 600, 5, 800, 100)]
+    # wide rows: F at and past the MAX_STAGED_IDS ids a block stages (exact
+    # inference pads to the max in-degree, 11 361 on phase 3's graph)
+    cases += [(f"F = {Fo} (wide rows)" if Fo > MAX_STAGED_IDS
+               else f"F = {Fo}", 2, 48, Fo, 5000, D)
+              for Fo in WIDE_FANOUTS for D in (100, 256)]
     for label, B, S, Fo, N, D in cases:
         e = rng.integers(-1, N + 3, (B, S, Fo)).astype(np.int32)
         if S:
             e[:, 0] = e[:, 0, :1]                 # a duplicate run
         if label.startswith("a tile"):
             e[1, :70] = -1                        # two whole 32-row tiles
+        if Fo >= MAX_STAGED_IDS:
+            e[:, 1:20, 300:] = -1                 # mostly padding, as in
+            #                                       exact inference
         e = torch.from_numpy(e).cuda()
         buf = torch.from_numpy(rng.normal(0, 1, B * N * D + 1).astype(
             np.float32)).cuda()
         h = (buf[1:] if label.startswith("h off") else buf[:-1]).view(B, N, D)
         _, err = check_forward_once(e, h, label)
+        note = ""
+        if Fo >= MAX_STAGED_IDS:
+            per_call = {}
+            time_ms(lambda: sage_aggregate(e, h), reps=3, launches=per_call)
+            ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
+            want = ("sage_aggregate_wide_kernel" if Fo > MAX_STAGED_IDS
+                    else "sage_aggregate_kernel")
+            if ours != {want: 1}:
+                raise AssertionError(f"sage_aggregate, {label}: hand-written "
+                                     f"device kernels per call {ours}, "
+                                     f"expected one {want}")
+            note = f", one {want} per call"
         log(f"  sage_aggregate, {label}: edges {(B, S, Fo)} h {(B, N, D)}: "
             f"equal to the f-ordered loop bit for bit, max abs err "
-            f"{err:.3g} (tol {SAGE_TOL})")
+            f"{err:.3g} (atol {wide_sum_tol(Fo, h):.3g}){note}")
 
 
 def check_feature_gather(ids, table):
@@ -794,8 +868,9 @@ def check_edge_shapes(graph) -> None:
     ``fused_sample`` with S = 1, S off either scan tile, B = 1, a row of
     only padding seeds, S = 0 and a window most seeds exceed; the forward
     aggregate (``check_forward_edge_shapes``); the backward with D off
-    float4, a single slot, and source rows holding thousands of slots
-    (more than one warp's 32)."""
+    float4, a single slot, source rows holding thousands of slots (more
+    than one warp's 32), and rows wider than the forward stages (F = 8193
+    and 11 361: the backward gathers over its transpose, whatever F)."""
     import numpy as np
     import torch
     from repro_torch.kernels.fused_sample import (fused_sample,
@@ -846,7 +921,9 @@ def check_edge_shapes(graph) -> None:
                                 (1, 300, 5, 50, 33, False),
                                 (2, 500, 3, 7, 256, False),
                                 (4, 4000, 5, 2000, 256, True),
-                                (1, 3000, 4, 100, 130, True)):
+                                (1, 3000, 4, 100, 130, True),
+                                (2, 40, WIDE_FANOUTS[1], 300, 256, True),
+                                (2, 40, WIDE_FANOUTS[2], 300, 100, True)):
         e = rng.integers(-1, n + 1, (B, S, Fo)).astype(np.int32)
         if hub:
             e[0, :, 0] = 0
@@ -890,7 +967,6 @@ def training_phase(layout, data, cfg):
     from repro_torch.models.gnn import gnn_loss, init_gnn_params
     from repro_torch.optim import init_opt_state, tree_leaves
     from repro_torch.pipeline import Pipeline, PipelineSpec
-    from repro_torch.pipeline.prefetch import make_update_fn
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1034,31 +1110,7 @@ def training_phase(layout, data, cfg):
     log("launches per step: " + ", ".join(
         f"{k} {v / TRAIN_STEPS:g}" for k, v in counts.items()))
 
-    # the same step's stages one after the other, each fenced by a
-    # synchronize: host plus device time of each
-    update = make_update_fn(lr=TRAIN_LR, optimizer="adamw", grad_clip=1.0)
-    prep, _ = pin.make_prepare_consume(loss_fn, counted=False)
-    stages = {"seeds": [], "prepare": [], "consume": [], "update": []}
-    for k in range(TRAIN_STEPS, TRAIN_STEPS + 3):
-        t = [time.perf_counter()]
-        s = pin.seeds(TRAIN_BATCH, k)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        b = prep(pin.shards, s, k, pin.cache)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        loss, grads, m = consume(params, b)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        params, opt, m = update(params, opt, grads, m)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        for name, a, z in zip(stages, t, t[1:]):
-            stages[name].append((z - a) * 1e3)
-        del b, grads
-    log("fenced stages of one step (median of 3, host + device ms): "
-        + ", ".join(f"{k} {statistics.median(v):.3f}"
-                    for k, v in stages.items()))
+    split = stage_split(pin, loss_fn, params, "hybrid+fused")
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1085,6 +1137,7 @@ def training_phase(layout, data, cfg):
         + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ours.items())) + ")")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB (torch.cuda.max_memory_allocated)")
+    reference["stage_split"] = split
     return {"gather_rows": gr, "sage_aggregate_backward": bw,
             "sage_backward_index": bidx, "fused_sample": fs,
             "sage_aggregate": sa}, counts, reference
@@ -1180,52 +1233,48 @@ def h2d_ms(host, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def stage_times(driver, params, opt, fenced: bool, steps: int = 3):
-    """Host ms of each part of ``steps`` driver steps (median by part):
-    the seeds (the stream's draw or the stager's ``get``), then the
-    double-buffered driver's prepare of step k + depth, consume of step k
-    and update, or the sync driver's one step program.  ``fenced`` ends
-    each part with a synchronize (host + device ms); unfenced, ``wait``
-    is the rest of the step's wall, the host waiting for the loss."""
-    import torch
-    parts = [(driver, "_seeds_salt", "seeds")]
-    runner = getattr(driver, "_runner", None)
-    if runner is not None:
-        parts += [(runner, "_prep", "prepare"), (runner, "_cons", "consume"),
-                  (runner, "_update", "update")]
-    else:
-        parts.append((driver, "_fn", "prepare + consume + update"))
-    ms = {name: [] for _, _, name in parts}
-    originals = [getattr(obj, attr) for obj, attr, _ in parts]
+# the fenced stage spans of every profile_stages call, for the report's
+# share table at the end of phase 10
+PROFILE_EVENTS: list = []
 
-    def timed(fn, name):
-        def run(*args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            if fenced:
-                torch.cuda.synchronize()
-            ms[name].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return run
 
-    for (obj, attr, name), fn in zip(parts, originals):
-        setattr(obj, attr, timed(fn, name))
-    walls = []
+def stage_split(pipe, loss_fn, params, arm: str) -> dict:
+    """The sampling / feature / compute split of one step of ``pipe``
+    (``repro_torch.obs.profile.profile_stages``: three fenced calls a step,
+    median of 3 steps after 1 warm-up, at phase 8's batch), printed with
+    its arm; its spans are kept for the report's share table."""
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.profile import STAGES, profile_stages
+    tracer = obs_trace.start(None)
+    try:
+        prof = profile_stages(pipe, loss_fn, params, batch=TRAIN_BATCH,
+                              steps=3, warmup=1, base_salt=TRAIN_STEPS,
+                              arm=arm)
+    finally:
+        obs_trace.stop(export=False)
+    PROFILE_EVENTS.extend(e for e in tracer.events() if e["ph"] == "X")
+    log(f"stage split [{arm}] (profile_stages, median of 3 fenced steps): "
+        + ", ".join(f"{st} {prof[st + '_s'] * 1e3:.3f} ms "
+                    f"({prof['share'][st]:.1%})" for st in STAGES)
+        + f"; unoverlapped step {prof['step_s'] * 1e3:.3f} ms")
+    return prof
+
+
+def traced_parts(driver, params, opt, fenced: bool, steps: int = 3):
+    """Mean host ms of each span (driver, executor and stager) over
+    ``steps`` driver steps under a ``repro_torch.obs`` tracer; ``fenced``
+    synchronizes inside each span (host + device ms)."""
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.report import span_summary
+    tracer = obs_trace.start(None, fenced=fenced)
     try:
         for _ in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             params, opt, loss, _ = driver.step(params, opt)
             float(loss)
-            walls.append((time.perf_counter() - t0) * 1e3)
     finally:
-        for (obj, attr, _), fn in zip(parts, originals):
-            setattr(obj, attr, fn)
-    out = {name: statistics.median(v) for name, v in ms.items()}
-    if not fenced:
-        out["wait"] = statistics.median(
-            w - sum(v[i] for v in ms.values()) for i, w in enumerate(walls))
-    return params, opt, out
+        obs_trace.stop(export=False)
+    agg = span_summary({"traceEvents": tracer.events()})
+    return params, opt, {name: a["mean_us"] / 1e3 for name, a in agg.items()}
 
 
 def host_memory_gb() -> tuple[float, float]:
@@ -1319,8 +1368,8 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         if replay != losses[RESTART:] or not same_params(params, final):
             raise AssertionError(f"{label}: the restart at step {RESTART} "
                                  f"gave {replay}, not {losses[RESTART:]}")
-        params, opt, host = stage_times(driver, params, opt, fenced=False)
-        params, opt, fenced = stage_times(driver, params, opt, fenced=True)
+        params, opt, host = traced_parts(driver, params, opt, fenced=False)
+        params, opt, fenced = traced_parts(driver, params, opt, fenced=True)
         params, opt, prof = profiled_steps(driver, params, opt)
         stats = driver.stager.stats() if driver.stager is not None else None
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1336,7 +1385,7 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
            "step_walls_ms": walls, "profiled": prof,
            "idle_share": 1 - prof["device_busy_ms"] / prof["wall_ms"],
            "idle_share_of_median_wall": 1 - prof["device_busy_ms"] / median,
-           "host_stage_ms": host, "fenced_stage_ms": fenced,
+           "span_ms": host, "fenced_span_ms": fenced,
            "overflow_per_step": overflow, "rounds_per_step": rounds,
            "peak_device_gb": peak, "pinned_bytes": 0}
     log(f"losses and final parameters equal phase 8's run bit for bit; "
@@ -1352,7 +1401,7 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         f"ms), idle share {out['idle_share']:.3f} (of the unprofiled "
         f"median wall {out['idle_share_of_median_wall']:.3f}); peak device "
         f"memory {peak:.2f} GB")
-    log("stages, host ms (median of 3): " + ", ".join(
+    log("spans over 3 traced steps, mean host ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in host.items()) + "; fenced, host + "
         "device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items()))
     if "row_copy_ms" in prof:
@@ -1361,20 +1410,11 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
             f"in {prof['row_copy_ms']:.3f} ms by CUDA events ("
             f"{nbytes / prof['row_copy_ms'] / 1e6:.1f} GB/s)")
     if stats is not None:
-        produce = stats["produce_ms"]
-        out.update(produce_median_ms=statistics.median(produce),
-                   produce_count=len(produce),
-                   empty_waits=stats["empty_waits"],
+        out.update(empty_waits=stats["empty_waits"],
                    pinned_bytes=stats["pinned_bytes"])
-        out["produce_stage_median_ms"] = {
-            k: statistics.median(v) for k, v in stats["stage_ms"].items()}
-        log(f"stager: produce median {out['produce_median_ms']:.3f} ms "
-            f"over {len(produce)} slots (min {min(produce):.3f}, max "
-            f"{max(produce):.3f}; by stage " + ", ".join(
-                f"{k} {v:.3f}"
-                for k, v in out["produce_stage_median_ms"].items())
-            + f"), ring found empty {stats['empty_waits']} times, pinned "
-            f"host bytes {stats['pinned_bytes']}")
+        log(f"stager: ring found empty {stats['empty_waits']} times, pinned "
+            f"host bytes {stats['pinned_bytes']} (its produce and stages "
+            f"are the stager/ spans above)")
     log("launches in the 10 steps: " + ", ".join(
         f"{k} {v}" for k, v in counts.items()))
     return counts, out
@@ -1503,27 +1543,19 @@ def same_mfgs(a, b) -> bool:
 
 
 def prepare_profile(pipe, prep, seeds, salt, reps: int = 3) -> dict:
-    """The prepare half alone on one step's seeds: median fenced ms (host
-    + device, by the host clock around a synchronize) and median device
-    busy ms (``torch.profiler``: time at least one device op ran)."""
+    """The prepare half alone on one step's seeds: median device busy ms
+    (``torch.profiler``: time at least one device op ran)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fenced, busy = [], []
+    busy = []
     with torch.no_grad():
         prep(pipe.shards, seeds, salt, pipe.cache)
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            prep(pipe.shards, seeds, salt, pipe.cache)
-            torch.cuda.synchronize()
-            fenced.append((time.perf_counter() - t0) * 1e3)
         for _ in range(reps):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 prep(pipe.shards, seeds, salt, pipe.cache)
                 torch.cuda.synchronize()
             busy.append(device_streams(prof)[0])
-    return {"fenced_ms": statistics.median(fenced),
-            "device_busy_ms": statistics.median(busy)}
+    return {"device_busy_ms": statistics.median(busy)}
 
 
 def placement_plans(layout, cfg) -> tuple[dict, dict]:
@@ -1641,7 +1673,7 @@ def placement_run(layout, data, cfg, ref, name) -> tuple[dict, dict]:
         if not windowed and counts["fused_sample"]:
             raise AssertionError(f"{name}: fused_sample launched "
                                  f"{counts['fused_sample']} times")
-        params, opt, fenced = stage_times(driver, params, opt, fenced=True)
+        split = stage_split(pipe, loss_fn, params, name)
         prep, _ = pipe.make_prepare_consume(loss_fn, counted=False)
         prepare = prepare_profile(pipe, prep,
                                   pipe.seeds(TRAIN_BATCH, TRAIN_SALT),
@@ -1655,7 +1687,7 @@ def placement_run(layout, data, cfg, ref, name) -> tuple[dict, dict]:
            "step_wall_max_ms": max(walls), "rounds_per_step": rounds,
            "sampling_utilized_bytes_per_step": statistics.mean(util),
            "expected_rounds_estimate": pipe.expected_rounds_estimate,
-           "fenced_stage_ms": fenced, "prepare": prepare, "profiled": prof,
+           "stage_split": split, "prepare": prepare, "profiled": prof,
            "idle_share": 1 - prof["device_busy_ms"] / prof["wall_ms"],
            "idle_share_of_median_wall": 1 - prof["device_busy_ms"] / median,
            "peak_device_gb": peak, "launches": counts}
@@ -1665,9 +1697,8 @@ def placement_run(layout, data, cfg, ref, name) -> tuple[dict, dict]:
         f"step {out['sampling_utilized_bytes_per_step']:.0f}; expected "
         f"rounds estimate {out['expected_rounds_estimate']:.4f}")
     log(f"step wall median {median:.3f} ms (min {min(walls):.3f}, max "
-        f"{max(walls):.3f}); fenced stages, host + device ms (median of "
-        f"3): " + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items()))
-    log(f"prepare half: fenced {prepare['fenced_ms']:.3f} ms, device busy "
+        f"{max(walls):.3f})")
+    log(f"prepare half: device busy "
         f"{prepare['device_busy_ms']:.3f} ms; profiled steps: wall "
         f"{prof['wall_ms']:.3f} ms, device busy "
         f"{prof['device_busy_ms']:.3f} ms in {prof['own_stream_ops']} ops "
@@ -1743,6 +1774,296 @@ def placement_phase(layout, data, cfg, ref, pred_seeds):
                         ref_walls)}
 
 
+TRACE_SPANS = ("driver/step", "driver/seeds", "driver/train_step",
+               "driver/warmup", "driver/runner_step", "prefetch/prepare",
+               "prefetch/consume", "stager/produce", "stager/get",
+               "profile/sampling", "profile/feature", "profile/compute",
+               "serve/predict", "serve/queue_wait", "serve/batch_delay",
+               "serve/service")
+
+
+def traced_run(layout, data, cfg, ref, serving) -> dict:
+    """A short run under ``start(path, fenced=True)``: 3 ``SyncDriver``
+    steps, 3 ``double_buffer`` depth-1 steps with seed staging (phase 8's
+    layout, cache and store, from its initial parameters), one profiled
+    step (``profile_stages``) and 100 of phase 6's arrivals through
+    ``GNNServer``.  The exported trace must pass ``validate_trace`` and
+    hold the driver, executor, stager, profile and serving spans; the
+    report CLI prints its share and summary tables.  Returns the path's
+    launch counts."""
+    import repro_torch.kernels as K
+    from repro_torch.models.gnn import gnn_loss
+    from repro_torch.obs import report
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.profile import profile_stages
+    from repro_torch.optim import init_opt_state
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+    from repro_torch.serve import GNNServer
+
+    def loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+    path = os.path.join(HERE, "build", "chip_smoke_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    obs_trace.start(path, fenced=True, process_name="chip_smoke")
+    try:
+        for depth, staging in ((0, False), (1, True)):
+            spec = PipelineSpec.from_scheme(
+                "hybrid+fused", num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+                cache_capacity=CACHE_K, cache_policy="degree",
+                feature_store="pinned_hot", prefetch_depth=depth,
+                staging=staging, data=data)
+            pipe = Pipeline.from_layout(layout, spec)
+            with pipe.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                                   grad_clip=1.0) as driver:
+                params, opt = ref["params0"], init_opt_state(ref["params0"])
+                for _ in range(3):
+                    params, opt, loss, _ = driver.step(params, opt)
+                    float(loss)
+            if depth == 0:
+                profile_stages(pipe, loss_fn, params, batch=TRAIN_BATCH,
+                               steps=1, warmup=0, arm="hybrid+fused")
+            del pipe
+        GNNServer(serving["pred"], max_delay=2e-3).run(
+            serving["arrivals"][:100], warmup=False)
+    finally:
+        tracer = obs_trace.stop()
+    counts = K.launch_counts()
+    n = obs_trace.validate_trace(path)
+    names = {e["name"] for e in tracer.events() if e["ph"] == "X"}
+    missing = [x for x in TRACE_SPANS if x not in names]
+    if missing:
+        raise AssertionError(f"the traced run recorded no {missing} spans")
+    log(f"trace {os.path.relpath(path, HERE)}: {n} events pass "
+        f"validate_trace, {tracer.num_recorded} spans ({tracer.dropped} "
+        f"dropped), every expected span name present; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if list(report.stage_shares(path)) != ["hybrid+fused"]:
+        raise AssertionError("the traced run's stage spans lack their arm")
+    log(f"python -m repro_torch.obs.report {os.path.relpath(path, HERE)} "
+        f"--summary:")
+    report.main([path, "--summary"])
+    log(f"launches in the traced run: {counts}")
+    return counts
+
+
+def max_degree_batch(graph, width: int):
+    """(lo, hi, samples, valid) of the exact-inference batch that holds the
+    max in-degree node."""
+    import torch
+    from repro_torch.core.inference import in_edges
+    v = int(torch.argmax(graph.degrees()))
+    lo = v // INFER_BATCH * INFER_BATCH
+    hi = min(lo + INFER_BATCH, graph.num_nodes)
+    seeds = torch.arange(lo, hi, dtype=torch.int32, device=graph.device)
+    samples, valid = in_edges(graph, seeds, width)
+    return lo, hi, samples, valid
+
+
+def check_wide_batch(params, graph, tables, cfg, width: int):
+    """Each layer on the batch holding the max in-degree node: the kernel's
+    aggregate equal to ``f_ordered_mean`` bit for bit, the layer's rows of
+    the exact run within LOGIT_TOL of a plain-version forward of the
+    batch; the forward at this shape timed beside its plain version and
+    ``embedding_bag``.  Returns the kernel's numbers at the top layer's
+    (512, 11 361, 256) shape and at the bottom's (512, 11 361, 100)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.mfg import MFG
+    from repro_torch.core.sampler import build_indptr
+    from repro_torch.kernels.sage_aggregate import (sage_aggregate,
+                                                    sage_aggregate_plain)
+    from repro_torch.models.gnn import apply_layer
+    lo, hi, samples, valid = max_degree_batch(graph, width)
+    n = graph.num_nodes
+    out = {}
+    for layer in range(cfg.num_layers):
+        h = tables[layer]
+        got = sage_aggregate(samples, h)
+        loop = f_ordered_mean(samples[None], h[None])[0]
+        torch.cuda.synchronize()
+        if not torch.equal(got, loop):
+            raise AssertionError(f"exact inference layer {layer}: the "
+                                 f"aggregate of the max in-degree batch "
+                                 f"differs in bits from the f-ordered loop")
+        ref = sage_aggregate_plain(samples, h)
+        agg_err = float((got - ref).abs().max())
+        del ref, loop
+        # the sources are the whole table, as in layerwise_inference
+        mfg = MFG(dst_nodes=torch.arange(lo, hi, device=h.device),
+                  src_nodes=torch.arange(n, device=h.device),
+                  num_src=torch.tensor(n), edges=samples, edge_mask=valid,
+                  indptr=build_indptr(valid))
+        is_last = layer == cfg.num_layers - 1
+        plain = apply_layer(params[layer], mfg, h, cfg, is_last=is_last,
+                            aggregate=sage_aggregate_plain, h_dst=h[lo:hi])
+        rows = tables[layer + 1][lo:hi]
+        err = float((rows - plain).abs().max())
+        if not torch.allclose(rows, plain, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+            raise AssertionError(f"exact inference layer {layer}: the "
+                                 f"batch's rows differ from a plain-version "
+                                 f"forward by {err}")
+        del plain
+        D = h.shape[-1]
+        table = torch.cat([h, h.new_zeros((1, D))])
+        bag = torch.where(samples >= 0, samples, n).long()
+        per_call = {}
+        ms, call, _ = time_ms(lambda: sage_aggregate(samples, h),
+                              launches=per_call)
+        ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
+        if ours != {"sage_aggregate_wide_kernel": 1}:
+            raise AssertionError(f"exact inference: hand-written kernels per "
+                                 f"call {ours}")
+        # the plain version and embedding_bag by CUDA events: the profiler
+        # drops records of these multi-GB calls in every retake
+        plain_ms = event_ms(lambda: sage_aggregate_plain(samples, h))
+        lib = F.embedding_bag(bag, table, mode="mean", padding_idx=n)
+        atol = wide_sum_tol(width, h)
+        if not torch.allclose(lib, got, rtol=SAGE_TOL, atol=atol) \
+                or agg_err > atol + SAGE_TOL * float(got.abs().max()):
+            raise AssertionError(f"exact inference layer {layer}: the "
+                                 f"plain version or embedding_bag disagree "
+                                 f"(max abs error {agg_err}, atol {atol:.3g})")
+        lib_ms = event_ms(lambda: F.embedding_bag(
+            bag, table, mode="mean", padding_idx=n))
+        n_valid = int(valid.sum())
+        nbytes = (samples.numel() * 4 + unique_rows(samples[None], n) * D * 4
+                  + samples.shape[0] * D * 4)
+        res = {"ms": ms, "call_ms": call, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "err": agg_err}
+        bnd = add_bound(res, nbytes, n_valid * D + samples.shape[0] * D)
+        res.update(edges=list(samples.shape), h=list(h.shape),
+                   valid_slots=n_valid, max_abs_err=agg_err)
+        log(f"  layer {layer}: batch [{lo}, {hi}) edges "
+            f"{tuple(samples.shape)} ({n_valid} valid) h {tuple(h.shape)}: "
+            f"aggregate == f-ordered loop bit for bit (max abs err "
+            f"{agg_err:.3g} against the plain version), rows within "
+            f"{err:.3g} of a plain-version forward (tol {LOGIT_TOL}); one "
+            f"sage_aggregate_wide_kernel a call, device {ms:.4f} ms, call "
+            f"{call:.4f} ms (by events: plain {plain_ms:.4f} ms, "
+            f"embedding_bag {lib_ms:.4f} ms; bound {bnd:.5f} ms for {nbytes} "
+            f"B: {bnd / ms:.1%} of it)")
+        out.setdefault(D, res)
+        del table, bag, lib
+    return out
+
+
+def exact_inference_phase(ds, data, cfg, params, pipe):
+    """Phase 11: ``layerwise_inference``, uncapped, over the whole graph at
+    full width with phase 8's trained parameters.  Returns (launch
+    counts of the run, the forward's numbers at the wide shapes, numbers
+    for PERF.md)."""
+    import numpy as np
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.core.inference import (inference_width, layer_pass,
+                                            layerwise_inference)
+    from repro_torch.serve import Predictor
+
+    graph = ds.graph.to("cuda")
+    x = torch.from_numpy(ds.features).cuda()
+    n, width = graph.num_nodes, inference_width(graph)
+    batches = -(-n // INFER_BATCH)
+    padding = 1 - graph.num_edges / (n * width)
+    log(f"graph {n} nodes, {graph.num_edges} edges, max in-degree {width}: "
+        f"{batches} batches of {INFER_BATCH} a layer, each padded to "
+        f"{width} slots a node; {padding:.4%} of the {n * width} edge slots "
+        f"a layer are padding")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = layerwise_inference(params, graph, x, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if logits.shape != (n, cfg.num_classes) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"exact logits: shape {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    want = {k: 0 for k in counts}
+    want["sage_aggregate"] = cfg.num_layers * batches
+    if counts != want:
+        raise AssertionError(f"exact inference launches {counts}, expected "
+                             f"{want}")
+    log(f"layerwise_inference (uncapped): logits {tuple(logits.shape)} "
+        f"finite, {wall:.3f} s wall, peak device memory {peak:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); launches {counts}")
+
+    # per layer: wall, then device busy from a profiled pass of the layer
+    from torch.profiler import ProfilerActivity, profile
+    tables, layers = [x], []
+    with torch.no_grad():
+        for layer in range(cfg.num_layers):
+            is_last = layer == cfg.num_layers - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = layer_pass(params[layer], graph, tables[-1], cfg,
+                           is_last=is_last, width=width)
+            torch.cuda.synchronize()
+            layer_wall = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                layer_pass(params[layer], graph, tables[-1], cfg,
+                           is_last=is_last, width=width)
+                torch.cuda.synchronize()
+            busy, streams = device_streams(prof)
+            if layer == 0:
+                from torch.autograd import DeviceType
+                rows = sorted(((_device_us(e) / 1e3, e.count, _short(e.key))
+                               for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA),
+                              reverse=True)
+                log("  layer 0's device ms by kernel (top 8): " + ", ".join(
+                    f"{name} {ms:.1f} (x{count})"
+                    for ms, count, name in rows[:8]))
+            tables.append(h)
+            layers.append({"wall_ms": layer_wall, "device_busy_ms": busy,
+                           "device_ops": streams[0][0],
+                           "idle_share": 1 - busy / layer_wall})
+            log(f"  layer {layer}: {tuple(tables[-2].shape)} -> "
+                f"{tuple(h.shape)}: wall {layer_wall:.1f} ms, device busy "
+                f"{busy:.1f} ms in {streams[0][0]} device ops (idle share "
+                f"{1 - busy / layer_wall:.3f})")
+    if not torch.equal(tables[-1], logits):
+        raise AssertionError("the layer-by-layer run differs in bits from "
+                             "layerwise_inference")
+
+    log("-- the batch holding the max in-degree node, each layer")
+    wide = check_wide_batch(params, graph, tables, cfg, width)
+    del tables
+
+    # test split: the nodes the split leaves unlabelled, with the class the
+    # source drew for them (its generator's first draw)
+    labels_all = np.random.default_rng(data.seed).integers(
+        0, data.num_classes, n).astype(np.int32)
+    labelled = ds.labels >= 0
+    if not np.array_equal(labels_all[labelled], ds.labels[labelled]):
+        raise AssertionError("the recomputed classes disagree with the "
+                             "dataset's labels")
+    test = np.flatnonzero(~labelled)
+    pred_exact = torch.argmax(logits, dim=-1).cpu().numpy()
+    exact_acc = float((pred_exact[test] == labels_all[test]).mean())
+    t0 = time.perf_counter()
+    predictor = Predictor(pipe, params, cfg, buckets=(1024,),
+                          base_salt=SALT)
+    sampled = predictor.predict(test)
+    t_pred = time.perf_counter() - t0
+    sampled_acc = float((sampled.argmax(-1) == labels_all[test]).mean())
+    log(f"test split ({test.size} unlabelled nodes): exact accuracy "
+        f"{exact_acc:.4f}; sampled predict (hybrid+fused, fanouts "
+        f"{cfg.fanouts}, salt {SALT}) on the same nodes {sampled_acc:.4f} "
+        f"({t_pred:.1f} s)")
+    return counts, wide, {
+        "wall_s": wall, "peak_device_gb": peak, "layers": layers,
+        "width": width, "batches_per_layer": batches,
+        "padding_share": padding, "test_nodes": int(test.size),
+        "exact_accuracy": exact_acc, "sampled_accuracy": sampled_acc,
+        "sampled_predict_s": t_pred}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1760,6 +2081,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.sage_aggregate import sage_aggregate_plain
     from repro_torch.models.gnn import gnn_forward, init_gnn_params
+    from repro_torch.obs.report import render_share_table, stage_shares
     from repro_torch.pipeline import DataSpec, Pipeline, PipelineSpec
     from repro_torch.serve import GNNServer, Predictor, route_by_owner
     from repro_torch.serve.traffic import hotset_arrivals
@@ -1923,6 +2245,20 @@ def main() -> int:
     placement_counts, placement = placement_phase(
         pipe.layout, data, cfg_train, reference, batch_seeds)
     log(json.dumps({"placement": placement}))
+    log("-- the report's share table over every profile_stages call "
+        "(phases 8 and 10)")
+    log(render_share_table(stage_shares({"traceEvents": PROFILE_EVENTS})))
+
+    log("== traced run: SyncDriver, double_buffer with staging and "
+        "GNNServer under start(path, fenced=True)")
+    traced_counts = traced_run(pipe.layout, data, cfg_train, reference,
+                               {"pred": pred, "arrivals": arrivals})
+
+    log("== phase 11: exact layer-wise inference (uncapped, full width, "
+        "phase 8's trained parameters)")
+    infer_counts, wide, exact = exact_inference_phase(
+        ds, data, cfg_train, reference["params"], pipe)
+    log(json.dumps({"exact_inference": exact, "wide_rows": wide}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
@@ -1946,6 +2282,8 @@ def main() -> int:
                    "recycled serving": recycled_counts.get(name, 0)}
         by_path.update({path: c[name]
                         for path, c in placement_counts.items()})
+        by_path.update({"traced run": traced_counts[name],
+                        "exact inference": infer_counts[name]})
         at_step = train.get(name)
         res = serving or at_step
         entry = {
@@ -1963,6 +2301,14 @@ def main() -> int:
             entry["ms_l2_flushed"] = res["cold_ms"]
         if "layers" in res:
             entry["layers"] = res["layers"] + at_step["layers"]
+        if name == "sage_aggregate":
+            entry["wide_rows"] = {
+                f"D={D}": {k: w[k] for k in (
+                    "edges", "h", "valid_slots", "ms", "call_ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err")} for D, w in sorted(wide.items())}
+            entry["wide_rows"]["launches_per_pass"] = \
+                infer_counts[name]
         if serving and at_step:
             entry["training_step"] = {
                 k: at_step.get(k) for k in ("ms", "call_ms", "plain_ms",

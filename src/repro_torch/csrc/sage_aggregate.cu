@@ -53,8 +53,16 @@
 // 16-byte aligned) and the scalar path (anything else) add in the same
 // order.  The launch shape (R, threads) is picked from D and F only
 // (`forward_plan` in kernels/sage_aggregate.py), with R * F at most
-// kMaxStagedIds so the staged ids fit in 32 KB of shared memory; the
-// wrapper refuses F above that.
+// kMaxStagedIds so the staged ids fit in 32 KB of shared memory.
+//
+// Wide rows (F > kMaxStagedIds: exact inference pads every row to the
+// graph's max in-degree, 11 361 on the H100 check's graph) take another
+// kernel in the same launch: one block per destination row (R = 1), which
+// stages the row's ids kMaxStagedIds at a time and keeps each column's sum
+// and the valid count in registers across the chunks.  It adds in the same
+// f order from the same +0.0, so its bits are those the narrow kernel
+// would give.  A simple path: each thread reads every staged id of the row
+// (most are -1 padding in exact inference), kChunk loads in flight.
 //
 // Layout: edges (B, S, F) int32, valid iff in [0, N); h (B, N, D) float32;
 // out (B, S, D) float32.  B is the worker axis.
@@ -99,6 +107,7 @@ constexpr int kWarpsPerBlock = 8;  // backward
 constexpr int kRowsPerWarp = 8;    // backward: source rows one warp walks
 constexpr int kMaxStagedIds = 8192;  // forward: ids a block stages (32 KB)
 constexpr int kChunk = 8;  // forward, generic F: loads in flight per batch
+constexpr int kWideMaxThreads = 512;  // forward, F > kMaxStagedIds
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -190,6 +199,54 @@ __global__ void __launch_bounds__(kForwardMaxThreads<kF>)
       __stcs(o + p, zero<T>());
     } else {
       o[p] = div(acc, (float)count);
+    }
+  }
+}
+
+// Wide rows: T and Dv as above, F > kMaxStagedIds, one block per
+// destination row.  Columns are walked a block's width at a time (one pass
+// when Dv <= blockDim.x); for each, the row's ids are staged in chunks of
+// kMaxStagedIds, and the sum and count carry over from chunk to chunk.
+template <typename T>
+__global__ void __launch_bounds__(kWideMaxThreads)
+    sage_aggregate_wide_kernel(const int* __restrict__ edges,
+                               const T* __restrict__ h, int S, int F, int N,
+                               int Dv, T* __restrict__ out) {
+  __shared__ int s_ids[kMaxStagedIds];
+  const long long row = blockIdx.x;
+  const int* e = edges + row * F;
+  const T* hb = h + row / S * (long long)N * Dv;
+  T* o = out + row * Dv;
+  for (int c0 = 0; c0 < Dv; c0 += blockDim.x) {
+    const int c = c0 + threadIdx.x;
+    const bool live = c < Dv;
+    T acc = zero<T>();
+    int count = 0;
+    for (int f0 = 0; f0 < F; f0 += kMaxStagedIds) {
+      const int n = min(kMaxStagedIds, F - f0);
+      __syncthreads();  // every thread is done with the previous chunk
+      for (int i = threadIdx.x; i < n; i += blockDim.x)
+        s_ids[i] = __ldg(e + f0 + i);
+      __syncthreads();
+      if (!live) continue;
+      for (int u0 = 0; u0 < n; u0 += kChunk) {
+        T x[kChunk];
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          const int j = u0 + u < n ? s_ids[u0 + u] : -1;
+          const bool ok = (unsigned)j < (unsigned)N;
+          count += ok;
+          x[u] = ok ? load(hb + (long long)j * Dv + c) : zero<T>();
+        }
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) add(acc, x[u]);
+      }
+    }
+    if (!live) continue;
+    if (count == 0) {
+      __stcs(o + c, zero<T>());
+    } else {
+      o[c] = div(acc, (float)count);
     }
   }
 }
@@ -301,9 +358,25 @@ cudaError_t launch_forward(const int* edges, const float* h, long long rows,
 }
 
 template <typename T>
+cudaError_t launch_forward_wide(const int* edges, const float* h,
+                                long long rows, int S, int F, int N, int Dv,
+                                int threads, float* out,
+                                cudaStream_t stream) {
+  if (threads > kWideMaxThreads || rows > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  sage_aggregate_wide_kernel<T><<<(unsigned int)rows, threads, 0, stream>>>(
+      edges, reinterpret_cast<const T*>(h), S, F, N, Dv,
+      reinterpret_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_forward_f(const int* edges, const float* h, long long rows,
                              int S, int F, int N, int Dv, int R, int threads,
                              float* out, cudaStream_t stream) {
+  if (F > kMaxStagedIds)
+    return launch_forward_wide<T>(edges, h, rows, S, F, N, Dv, threads, out,
+                                  stream);
   switch (F) {
     case 5:
       return launch_forward<T, 5>(edges, h, rows, S, F, N, Dv, R, threads,
@@ -322,14 +395,16 @@ cudaError_t launch_forward_f(const int* edges, const float* h, long long rows,
 
 }  // namespace
 
-// R rows per block and `threads` threads per block, from `forward_plan`.
+// R rows per block and `threads` threads per block, from `forward_plan`
+// (R = 1 for F > kMaxStagedIds: the wide-row kernel).
 extern "C" int sage_aggregate_launch(const int* edges, const float* h, int B,
                                      int S, int F, int N, int D, int vec,
                                      int R, int threads, float* out,
                                      cudaStream_t stream) {
   const long long rows = (long long)B * S;
   if (rows == 0) return (int)cudaSuccess;
-  if (R < 1 || (long long)R * F > kMaxStagedIds)
+  if (R < 1 || (F <= kMaxStagedIds && (long long)R * F > kMaxStagedIds) ||
+      (F > kMaxStagedIds && R != 1))
     return (int)cudaErrorInvalidValue;
   if (vec)
     return (int)launch_forward_f<float4>(edges, h, rows, S, F, N, D >> 2, R,

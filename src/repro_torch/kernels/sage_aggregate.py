@@ -12,6 +12,10 @@ The backward gathers over a transpose built on the card by
 ``backward_index`` is its plain version and ``backward_prep_plain`` that
 of its first pass.
 
+The forward takes any fanout: rows wider than the ``MAX_STAGED_IDS`` ids
+a block stages (exact inference pads to the max in-degree) go through the
+wide-row kernel in the same launch, with the same bits.
+
 ``sage_aggregate`` runs the plain version (and trains through autograd)
 for CPU tensors only; for CUDA tensors it is a ``torch.autograd.Function``
 whose forward and backward each launch their kernel or raise.  The
@@ -49,7 +53,9 @@ def forward_plan(D: int, F: int, vec: bool) -> tuple[int, int]:
     columns a row (D on the scalar path), ``pairs_per_thread(F)`` of them a
     thread.  R makes the pairs an exact multiple of 32 threads (no idle
     lane), then doubles until the block has ``MIN_THREADS`` threads, and
-    halves while the tile's R * F ids exceed ``MAX_STAGED_IDS``.
+    halves while the tile's R * F ids exceed ``MAX_STAGED_IDS``.  Past
+    ``MAX_STAGED_IDS`` (wide rows) R is 1 and the wide-row kernel stages
+    the row's ids in chunks of that many.
     """
     C = D // 4 if vec else D
     k = pairs_per_thread(F)
@@ -313,10 +319,12 @@ def sage_aggregate(edges: torch.Tensor, h_src: torch.Tensor) -> torch.Tensor:
     plain version for CPU ones."""
     if h_src.device.type == "cpu" and edges.device.type == "cpu":
         return sage_aggregate_plain(edges, h_src)
-    if edges.shape[-1] > MAX_STAGED_IDS:
-        raise ValueError(f"sage_aggregate: fanout {edges.shape[-1]} exceeds "
-                         f"the {MAX_STAGED_IDS} edge ids a block of the "
-                         f"forward kernel stages in shared memory")
+    rows = math.prod(edges.shape[:-1])
+    if max(rows, *edges.shape[-1:], *h_src.shape[-2:]) >= 2 ** 31:
+        raise ValueError(f"sage_aggregate: {rows} destination rows, edges "
+                         f"{tuple(edges.shape)}, h_src {tuple(h_src.shape)}; "
+                         f"the forward's grid and int32 sizes take fewer "
+                         f"than 2**31 of each")
     _check_cuda("sage_aggregate", edges, h_src)
     return _SageAggregate.apply(edges, h_src)
 

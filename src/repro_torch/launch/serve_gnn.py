@@ -16,12 +16,11 @@ single-request service capacity.  ``main(argv)`` returns the run's
 summary, outputs and arrivals and the predictor, so a caller can check the
 served outputs.  ``--scheme`` takes ``vanilla``, ``hybrid``,
 ``hybrid+fused`` or any registered placement scheme
-(``"hybrid_partial(0.25)"``).  Not ported yet, and refused with an error:
-``--trace``.
+(``"hybrid_partial(0.25)"``).  ``--trace OUT.json`` records the
+real-clock ``serve/predict`` spans and each request's virtual-clock lanes
+(``repro_torch.obs``).
 """
 import argparse
-
-_NOT_PORTED = "is not ported to repro_torch yet"
 
 
 def main(argv=None) -> dict:
@@ -80,15 +79,22 @@ def main(argv=None) -> dict:
                          "samples each flush")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, metavar="OUT.json",
-                    help="not ported")
+                    help="record a Chrome trace-event timeline "
+                         "(repro_torch.obs): real-clock serve/predict "
+                         "spans plus per-request queue-wait / "
+                         "batch-delay / service lanes on the virtual "
+                         "clock; viewable in Perfetto")
     args = ap.parse_args(argv)
-    if args.trace:
-        ap.error(f"--trace {_NOT_PORTED}")
 
     import time
 
     import numpy as np
     import torch
+
+    from repro_torch.obs import trace as obs_trace
+
+    if args.trace:
+        obs_trace.start(args.trace, process_name="serve_gnn")
 
     from repro_torch.core.cache import resolve_hot_scorer
     from repro_torch.data.spec import DataSpec
@@ -176,6 +182,11 @@ def main(argv=None) -> dict:
               f"entries {r['entries']}/{r['capacity']} "
               f"tau={r['tau']} rho={r['rho']} "
               f"expired {r['expired']} deferrals {r['rho_deferrals']}")
+    if args.trace:
+        tracer = obs_trace.stop()
+        print(f"trace written to {args.trace} "
+              f"({tracer.num_recorded} spans); view at "
+              f"https://ui.perfetto.dev")
     return {"summary": s, "outputs": outputs,
             "seeds": np.asarray([seed for _, seed in arrivals]),
             "predictor": predictor}

@@ -19,11 +19,18 @@ device (counterpart of ``repro.launch.train_gnn``, same defaults).
       --devices 4 --feature-store staged --prefetch-depth 1 --epochs 1 \\
       --steps-per-epoch 3 --batch 32
 
+  python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \
+      --devices 4 --epochs 1 --steps-per-epoch 3 --batch 32 \
+      --trace t.json --trace-fence
+  python -m repro_torch.obs.report t.json --summary
+
 ``--scheme`` takes ``vanilla``, ``hybrid``, ``hybrid+fused`` or any
 registered placement scheme (``"hybrid_partial(0.25)"``).  ``--executor``
 takes ``vmap`` (``repro``'s name, the default) or ``stacked``: both are
-the port's ``StackedExecutor``.  Not ported yet, and refused with an
-error: the ``shard_map`` and ``multiprocess`` executors and tracing.
+the port's ``StackedExecutor``.  ``--trace OUT.json`` records the driver,
+prefetch and stager spans (``repro_torch.obs``); ``--trace-fence``
+synchronizes inside them.  Not ported yet, and refused with an error: the
+``shard_map`` and ``multiprocess`` executors.
 """
 import argparse
 import time
@@ -37,8 +44,6 @@ def _refuse_unported(ap, args) -> None:
         ap.error(f"executor {args.executor or 'shard_map'!r} {_NOT_PORTED}; "
                  f"the port runs the stacked executor (--executor vmap or "
                  f"stacked)")
-    if args.trace:
-        ap.error(f"--trace {_NOT_PORTED}")
 
 
 def main(argv=None):
@@ -93,10 +98,25 @@ def main(argv=None):
                          "port's stacked executor; shard_map and "
                          "multiprocess are not ported")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
-                    help="not ported")
+                    help="record a Chrome trace-event timeline of the run "
+                         "(repro_torch.obs): driver/prefetch/stager spans, "
+                         "viewable in Perfetto.  Render the span summary "
+                         "with 'python -m repro_torch.obs.report OUT.json "
+                         "--summary'")
+    ap.add_argument("--trace-fence", action="store_true",
+                    help="synchronize inside traced spans: honest "
+                         "device-time attribution per span, at the cost "
+                         "of the prepare/consume overlap (a profiling "
+                         "mode, never for production numbers)")
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
     executor = args.executor or "vmap"
+
+    from repro_torch.obs import trace as obs_trace
+
+    if args.trace:
+        obs_trace.start(args.trace, fenced=args.trace_fence,
+                        process_name="train_gnn")
 
     from repro_torch.data.spec import DataSpec
     from repro_torch.device import resolve_device
@@ -143,9 +163,18 @@ def main(argv=None):
                            optimizer="adamw", grad_clip=1.0,
                            device=device) as driver:
         _train(args, executor, pipe, driver, cfg, params, opt_state)
+    if args.trace:
+        tracer = obs_trace.stop()
+        print(f"trace written to {args.trace} "
+              f"({tracer.num_recorded} spans, {tracer.dropped} dropped); "
+              f"view at https://ui.perfetto.dev or render with "
+              f"python -m repro_torch.obs.report {args.trace} --summary")
 
 
 def _train(args, executor, pipe, driver, cfg, params, opt_state) -> None:
+    from repro_torch.obs.metrics import get_registry
+
+    registry = get_registry()
     staging = "on" if driver.stager is not None else "off"
     for epoch in range(args.epochs):
         t0 = time.time()
@@ -162,6 +191,10 @@ def _train(args, executor, pipe, driver, cfg, params, opt_state) -> None:
                       f"vanilla=2L={2 * cfg.num_layers}, hybrid=2)")
         rounds = (pipe.counter.rounds - rounds_before) \
             / args.steps_per_epoch
+        # the epoch's log line materializes the metrics anyway; absorbing
+        # them also runs the warn-once sampler-overflow watch
+        registry.observe_step(
+            metrics, step=(epoch + 1) * args.steps_per_epoch - 1)
         msg = (f"epoch {epoch}: loss {float(loss):.4f} "
                f"rounds/step {rounds:g} utilized-KB/step "
                f"{float(metrics['sampling_utilized_bytes']) / 1024:.0f}s+"
@@ -170,6 +203,7 @@ def _train(args, executor, pipe, driver, cfg, params, opt_state) -> None:
         if args.cache_capacity:
             msg += f" cache-hit {float(metrics['cache_hit_rate']):.1%}"
         print(msg)
+
 
 if __name__ == "__main__":
     main()

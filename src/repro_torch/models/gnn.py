@@ -104,13 +104,17 @@ def rowwise_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def apply_layer(layer, mfg: MFG, h_src: torch.Tensor, cfg: GNNConfig, *,
                 is_last: bool, generator: torch.Generator | None = None,
-                aggregate: Callable = sage_aggregate) -> torch.Tensor:
+                aggregate: Callable = sage_aggregate,
+                h_dst: torch.Tensor | None = None) -> torch.Tensor:
     """One SAGE layer: (..., src_capacity, D_in) -> (..., num_dst, D_out).
     ``aggregate(edges, h_src)`` is the neighbour mean (the kernel wrapper
     by default; ``sage_aggregate_plain`` for a plain-version forward).
+    ``h_dst`` holds the destination rows when they are not the prefix of
+    ``h_src`` (exact inference reads its sources from the whole table).
     Hidden layers apply dropout with masks drawn from ``generator`` (on
     the activations' device) when it is given and ``cfg.dropout > 0``."""
-    h_dst = h_src[..., : mfg.num_dst, :]          # prefix convention
+    if h_dst is None:
+        h_dst = h_src[..., : mfg.num_dst, :]      # prefix convention
     agg = aggregate(mfg.edges, h_src)
     out = (rowwise_matmul(h_dst, layer["w_self"])
            + rowwise_matmul(agg, layer["w_neigh"]) + layer["b"])

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import Callable
 
+from repro_torch.obs import trace as _trace
+
 
 class _PrefetchRunner:
     """Runs the double-buffered step: ``step`` enqueues the prepare of the
@@ -29,16 +31,26 @@ class _PrefetchRunner:
 
     def prepare(self, seeds, salt, rows=None):
         """One prepare for the FIFO's refill (the uncounted twin)."""
-        return self._warm(self._shards, seeds, salt, self._cache, rows)
+        with _trace.span("prefetch/prepare", cat="prefetch"):
+            nxt = self._warm(self._shards, seeds, salt, self._cache, rows)
+            _trace.fence(nxt)
+        return nxt
 
     def step(self, params, opt_state, queue, seeds, salt, rows=None):
         """Returns ``(params, opt_state, loss, metrics, queue)`` with the
-        new batch appended and ``queue[0]`` consumed."""
-        nxt = self._prep(self._shards, seeds, salt, self._cache, rows)
-        loss, grads, metrics = self._cons(params, queue[0], self._shards,
-                                          self._cache)
-        params, opt_state, metrics = self._update(params, opt_state, grads,
-                                                  metrics)
+        new batch appended and ``queue[0]`` consumed.  Unfenced, the spans
+        time dispatch (the prepare and the consume still overlap on the
+        device); a fenced tracer synchronizes inside each span, which
+        gives each half its device time and takes that overlap away."""
+        with _trace.span("prefetch/prepare", cat="prefetch"):
+            nxt = self._prep(self._shards, seeds, salt, self._cache, rows)
+            _trace.fence(nxt)
+        with _trace.span("prefetch/consume", cat="prefetch"):
+            loss, grads, metrics = self._cons(params, queue[0],
+                                              self._shards, self._cache)
+            params, opt_state, metrics = self._update(params, opt_state,
+                                                      grads, metrics)
+            _trace.fence(loss)
         return params, opt_state, loss, metrics, queue[1:] + (nxt,)
 
 

@@ -176,6 +176,24 @@ class Pipeline:
             counter=self.counter if counted else None,
             store=self.feature_store, features=self.spec.prefetch.features)
 
+    def make_prepare_fetch_consume(self, loss_fn, *, counted: bool = True,
+                                   device=None):
+        """``make_prepare_consume`` with the feature stage exposed as a
+        third, standalone callable: ``(prepare, fetch, consume)``, with
+        ``prepare`` built ``features=False``, so sampling, feature fetch
+        and model compute can run (and be fenced) one by one.  This is
+        the binding the stage profiler (``repro_torch.obs.profile``)
+        uses; the drivers take ``make_prepare_consume``."""
+        from repro_torch.pipeline import prefetch as _prefetch
+
+        self._check_device(device)
+        return _prefetch.make_prepare_fetch_consume(
+            offsets=self.layout.offsets, num_parts=self.num_parts,
+            fanouts=self.spec.sampler.fanouts, loss_fn=loss_fn,
+            plan=self.placement, backend=self.spec.sampler.backend,
+            counter=self.counter if counted else None,
+            store=self.feature_store, features=False)
+
     def step_fn(self, loss_fn, *, device=None):
         """The training step bound to the stacked executor: ``fn(params,
         seeds, salt) -> (loss, grads, metrics)`` with stacked (P, batch)

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core import dist
 from repro_torch.core.sampler import resolve_backend
+from repro_torch.obs import trace as _trace
 from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.pipeline.specs import SEED_STREAMS
 
@@ -348,7 +349,13 @@ class SyncDriver(_StagedDriver):
         """Run step ``step_idx`` (defaults to the next sequential index).
         Returns ``(params, opt_state, loss, metrics)``."""
         k = self._next if step_idx is None else int(step_idx)
-        out = self._fn(params, opt_state, *self._seeds_salt(k)[:2])
+        with _trace.span("driver/step", cat="driver", step=k,
+                         mode=self.mode):
+            with _trace.span("driver/seeds", cat="driver"):
+                seeds, salt = self._seeds_salt(k)[:2]
+            with _trace.span("driver/train_step", cat="driver"):
+                out = self._fn(params, opt_state, seeds, salt)
+                _trace.fence(out)
         self._next = k + 1
         return out
 
@@ -396,11 +403,17 @@ class DoubleBufferDriver(_StagedDriver):
         """Run step ``step_idx`` (defaults to the next sequential index).
         Returns ``(params, opt_state, loss, metrics)``."""
         k = self._next if step_idx is None else int(step_idx)
-        if self._queue is None or k != self._next:
-            self._warmup(k)
-        nxt = self._seeds_salt(k + self.depth)
-        params, opt_state, loss, metrics, self._queue = self._runner.step(
-            params, opt_state, self._queue, *nxt)
+        with _trace.span("driver/step", cat="driver", step=k,
+                         mode=self.mode, depth=self.depth):
+            if self._queue is None or k != self._next:
+                with _trace.span("driver/warmup", cat="driver"):
+                    self._warmup(k)
+            with _trace.span("driver/seeds", cat="driver"):
+                nxt = self._seeds_salt(k + self.depth)
+            with _trace.span("driver/runner_step", cat="driver"):
+                params, opt_state, loss, metrics, self._queue = \
+                    self._runner.step(params, opt_state, self._queue, *nxt)
+                _trace.fence(loss)
         self._next = k + 1
         return params, opt_state, loss, metrics
 

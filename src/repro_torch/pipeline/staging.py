@@ -39,6 +39,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.obs import trace as _trace
+
 # the longest a get() waits for one slot before it gives up (a produce at
 # full width takes seconds)
 _WAIT_S = 120.0
@@ -56,9 +58,10 @@ class SeedStager:
     device: where the staged seeds land.
 
     ``get(k)`` returns ``(seeds, salt)``: a (P, batch) int32 tensor on
-    ``device`` and the Python-int salt.  ``stats()`` reports each
-    produce's host milliseconds, in all and by stage, and how often
-    ``get`` found the ring empty.
+    ``device`` and the Python-int salt.  ``stats()`` reports how often
+    ``get`` found the ring empty and the pinned bytes; each produce, and
+    each of its stages, is a ``stager/...`` span on the thread's own
+    trace track (``repro_torch.obs.trace``).
     """
 
     def __init__(self, stream, *, depth: int = 0, lead: int = 1,
@@ -81,8 +84,6 @@ class SeedStager:
         self._gen = 0                     # bumped on every drain (seek)
         self._error: BaseException | None = None
         self._closed = False
-        self.produce_ms: list[float] = []
-        self.stage_ms: dict[str, list[float]] = {}
         self.empty_waits = 0
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="repro-torch-seed-stager")
@@ -97,13 +98,12 @@ class SeedStager:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _produce(self, k: int, lap) -> tuple:
-        """Step ``k``'s staged tensors, copies started (thread side).
-        ``lap(stage)`` records the host time since the previous lap."""
-        seeds_np = self.stream.seeds_host(k)
-        lap("seeds_host")
-        seeds = self._to_device(seeds_np)
-        lap("h2d")
+    def _produce(self, k: int) -> tuple:
+        """Step ``k``'s staged tensors, copies started (thread side)."""
+        with _trace.span("stager/seeds_host", cat="stager"):
+            seeds_np = self.stream.seeds_host(k)
+        with _trace.span("stager/h2d", cat="stager"):
+            seeds = self._to_device(seeds_np)
         return seeds, self.stream.salt_int(k)
 
     def _worker(self) -> None:
@@ -119,22 +119,16 @@ class SeedStager:
                 if self._closed:
                     return
                 gen, k = self._gen, self._want
-            laps = [time.perf_counter()]
-            stages = {}
-
-            def lap(stage):
-                laps.append(time.perf_counter())
-                stages[stage] = (laps[-1] - laps[-2]) * 1e3
-
             try:
-                if self._cuda:
-                    with torch.cuda.stream(self._copy_stream):
-                        item = self._produce(k, lap)
-                        event = torch.cuda.Event()
-                        event.record(self._copy_stream)
-                else:
-                    item, event = self._produce(k, lap), None
-                ms = (time.perf_counter() - laps[0]) * 1e3
+                # spans recorded here land on this thread's own track
+                with _trace.span("stager/produce", cat="stager", step=k):
+                    if self._cuda:
+                        with torch.cuda.stream(self._copy_stream):
+                            item = self._produce(k)
+                            event = torch.cuda.Event()
+                            event.record(self._copy_stream)
+                    else:
+                        item, event = self._produce(k), None
             except BaseException as e:  # raised by the next get()
                 with self._cv:
                     if self._gen == gen:
@@ -145,9 +139,6 @@ class SeedStager:
                 if self._gen != gen or self._closed:
                     continue            # stale: a seek raced the produce
                 self._ring.append((k, item, event))
-                self.produce_ms.append(ms)
-                for stage, t in stages.items():
-                    self.stage_ms.setdefault(stage, []).append(t)
                 self._want = k + 1
                 self._cv.notify_all()
 
@@ -170,9 +161,12 @@ class SeedStager:
 
         Serves the ring head when it is step ``k``, else drains and
         refills from ``k``.  Blocks until the slot is staged (at most
-        ``_WAIT_S`` seconds); re-raises an error the thread hit."""
+        ``_WAIT_S`` seconds); re-raises an error the thread hit.  The
+        ``stager/get`` span covers any such wait: a long one in a trace
+        means the ring does not ride far enough ahead (raise
+        ``PrefetchSpec.lead``)."""
         k = int(k)
-        with self._cv:
+        with _trace.span("stager/get", cat="stager", step=k), self._cv:
             if self._closed:
                 raise RuntimeError("stager is closed")
             head = self._ring[0][0] if self._ring else self._want
@@ -211,14 +205,10 @@ class SeedStager:
         return 0
 
     def stats(self) -> dict:
-        """``produce_ms`` (one entry per produced slot), ``stage_ms`` (the
-        same by stage: host time, so ``h2d`` is the copies' enqueue),
-        ``empty_waits`` and ``pinned_bytes``."""
+        """``empty_waits`` (gets that found the ring empty) and
+        ``pinned_bytes``."""
         with self._cv:
-            return {"produce_ms": list(self.produce_ms),
-                    "stage_ms": {k: list(v)
-                                 for k, v in self.stage_ms.items()},
-                    "empty_waits": self.empty_waits,
+            return {"empty_waits": self.empty_waits,
                     "pinned_bytes": self.pinned_bytes}
 
     def close(self) -> None:
@@ -390,27 +380,27 @@ class FeatureStager(SeedStager):
         self._pool_valid[slot] = valid
         return slot
 
-    def _produce(self, k: int, lap) -> tuple:
-        seeds_np = self.stream.seeds_host(k)
-        salt = self.stream.salt_int(k)
-        lap("seeds_host")
-        frontier = np.stack([
-            _frontier_src_nodes_host(self._indptr_np, self._indices_np,
-                                     seeds_np[p], self._fanouts, salt,
-                                     window=self._window)
-            for p in range(seeds_np.shape[0])])
-        lap("frontier_replay")
-        slot = self._stage_rows(k, frontier)
-        lap("gather_rows")
-        seeds = self._to_device(seeds_np)
-        if not self._cuda:
-            rows = self._pool[slot].clone()
-        else:
-            rows = self._pool[slot].to(self.device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._copy_stream)
-            self._pool_events[slot] = event
-        lap("h2d")
+    def _produce(self, k: int) -> tuple:
+        with _trace.span("stager/seeds_host", cat="stager"):
+            seeds_np = self.stream.seeds_host(k)
+            salt = self.stream.salt_int(k)
+        with _trace.span("stager/frontier_replay", cat="stager"):
+            frontier = np.stack([
+                _frontier_src_nodes_host(self._indptr_np, self._indices_np,
+                                         seeds_np[p], self._fanouts, salt,
+                                         window=self._window)
+                for p in range(seeds_np.shape[0])])
+        with _trace.span("stager/gather_rows", cat="stager"):
+            slot = self._stage_rows(k, frontier)
+        with _trace.span("stager/h2d", cat="stager"):
+            seeds = self._to_device(seeds_np)
+            if not self._cuda:
+                rows = self._pool[slot].clone()
+            else:
+                rows = self._pool[slot].to(self.device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._copy_stream)
+                self._pool_events[slot] = event
         return seeds, salt, rows
 
 

@@ -1,6 +1,6 @@
 """``GNNServer``: the serving loop tying queue -> recycler -> microbatcher
--> ``Predictor`` together, plus latency/throughput accounting (counterpart
-of ``repro.serve.server``; its tracing spans are not ported yet).
+-> ``Predictor`` together, plus latency/throughput accounting and trace
+spans (counterpart of ``repro.serve.server``).
 
 The server runs an open-loop simulation on a virtual clock: arrival times
 come from the traffic generator, service times are MEASURED wall-clock
@@ -18,6 +18,11 @@ Salt policy: ``"fixed"`` (default) reuses the predictor's base salt every
 flush — deterministic serving, outputs and recycled hits bit-identical to
 direct ``predict``; ``"step"`` advances the salt per flush, so recycled
 entries are stale samples bounded by the recycler's tau / rho contract.
+
+Tracing (``repro_torch.obs.trace``): each flush is a real-clock
+``serve/predict`` span; each request's queue wait, batch delay and service
+(and a recycled hit) are events on the virtual clock, one lane (tid) per
+request, under a process of their own (``SERVE_VPID``).
 """
 from __future__ import annotations
 
@@ -28,10 +33,18 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as _trace
 from repro_torch.serve.batcher import (BucketSpec, MicroBatcher, Request,
                                       max_owner_count)
 from repro_torch.serve.predictor import Predictor
 from repro_torch.serve.recycler import RecyclingCache
+
+#: pid of the virtual-clock request lanes in exported traces: the
+#: simulation's per-request phases live on the virtual timeline, so they
+#: are exported as explicit-timestamp events under this process rather
+#: than on the real monotonic clock; ``merge_traces`` keeps virtual pids
+#: rank-unique when ranks merge.
+SERVE_VPID = 100
 
 
 @dataclasses.dataclass
@@ -138,6 +151,9 @@ class GNNServer:
         ``collect_outputs=True`` where ``outputs`` is (N, C) logits in
         arrival order (recycled rows are the recycled logits).
         """
+        tracer = _trace.active_tracer()
+        if tracer is not None:
+            tracer.name_process(SERVE_VPID, "serve (virtual clock)")
         if warmup:
             self.predictor.warmup(buckets=self.buckets.sizes)
         arrivals = [(float(t), int(s)) for t, s in arrivals]
@@ -160,9 +176,14 @@ class GNNServer:
                 return
             start = max(at, state["free"])
             seeds = [r.seed for r in reqs]
-            t0 = time.perf_counter()
-            logits = self.predictor.predict(seeds, salt=self._salt())
-            dt = time.perf_counter() - t0
+            # the real-clock span times the whole sampled inference step
+            # (predict returns host arrays, so it ends after the device);
+            # the per-request phase events below live on the virtual clock
+            with _trace.span("serve/predict", cat="serve",
+                             batch=len(reqs)):
+                t0 = time.perf_counter()
+                logits = self.predictor.predict(seeds, salt=self._salt())
+                dt = time.perf_counter() - t0
             done = start + dt
             state["free"] = done
             state["compute"] += dt
@@ -179,6 +200,19 @@ class GNNServer:
                 outputs[i] = row
                 if self.recycler is not None:
                     self.recycler.insert(r.seed, row, self.step)
+                if tracer is not None:
+                    # one lane (tid) per request: waiting for batchmates,
+                    # then for the device, then in service
+                    tracer.event("serve/queue_wait", r.arrival,
+                                 max(0.0, at - r.arrival), tid=i,
+                                 pid=SERVE_VPID, cat="serve",
+                                 args={"seed": r.seed})
+                    tracer.event("serve/batch_delay", at,
+                                 max(0.0, start - at), tid=i,
+                                 pid=SERVE_VPID, cat="serve")
+                    tracer.event("serve/service", start, dt, tid=i,
+                                 pid=SERVE_VPID, cat="serve",
+                                 args={"bucket": b})
             self.step += 1
 
         for i, (t, seed) in enumerate(arrivals):
@@ -193,6 +227,10 @@ class GNNServer:
                     outputs[i] = hit
                     state["recycled"] += 1
                     state["last_done"] = max(state["last_done"], t + dt)
+                    if tracer is not None:
+                        tracer.event("serve/recycled_hit", t, dt, tid=i,
+                                     pid=SERVE_VPID, cat="serve",
+                                     args={"seed": seed})
                     continue
             req = Request(seed=seed, arrival=t)
             index_of[req.uid] = i

@@ -74,7 +74,13 @@ class GNNTrainer:
         minibatches); returns summary metrics: ``loss`` and
         ``cache_hit_rate`` averaged over the epoch's steps,
         ``final_loss``, ``epoch_time`` (s) and ``comm_rounds_per_step``
-        (the round counter's growth over the epoch per step)."""
+        (the round counter's growth over the epoch per step).  Each
+        step's metrics go to the default registry
+        (``repro_torch.obs.metrics``), which warns once when the sampler's
+        window overflows."""
+        from repro_torch.obs.metrics import get_registry
+
+        registry = get_registry()
         t0 = time.perf_counter()
         rounds_before = self.counter.rounds
         losses, hit_rates = [], []
@@ -84,6 +90,9 @@ class GNNTrainer:
                 self.params, self.opt_state, step_idx=k)
             losses.append(float(loss))
             hit_rates.append(float(metrics["cache_hit_rate"]))
+            # the float() above already waited for this step, so
+            # absorbing its metrics adds no sync
+            registry.observe_step(metrics, step=k)
         return {"loss": sum(losses) / len(losses),
                 "final_loss": losses[-1],
                 "epoch_time": time.perf_counter() - t0,

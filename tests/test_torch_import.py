@@ -22,6 +22,9 @@ TRAINING_SLICE = ("core.feature_store", "core.cache", "kernels.gather",
 # the overlap slice's modules
 OVERLAP_SLICE = ("pipeline.staging", "pipeline.prefetch", "serve.recycler",
                  "launch.serve_gnn")
+# the exact-inference and observability slice's modules
+OBS_SLICE = ("core.inference", "obs", "obs.trace", "obs.metrics",
+             "obs.profile", "obs.report")
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
                        re.MULTILINE)
@@ -51,15 +54,15 @@ def test_every_module_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr[-2000:]
     names = set(out.stdout.split())
     assert len(names) >= 40
-    assert {f"repro_torch.{m}" for m in TRAINING_SLICE + OVERLAP_SLICE} \
-        <= names
+    assert {f"repro_torch.{m}"
+            for m in TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE} <= names
 
 
 def test_static_scan_finds_no_jax_or_repro_import():
     scanned = {p.relative_to(PORT).with_suffix("").as_posix().replace(
         "/", ".").removesuffix(".__init__") for p in _port_sources()
         if PORT in p.parents}
-    assert set(TRAINING_SLICE + OVERLAP_SLICE) <= scanned
+    assert set(TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE) <= scanned
     offenders = []
     for path in _port_sources():
         for m in FORBIDDEN.finditer(path.read_text()):

@@ -317,11 +317,14 @@ def test_forward_plan_depends_on_d_and_f_only():
     for F in (10, 15):
         R, threads = forward_plan(256, F, True)
         assert pairs_per_thread(F) == 1 and threads == R * 64
-    for F in (0, 1, 5, 10, 15, 33, MAX_STAGED_IDS):
+    for F in (0, 1, 5, 10, 15, 33, MAX_STAGED_IDS, MAX_STAGED_IDS + 1,
+              11361, 2 * MAX_STAGED_IDS):
         for D in (0, 1, 33, 100, 130, 256, 4096):
             for vec in (True, False):
                 R, threads = forward_plan(D, F, vec)
-                assert R >= 1 and R * F <= MAX_STAGED_IDS
+                # a wide row (F past the staged ids) is one row a block
+                assert R >= 1 and (R * F <= MAX_STAGED_IDS
+                                   or (F > MAX_STAGED_IDS and R == 1))
                 assert threads % 32 == 0
                 assert 32 <= threads <= forward_max_threads(F)
 
@@ -518,15 +521,15 @@ def test_seeds_per_tile_grows_past_the_large_level():
                                    "sage_aggregate_backward",
                                    "sage_aggregate"])
 def test_kernel_size_guards_raise(which):
-    """Shapes past the kernels' int32 offsets, or a fanout past the ids
-    the forward stages per block, raise before any launch."""
+    """Shapes past the kernels' int32 offsets (for the forward: 2**31
+    destination rows, one block each on the wide-row path) raise before
+    any launch.  A fanout past the ids the forward stages per block is no
+    longer refused: it takes the wide-row kernel."""
     meta = torch.device("meta")
     idx = torch.zeros(3, dtype=torch.int32, device=meta)
-    match = (str(MAX_STAGED_IDS) if which == "sage_aggregate"
-             else r"2\*\*31")
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match=r"2\*\*31"):
         if which == "sage_aggregate":
-            sage_aggregate(torch.zeros((4, 2, MAX_STAGED_IDS + 1),
+            sage_aggregate(torch.zeros((4, 2 ** 29, MAX_STAGED_IDS + 1),
                                        dtype=torch.int32, device=meta),
                            torch.ones((4, 16, 4), device=meta))
         elif which == "fused_sample":

@@ -42,6 +42,7 @@ from repro_torch.kernels.ops import fused_sample_level
 from repro_torch.models.gnn import GNNConfig as TConfig
 from repro_torch.models.gnn import gnn_loss, init_gnn_params
 from repro_torch.models.gnn import params_from_numpy
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import optimizers as topt
 from repro_torch.pipeline import Pipeline as TPipeline
 from repro_torch.pipeline import PipelineSpec as TSpec
@@ -203,21 +204,39 @@ def test_make_stager_resolves_the_staging_argument(world):
                            pipeline=pipe) == (plain, False)
 
 
+def _stager_spans(tracer) -> dict:
+    """{span name: count} of the stager thread's spans in a trace."""
+    out = {}
+    for e in tracer.events():
+        if e["ph"] == "X" and e["name"].startswith("stager/") \
+                and e["name"] != "stager/get":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
 def test_stager_serves_the_stream_and_reseeks(world):
+    """Each produce, and each of its stages, is timed by a span on the
+    stager's trace track (one h2d a produce)."""
     pipe, _, _ = world
     stream = SeedStream(pipe, BATCH, strategy="fold", base_salt=5)
-    with SeedStager(stream, depth=1, lead=2) as stager:
-        for k in (0, 1, 7, 8, 2):
-            seeds, salt = stager.get(k)
-            assert torch.equal(seeds, stream.seeds(k))
-            assert salt == stream.salt_int(k)
-        stager.seek(4)
-        assert torch.equal(stager.get(4)[0], stream.seeds(4))
-        stats = stager.stats()
-        assert stats["empty_waits"] >= 1 and stats["pinned_bytes"] == 0
-        assert len(stats["produce_ms"]) >= 6
-        assert set(stats["stage_ms"]) == {"seeds_host", "h2d"}
-        assert len(stats["stage_ms"]["h2d"]) == len(stats["produce_ms"])
+    tracer = obs_trace.start(None)
+    try:
+        with SeedStager(stream, depth=1, lead=2) as stager:
+            for k in (0, 1, 7, 8, 2):
+                seeds, salt = stager.get(k)
+                assert torch.equal(seeds, stream.seeds(k))
+                assert salt == stream.salt_int(k)
+            stager.seek(4)
+            assert torch.equal(stager.get(4)[0], stream.seeds(4))
+            stats = stager.stats()
+            assert stats["empty_waits"] >= 1 and stats["pinned_bytes"] == 0
+    finally:
+        obs_trace.stop(export=False)
+    spans = _stager_spans(tracer)
+    assert spans["stager/produce"] >= 6
+    assert set(spans) == {"stager/produce", "stager/seeds_host",
+                          "stager/h2d"}
+    assert spans["stager/h2d"] == spans["stager/produce"]
     with pytest.raises(RuntimeError, match="closed"):
         stager.get(5)
     stager.close()                       # idempotent
@@ -253,21 +272,26 @@ def test_feature_stager_rows_equal_the_fetch(world, combine):
                                    device="cpu")
     staged.feature_store = StagedStore(combine=combine)
     stream = SeedStream(staged, BATCH)
-    with FeatureStager(stream, pipeline=staged, depth=1) as stager:
-        for k in (0, 1, 3, 1):           # 3 and then 1 reuse pool buffers
-            seeds, salt, rows = stager.get(k)
-            src = sample_mfgs(staged.layout.graph, seeds, FANOUTS, salt,
-                              backend="fused_cuda")[-1].src_nodes
-            want = tdist.fetch_features(src, staged.layout.offsets, 4,
-                                        staged.layout.features, None)
-            if combine == "device":
-                hit, _ = tdist.cache_lookup(staged.cache, src)
-                assert hit.any()
-                want = torch.where(hit[..., None], 0.0, want)
-            assert torch.equal(rows, want)
-        assert stager.pinned_bytes == 0  # pinned on CUDA only
-        assert set(stager.stats()["stage_ms"]) == {
-            "seeds_host", "frontier_replay", "gather_rows", "h2d"}
+    tracer = obs_trace.start(None)
+    try:
+        with FeatureStager(stream, pipeline=staged, depth=1) as stager:
+            for k in (0, 1, 3, 1):           # 3 and then 1 reuse pool buffers
+                seeds, salt, rows = stager.get(k)
+                src = sample_mfgs(staged.layout.graph, seeds, FANOUTS, salt,
+                                  backend="fused_cuda")[-1].src_nodes
+                want = tdist.fetch_features(src, staged.layout.offsets, 4,
+                                            staged.layout.features, None)
+                if combine == "device":
+                    hit, _ = tdist.cache_lookup(staged.cache, src)
+                    assert hit.any()
+                    want = torch.where(hit[..., None], 0.0, want)
+                assert torch.equal(rows, want)
+            assert stager.pinned_bytes == 0  # pinned on CUDA only
+    finally:
+        obs_trace.stop(export=False)
+    assert set(_stager_spans(tracer)) == {
+        "stager/produce", "stager/seeds_host", "stager/frontier_replay",
+        "stager/gather_rows", "stager/h2d"}
 
 
 def test_prefetch_spec_validation_and_registry():

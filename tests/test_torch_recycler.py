@@ -10,6 +10,7 @@ bit (the fixed-salt contract).
 """
 import contextlib
 import io
+import json
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from repro.core.cache import frequency_caches as j_frequency_caches
 from repro.core.cache import resolve_hot_scorer as j_resolve_scorer
 from repro.data.spec import DataSpec as JDataSpec
 from repro.pipeline import Pipeline as JPipeline
+from repro.obs.trace import validate_trace as j_validate
 from repro.pipeline import PipelineSpec as JSpec
 from repro.serve.recycler import RecyclingCache as JRecycler
 from repro.serve.recycler import hot_set_admit as j_admit
@@ -30,8 +32,11 @@ from repro_torch.core.cache import (BlendScorer, FrequencyTracker,
 from repro_torch.data.spec import DataSpec as TDataSpec
 from repro_torch.launch import serve_gnn
 from repro_torch.models.gnn import GNNConfig, init_gnn_params
+from repro_torch.obs import trace as t_trace
+from repro_torch.obs.trace import validate_trace as t_validate
 from repro_torch.pipeline import Pipeline as TPipeline
 from repro_torch.pipeline import PipelineSpec as TSpec
+from repro_torch.serve.server import SERVE_VPID
 from repro_torch.serve import (GNNServer, Predictor, RecyclingCache,
                                hot_set_admit, resolve_arrival)
 
@@ -190,7 +195,25 @@ def test_serve_gnn_launcher_serves_every_scheme(scheme):
 
 
 @pytest.mark.parametrize("flags", [["--trace", "t.json"]], ids=["trace"])
-def test_serve_gnn_refuses_what_is_not_ported(flags, capsys):
-    with pytest.raises(SystemExit):
-        serve_gnn.main(["--device", "cpu", *flags])
-    assert "not ported" in capsys.readouterr().err
+def test_serve_gnn_refuses_what_is_not_ported(flags, capsys, tmp_path):
+    """``--trace``, refused until the observability slice, now runs: the
+    launcher writes a trace that both packages' ``validate_trace`` accept,
+    with the real-clock ``serve/predict`` spans and each request's
+    virtual-clock lanes under ``repro``'s names and cats."""
+    path = str(tmp_path / flags[1])
+    res = serve_gnn.main(["--device", "cpu", "--nodes", "800",
+                          "--requests", "60", "--train-steps", "1",
+                          flags[0], path])
+    assert f"trace written to {path}" in capsys.readouterr().out
+    n = t_validate(path)
+    assert n > 0 and j_validate(path) == n
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {(e["name"], e.get("cat")) for e in events if e["ph"] == "X"}
+    assert {("serve/predict", "serve"), ("serve/queue_wait", "serve"),
+            ("serve/batch_delay", "serve"), ("serve/service", "serve"),
+            ("driver/step", "driver")} <= spans
+    lanes = {e["tid"] for e in events
+             if e["ph"] == "X" and e["pid"] == SERVE_VPID}
+    assert lanes == set(range(res["summary"]["num_requests"]))
+    assert t_trace.active_tracer() is None

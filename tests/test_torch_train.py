@@ -27,6 +27,7 @@ differently, and the port takes the worker mean on the loss where
 import contextlib
 import dataclasses
 import io
+import json
 
 import numpy as np
 import jax
@@ -40,6 +41,7 @@ from repro.models.gnn import GNNConfig as JConfig
 from repro.models.gnn import gnn_accuracy as j_accuracy
 from repro.models.gnn import gnn_loss as j_loss
 from repro.models.gnn import init_gnn_params as j_init
+from repro.obs.trace import validate_trace as j_validate
 from repro.optim import optimizers as jopt
 from repro.pipeline import Pipeline as JPipeline
 from repro.pipeline import PipelineSpec as JSpec
@@ -48,6 +50,8 @@ from repro.train.loop import GNNTrainer as JTrainer
 from repro_torch.data.spec import DataSpec as TDataSpec
 from repro_torch.launch import train_gnn as t_launch
 from repro_torch.models.gnn import GNNConfig as TConfig
+from repro_torch.obs import trace as t_trace
+from repro_torch.obs.trace import validate_trace as t_validate
 from repro_torch.models.gnn import (apply_layer, gnn_accuracy, gnn_loss,
                                     params_from_numpy, params_to_numpy)
 from repro_torch.optim import optimizers as topt
@@ -394,7 +398,31 @@ def test_launcher_trains_every_scheme_and_executor_name(flags, rounds):
     ["--executor", "shard_map"], ["--shard-map"], ["--trace", "t.json"],
     ["--executor", "multiprocess"]],
     ids=["executor", "shard-map", "trace", "executor-multiprocess"])
-def test_launcher_refuses_what_is_not_ported(flags, capsys):
+def test_launcher_refuses_what_is_not_ported(flags, capsys, tmp_path):
+    """The executors not ported yet are refused.  ``--trace``, refused
+    until the observability slice, now runs: with ``--trace-fence`` the
+    launcher writes a trace that both packages' ``validate_trace`` accept,
+    holding the driver's spans with ``repro``'s names and cats."""
+    if flags[0] == "--trace":
+        path = str(tmp_path / flags[1])
+        t_launch.main(["--device", "cpu", "--nodes", "800", "--devices",
+                       "4", "--epochs", "1", "--steps-per-epoch", "2",
+                       "--batch", "16", "--prefetch-depth", "1",
+                       "--trace", path, "--trace-fence"])
+        assert f"trace written to {path}" in capsys.readouterr().out
+        n = t_validate(path)
+        assert n > 0 and j_validate(path) == n
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        spans = {(e["name"], e.get("cat")) for e in events
+                 if e["ph"] == "X"}
+        assert {("driver/step", "driver"), ("driver/seeds", "driver"),
+                ("driver/warmup", "driver"),
+                ("driver/runner_step", "driver"),
+                ("prefetch/prepare", "prefetch"),
+                ("prefetch/consume", "prefetch")} <= spans
+        assert t_trace.active_tracer() is None
+        return
     with pytest.raises(SystemExit):
         t_launch.main(["--device", "cpu", *flags])
     assert "not ported" in capsys.readouterr().err
