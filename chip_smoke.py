@@ -125,6 +125,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -169,10 +170,28 @@ FLUSH_KERNEL = "bitwise_not"     # the L2 flush's device kernel, by name
 # the forward's fanouts at and past the ids a block stages (MAX_STAGED_IDS)
 WIDE_FANOUTS = (8192, 8193, 11361, 16384)
 INFER_BATCH = 512                # layerwise_inference's default batch
+TRACE_MARGIN_S = 0.1             # host wait at each end of a timing trace
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def kernel_trace():
+    """A ``torch.profiler`` trace of the device's kernels that waits
+    TRACE_MARGIN_S on the host after it starts and again before it stops.
+    Without the margins, traces on the card's machine came back short of
+    launches up to three times in a row, or with no device op at all; the
+    tracer keeps only the kernels whose device timestamps fall inside its
+    window.  A wall time read inside the block leaves the margins out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
 
 
 def time_ms(fn, reps: int = REPS, flush=None,
@@ -196,17 +215,15 @@ def time_ms(fn, reps: int = REPS, flush=None,
     """
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with kernel_trace() as prof:
             for _ in range(reps):
                 if flush is not None:
                     flush()
                 fn()
-            torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and not (flush is not None and FLUSH_KERNEL in e.key)]
@@ -226,6 +243,52 @@ def time_ms(fn, reps: int = REPS, flush=None,
             launches[key] = launches.get(key, 0) + e.count / reps
     device_ms = sum(by_name.values())
     return device_ms, event_ms(fn, reps, flush, warmup=0), by_name
+
+
+def one_kernel_ms(fn, wrapper, kernel: str,
+                  reps: int = REPS) -> tuple[float, float]:
+    """(device ms, call ms) of one ``fn()`` that calls the kernel wrapper
+    ``wrapper`` once and launches one device kernel, named ``kernel``,
+    after 3 warm-up runs.
+
+    The wrapper's own count over ``reps`` calls must be ``reps``, and a
+    ``torch.profiler`` trace of ``reps`` calls must record ``kernel`` and no
+    other device kernel.  device: the mean duration of the launches the
+    trace kept, which a dropped record (see ``kernel_trace``) does not
+    bias, where a sum over ``reps`` calls would.  A trace that keeps none
+    is taken again, up to five times.  call: as in ``time_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    wrapper.launches = 0
+    for attempt in range(5):
+        with kernel_trace() as prof:
+            for _ in range(reps):
+                fn()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        names = {_short(e.key) for e in events}
+        if names - {kernel}:
+            raise AssertionError(f"{wrapper.__name__}: a call launched the "
+                                 f"device kernels {sorted(names)}, expected "
+                                 f"one {kernel}")
+        if events:
+            break
+        log(f"  (trace {attempt + 1} recorded no device kernel; tracing "
+            f"again)")
+    else:
+        raise RuntimeError("the profiler recorded no device kernel in five "
+                           "traces")
+    if wrapper.launches != reps * (attempt + 1):
+        raise AssertionError(f"{wrapper.__name__}: {wrapper.launches} "
+                             f"launches counted in {reps * (attempt + 1)} "
+                             f"calls")
+    (evt,) = events
+    if evt.count != reps:
+        log(f"  (the trace kept {evt.count} of {reps} launches of {kernel})")
+    return _device_us(evt) / evt.count / 1e3, event_ms(fn, reps, warmup=0)
 
 
 def event_ms(fn, reps: int = 5, flush=None, warmup: int = 2) -> float:
@@ -545,15 +608,10 @@ def check_forward_edge_shapes(rng) -> None:
         _, err = check_forward_once(e, h, label)
         note = ""
         if Fo >= MAX_STAGED_IDS:
-            per_call = {}
-            time_ms(lambda: sage_aggregate(e, h), reps=3, launches=per_call)
-            ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
             want = ("sage_aggregate_wide_kernel" if Fo > MAX_STAGED_IDS
                     else "sage_aggregate_kernel")
-            if ours != {want: 1}:
-                raise AssertionError(f"sage_aggregate, {label}: hand-written "
-                                     f"device kernels per call {ours}, "
-                                     f"expected one {want}")
+            one_kernel_ms(lambda: sage_aggregate(e, h), sage_aggregate, want,
+                          reps=3)
             note = f", one {want} per call"
         log(f"  sage_aggregate, {label}: edges {(B, S, Fo)} h {(B, N, D)}: "
             f"equal to the f-ordered loop bit for bit, max abs err "
@@ -601,16 +659,14 @@ def predict_breakdown(pred, seeds, label: str) -> None:
     kernels it launches (profiled), and the largest kernels by name."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
         pred.predict(seeds)
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with kernel_trace() as prof:
         pred.predict(seeds)
-        torch.cuda.synchronize()
     rows = sorted(((_device_us(e) / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
@@ -959,7 +1015,6 @@ def training_phase(layout, data, cfg):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     import repro_torch.kernels as K
     from repro_torch.core.dist import cache_lookup
     from repro_torch.kernels.sage_aggregate import (sage_aggregate,
@@ -1112,13 +1167,13 @@ def training_phase(layout, data, cfg):
 
     split = stage_split(pin, loss_fn, params, "hybrid+fused")
 
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with kernel_trace() as prof:
+        t0 = time.perf_counter()
         for _ in range(2):
             params, opt, loss, _ = driver.step(params, opt)
             float(loss)
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / 2
+        wall = (time.perf_counter() - t0) * 1e3 / 2
     rows = sorted(((_device_us(e) / 1e3 / 2, e.count // 2, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
@@ -1184,18 +1239,17 @@ def profiled_steps(driver, params, opt, steps: int = 2):
     their own stream differ, the tracer dropped records (as ``time_ms``
     notes) and the set is taken again, up to five times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for attempt in range(5):
         per = []
         for _ in range(steps):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with kernel_trace() as prof:
+                t0 = time.perf_counter()
                 params, opt, loss, _ = driver.step(params, opt)
                 float(loss)
                 torch.cuda.synchronize()
-            per.append(((time.perf_counter() - t0) * 1e3,
-                        *device_streams(prof)))
+                wall = (time.perf_counter() - t0) * 1e3
+            per.append((wall, *device_streams(prof)))
         own_ops = [streams[0][0] for _, _, streams in per]
         if len(set(own_ops)) == 1:
             break
@@ -1546,14 +1600,12 @@ def prepare_profile(pipe, prep, seeds, salt, reps: int = 3) -> dict:
     """The prepare half alone on one step's seeds: median device busy ms
     (``torch.profiler``: time at least one device op ran)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     busy = []
     with torch.no_grad():
         prep(pipe.shards, seeds, salt, pipe.cache)
         for _ in range(reps):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with kernel_trace() as prof:
                 prep(pipe.shards, seeds, salt, pipe.cache)
-                torch.cuda.synchronize()
             busy.append(device_streams(prof)[0])
     return {"device_busy_ms": statistics.median(busy)}
 
@@ -1909,13 +1961,8 @@ def check_wide_batch(params, graph, tables, cfg, width: int):
         D = h.shape[-1]
         table = torch.cat([h, h.new_zeros((1, D))])
         bag = torch.where(samples >= 0, samples, n).long()
-        per_call = {}
-        ms, call, _ = time_ms(lambda: sage_aggregate(samples, h),
-                              launches=per_call)
-        ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
-        if ours != {"sage_aggregate_wide_kernel": 1}:
-            raise AssertionError(f"exact inference: hand-written kernels per "
-                                 f"call {ours}")
+        ms, call = one_kernel_ms(lambda: sage_aggregate(samples, h),
+                                 sage_aggregate, "sage_aggregate_wide_kernel")
         # the plain version and embedding_bag by CUDA events: the profiler
         # drops records of these multi-GB calls in every retake
         plain_ms = event_ms(lambda: sage_aggregate_plain(samples, h))
@@ -1994,7 +2041,6 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
         f"(torch.cuda.max_memory_allocated); launches {counts}")
 
     # per layer: wall, then device busy from a profiled pass of the layer
-    from torch.profiler import ProfilerActivity, profile
     tables, layers = [x], []
     with torch.no_grad():
         for layer in range(cfg.num_layers):
@@ -2005,10 +2051,9 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
                            is_last=is_last, width=width)
             torch.cuda.synchronize()
             layer_wall = (time.perf_counter() - t0) * 1e3
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with kernel_trace() as prof:
                 layer_pass(params[layer], graph, tables[-1], cfg,
                            is_last=is_last, width=width)
-                torch.cuda.synchronize()
             busy, streams = device_streams(prof)
             if layer == 0:
                 from torch.autograd import DeviceType
