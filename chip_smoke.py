@@ -194,30 +194,42 @@ def kernel_trace():
         time.sleep(TRACE_MARGIN_S)
 
 
-def time_ms(fn, reps: int = REPS, flush=None,
-            launches: dict | None = None) -> tuple[float, float, dict]:
+def time_ms(fn, reps: int = REPS, flush=None, wrapper=None,
+            kernel: str | None = None) -> tuple[float, float, dict]:
     """(device ms, call ms, device ms by name) of one ``fn()``, after 3
     warm-up runs.
 
     device: the summed time of the device kernels ``fn`` launches, from a
-    ``torch.profiler`` trace of ``reps`` calls, divided by ``reps``; by
-    name: the same split per device kernel name.
+    ``torch.profiler`` trace of ``reps`` calls; by name: the same split per
+    device kernel name.
     call: the median over ``reps`` calls of CUDA events recorded around
     each call, which includes the host's launch overhead whenever the
     device waits for the host.
     flush: ``l2_flush()``'s function, run before every call, outside the
-    events; its device kernel is left out of the sums.  launches: filled
-    with each device kernel's launches per call, by name.  A trace that
-    comes back with no device kernel at all, or with a kernel counted a
-    number of times that is not a multiple of ``reps`` (the tracer drops
-    records now and then on the card's machine, which would undercount
-    both the time and the launches), is taken again, up to five times.
+    events; its device kernel is left out of the sums.
+    wrapper, kernel: the kernel wrapper ``fn`` calls and the hand-written
+    device kernel it must launch.  Every traced call must add exactly one
+    to the wrapper's own launch count, and ``kernel`` must be the only
+    hand-written kernel in the traces (AssertionError otherwise).
+
+    The profiler only times.  A trace that comes back with no device
+    kernel at all, or with a kernel counted a number of times that is not
+    a multiple of ``reps`` (the tracer drops records now and then on the
+    card's machine), is taken again, up to five times, or until a partial
+    trace repeats the previous one's counts (a drop that repeats).  Then
+    the fullest trace is read: each kernel's time a call is the mean of
+    its kept launches times its launches a call (one for ``kernel``, by
+    the wrapper's count; the count over ``reps`` rounded, at least 1, for
+    the others), which a dropped record does not bias.
     """
     import torch
     from torch.autograd import DeviceType
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if wrapper is not None:
+        wrapper.launches = 0
+    best, last, names = [], None, set()
     for attempt in range(5):
         with kernel_trace() as prof:
             for _ in range(reps):
@@ -227,29 +239,54 @@ def time_ms(fn, reps: int = REPS, flush=None,
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and not (flush is not None and FLUSH_KERNEL in e.key)]
-        partial = [e.key for e in events if e.count % reps]
+        names |= {_short(e.key) for e in events}
+        partial = {_short(e.key): e.count for e in events if e.count % reps}
         if events and not partial:
             break
+        if sum(e.count for e in events) > sum(e.count for e in best):
+            best = events
         log(f"  (trace {attempt + 1} recorded "
-            + (f"partial counts of {[_short(k) for k in partial]}"
-               if events else "no device kernel") + "; tracing again)")
-    else:
-        raise RuntimeError("the profiler recorded no complete trace in five")
+            + (f"partial counts {partial} of {reps} calls" if events
+               else "no device kernel") + ")")
+        if events and partial == last:
+            break
+        last = partial if events else None
+    complete = bool(events) and not partial
+    if not complete:
+        if not best:
+            raise RuntimeError("the profiler recorded no device kernel in "
+                               "five traces")
+        events = best
+        log("  (reading the fullest partial trace: each kernel's time a "
+            "call as the mean of its kept launches times its launches a "
+            "call)")
+    if wrapper is not None:
+        # the tracer drops records but adds none: a complete trace holds
+        # reps launches of the kernel, a partial one no more
+        ours = sorted(names & set(HAND_WRITTEN))
+        traced = sum(e.count for e in events if _short(e.key) == kernel)
+        if (wrapper.launches != reps * (attempt + 1) or ours != [kernel]
+                or traced > reps or (complete and traced != reps)):
+            raise AssertionError(
+                f"{wrapper.__name__}: {wrapper.launches} launches counted in "
+                f"{reps * (attempt + 1)} calls, {traced} {kernel} in a trace "
+                f"of {reps}, hand-written device kernels {ours}; expected "
+                f"one {kernel} a call")
     by_name = {}
     for e in events:
         key = _short(e.key)
-        by_name[key] = by_name.get(key, 0.0) + _device_us(e) / reps / 1e3
-        if launches is not None:
-            launches[key] = launches.get(key, 0) + e.count / reps
+        per_call = 1 if key == kernel else max(1, round(e.count / reps))
+        by_name[key] = (by_name.get(key, 0.0)
+                        + _device_us(e) / e.count * per_call / 1e3)
     device_ms = sum(by_name.values())
     return device_ms, event_ms(fn, reps, flush, warmup=0), by_name
 
 
 def one_kernel_ms(fn, wrapper, kernel: str,
-                  reps: int = REPS) -> tuple[float, float]:
-    """(device ms, call ms) of one ``fn()`` that calls the kernel wrapper
-    ``wrapper`` once and launches one device kernel, named ``kernel``,
-    after 3 warm-up runs.
+                  reps: int = REPS) -> tuple[float, float, int]:
+    """(device ms, call ms, launches the trace kept) of one ``fn()`` that
+    calls the kernel wrapper ``wrapper`` once and launches one device
+    kernel, named ``kernel``, after 3 warm-up runs.
 
     The wrapper's own count over ``reps`` calls must be ``reps``, and a
     ``torch.profiler`` trace of ``reps`` calls must record ``kernel`` and no
@@ -286,9 +323,8 @@ def one_kernel_ms(fn, wrapper, kernel: str,
                              f"launches counted in {reps * (attempt + 1)} "
                              f"calls")
     (evt,) = events
-    if evt.count != reps:
-        log(f"  (the trace kept {evt.count} of {reps} launches of {kernel})")
-    return _device_us(evt) / evt.count / 1e3, event_ms(fn, reps, warmup=0)
+    return (_device_us(evt) / evt.count / 1e3, event_ms(fn, reps, warmup=0),
+            evt.count)
 
 
 def event_ms(fn, reps: int = 5, flush=None, warmup: int = 2) -> float:
@@ -376,14 +412,9 @@ def check_fused_sample(graph, frontiers, fanouts, salt):
             if not torch.equal(a, b):
                 raise AssertionError(f"fused_sample {name} differs from the "
                                      f"plain version at level {depth}")
-        per_call = {}
         ms, call, split = time_ms(lambda: fused_sample(*args, fanout=fanout),
-                                  launches=per_call)
-        ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
-        if ours != {"fused_sample_kernel": 1}:
-            raise AssertionError(f"fused_sample level {depth}: hand-written "
-                                 f"device kernels per call {ours}, expected "
-                                 f"one fused_sample_kernel")
+                                  wrapper=fused_sample,
+                                  kernel="fused_sample_kernel")
         plain, _, _ = time_ms(lambda: fused_sample_plain(*args,
                                                          fanout=fanout))
         B, S = seeds.shape
@@ -502,14 +533,9 @@ def check_sage_aggregate(layer_inputs, shapes: str):
                               atol=SAGE_TOL):
             raise AssertionError("embedding_bag yardstick disagrees")
         del got, lib_out
-        per_call = {}
         ms, call, _ = time_ms(lambda: sage_aggregate(edges, h),
-                              launches=per_call)
-        ours = {k: v for k, v in per_call.items() if k in HAND_WRITTEN}
-        if ours != {"sage_aggregate_kernel": 1}:
-            raise AssertionError(f"sage_aggregate {shapes} layer {layer}: "
-                                 f"hand-written device kernels per call "
-                                 f"{ours}, expected one sage_aggregate_kernel")
+                              wrapper=sage_aggregate,
+                              kernel="sage_aggregate_kernel")
         plain, _, _ = time_ms(lambda: sage_aggregate_plain(edges, h))
         lib, _, _ = time_ms(lambda: F.embedding_bag(bag, table, mode="mean",
                                                     padding_idx=B * N))
@@ -570,29 +596,57 @@ def check_forward_edge_shapes(rng) -> None:
     alignment (the scalar path at D = 100), and wide rows (F = 8192, the
     most ids a block stages, and 8193, 11 361, 16 384 past it, at D = 100
     and 256: one hand-written kernel a call, the wide-row one past 8192);
-    ids -1 and >= N, and duplicates, everywhere."""
+    ids -1 and >= N, and duplicates, everywhere.  Then the wide rows that
+    the wide kernel's compaction makes risky: a hub row of 11 361 valid
+    ids, rows of only -1 and of only ids >= N, F = 8194 and 8195 (with
+    8193, every row start mod 16 bytes), valid ids across the compacted
+    chunks' boundaries and a row that fills every chunk (F = 3 *
+    WIDE_CHUNK_IDS + 5), the scalar path at F = 11 361 (D = 33, and
+    D = 100 with h off 16-byte alignment), and D = 257 and 1028 (two
+    column passes over a row, scalar and float4)."""
     import numpy as np
     import torch
     from repro_torch.kernels.sage_aggregate import (MAX_STAGED_IDS,
+                                                    WIDE_CHUNK_IDS,
                                                     sage_aggregate)
-    # (label, B, S, F, N, D)
-    cases = [("S = 1, B = 1", 1, 1, 5, 60, 100),
-             ("B = 1", 1, 700, 10, 900, 256),
-             ("a tile of only -1 rows", 2, 300, 5, 400, 100),
-             ("S = 0", 2, 0, 5, 50, 100),
-             ("F = 1", 3, 500, 1, 200, 256),
-             ("F = 33 (generic path)", 2, 300, 33, 500, 100),
-             ("D = 1", 3, 500, 15, 100, 1),
-             ("D = 33", 2, 400, 10, 300, 33),
-             ("D = 130", 2, 400, 15, 300, 130),
-             ("D = 256", 4, 1000, 15, 3000, 256),
-             ("h off 16-byte alignment", 2, 600, 5, 800, 100)]
+    # (label, B, S, F, N, D, kind of wide rows)
+    cases = [("S = 1, B = 1", 1, 1, 5, 60, 100, ""),
+             ("B = 1", 1, 700, 10, 900, 256, ""),
+             ("a tile of only -1 rows", 2, 300, 5, 400, 100, ""),
+             ("S = 0", 2, 0, 5, 50, 100, ""),
+             ("F = 1", 3, 500, 1, 200, 256, ""),
+             ("F = 33 (generic path)", 2, 300, 33, 500, 100, ""),
+             ("D = 1", 3, 500, 15, 100, 1, ""),
+             ("D = 33", 2, 400, 10, 300, 33, ""),
+             ("D = 130", 2, 400, 15, 300, 130, ""),
+             ("D = 256", 4, 1000, 15, 3000, 256, ""),
+             ("h off 16-byte alignment", 2, 600, 5, 800, 100, "")]
     # wide rows: F at and past the MAX_STAGED_IDS ids a block stages (exact
     # inference pads to the max in-degree, 11 361 on phase 3's graph)
     cases += [(f"F = {Fo} (wide rows)" if Fo > MAX_STAGED_IDS
-               else f"F = {Fo}", 2, 48, Fo, 5000, D)
+               else f"F = {Fo}", 2, 48, Fo, 5000, D, "")
               for Fo in WIDE_FANOUTS for D in (100, 256)]
-    for label, B, S, Fo, N, D in cases:
+    chunks = 3 * WIDE_CHUNK_IDS + 5
+    cases += [(f"a hub row of {WIDE_FANOUTS[2]} valid ids", 1, 8,
+               WIDE_FANOUTS[2], 20000, D, "hub") for D in (100, 256)]
+    cases += [("rows of only -1 and of only ids >= N", 2, 16,
+               WIDE_FANOUTS[2], 5000, 100, "empty")]
+    cases += [(f"F = {Fo} (rows start at "
+               f"{len({r * Fo * 4 % 16 for r in range(4)})} offsets mod 16 B)",
+               2, 48, Fo, 5000, 100, "") for Fo in (8194, 8195)]
+    cases += [(f"F = {chunks}: ids across the boundaries of "
+               f"{WIDE_CHUNK_IDS}-id chunks", 1, 6, chunks, 5000, D, "chunks")
+              for D in (100, 256)]
+    cases += [(f"D = 33 (scalar path), F = {WIDE_FANOUTS[2]}", 2, 24,
+               WIDE_FANOUTS[2], 3000, 33, ""),
+              (f"h off 16-byte alignment (scalar path), F = "
+               f"{WIDE_FANOUTS[2]}", 2, 24, WIDE_FANOUTS[2], 3000, 100, ""),
+              (f"D = 257 (scalar path, two column passes), F = "
+               f"{WIDE_FANOUTS[1]}", 1, 12, WIDE_FANOUTS[1], 2000, 257, ""),
+              (f"D = 1028 (two float4 column passes), F = "
+               f"{WIDE_FANOUTS[1]}", 1, 12, WIDE_FANOUTS[1], 2000, 1028,
+               "")]
+    for label, B, S, Fo, N, D, kind in cases:
         e = rng.integers(-1, N + 3, (B, S, Fo)).astype(np.int32)
         if S:
             e[:, 0] = e[:, 0, :1]                 # a duplicate run
@@ -601,6 +655,24 @@ def check_forward_edge_shapes(rng) -> None:
         if Fo >= MAX_STAGED_IDS:
             e[:, 1:20, 300:] = -1                 # mostly padding, as in
             #                                       exact inference
+        if kind == "hub":                         # every id valid
+            e[0, 0] = rng.integers(0, N, Fo)
+        elif kind == "empty":
+            e[:, 1:5] = -1
+            e[:, 5:9] = rng.integers(N, N + 1000, (B, 4, Fo))
+        elif kind == "chunks":
+            # row 0 fills every chunk's compacted list; rows 1-3 hold
+            # valid ids only from 8 before to 5 after each chunk boundary
+            # (the head offset moves a boundary by up to 3 ids), at the
+            # row's ends, or two at each boundary among ids >= N
+            e[0, 0] = rng.integers(0, N, Fo)
+            e[0, 1:4] = -1
+            e[0, 3] = rng.integers(N, N + 9, Fo)
+            for b in range(WIDE_CHUNK_IDS, Fo, WIDE_CHUNK_IDS):
+                e[0, 1, b - 8:b + 5] = rng.integers(0, N, 13)
+                e[0, 3, b - 1:b + 1] = rng.integers(0, N, 2)
+            e[0, 2, :3] = rng.integers(0, N, 3)
+            e[0, 2, -3:] = rng.integers(0, N, 3)
         e = torch.from_numpy(e).cuda()
         buf = torch.from_numpy(rng.normal(0, 1, B * N * D + 1).astype(
             np.float32)).cuda()
@@ -1961,8 +2033,9 @@ def check_wide_batch(params, graph, tables, cfg, width: int):
         D = h.shape[-1]
         table = torch.cat([h, h.new_zeros((1, D))])
         bag = torch.where(samples >= 0, samples, n).long()
-        ms, call = one_kernel_ms(lambda: sage_aggregate(samples, h),
-                                 sage_aggregate, "sage_aggregate_wide_kernel")
+        ms, call, kept = one_kernel_ms(lambda: sage_aggregate(samples, h),
+                                       sage_aggregate,
+                                       "sage_aggregate_wide_kernel")
         # the plain version and embedding_bag by CUDA events: the profiler
         # drops records of these multi-GB calls in every retake
         plain_ms = event_ms(lambda: sage_aggregate_plain(samples, h))
@@ -1979,7 +2052,8 @@ def check_wide_batch(params, graph, tables, cfg, width: int):
         nbytes = (samples.numel() * 4 + unique_rows(samples[None], n) * D * 4
                   + samples.shape[0] * D * 4)
         res = {"ms": ms, "call_ms": call, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "err": agg_err}
+               "library_ms": lib_ms, "err": agg_err,
+               "launches_traced": f"{kept} of {REPS}"}
         bnd = add_bound(res, nbytes, n_valid * D + samples.shape[0] * D)
         res.update(edges=list(samples.shape), h=list(h.shape),
                    valid_slots=n_valid, max_abs_err=agg_err)
@@ -1988,7 +2062,8 @@ def check_wide_batch(params, graph, tables, cfg, width: int):
             f"aggregate == f-ordered loop bit for bit (max abs err "
             f"{agg_err:.3g} against the plain version), rows within "
             f"{err:.3g} of a plain-version forward (tol {LOGIT_TOL}); one "
-            f"sage_aggregate_wide_kernel a call, device {ms:.4f} ms, call "
+            f"sage_aggregate_wide_kernel a call, device {ms:.4f} ms (the "
+            f"trace kept {kept} of {REPS} launches), call "
             f"{call:.4f} ms (by events: plain {plain_ms:.4f} ms, "
             f"embedding_bag {lib_ms:.4f} ms; bound {bnd:.5f} ms for {nbytes} "
             f"B: {bnd / ms:.1%} of it)")
@@ -2005,6 +2080,7 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
     import numpy as np
     import torch
     import repro_torch.kernels as K
+    from torch.autograd import DeviceType
     from repro_torch.core.inference import (inference_width, layer_pass,
                                             layerwise_inference)
     from repro_torch.serve import Predictor
@@ -2040,6 +2116,15 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
         f"finite, {wall:.3f} s wall, peak device memory {peak:.2f} GB "
         f"(torch.cuda.max_memory_allocated); launches {counts}")
 
+    # the distinct source rows of each batch's valid slots, summed over
+    # the batches (every in-edge: the run is uncapped), for the layers'
+    # byte bounds
+    dst = torch.repeat_interleave(torch.arange(n, device="cuda"),
+                                  graph.degrees().long())
+    distinct = int(torch.unique(dst // INFER_BATCH * n
+                                + graph.indices.long()).numel())
+    del dst
+
     # per layer: wall, then device busy from a profiled pass of the layer
     tables, layers = [x], []
     with torch.no_grad():
@@ -2055,23 +2140,41 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
                 layer_pass(params[layer], graph, tables[-1], cfg,
                            is_last=is_last, width=width)
             busy, streams = device_streams(prof)
+            rows = sorted(((_device_us(e) / 1e3, e.count, _short(e.key))
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA),
+                          reverse=True)
             if layer == 0:
-                from torch.autograd import DeviceType
-                rows = sorted(((_device_us(e) / 1e3, e.count, _short(e.key))
-                               for e in prof.key_averages()
-                               if e.device_type == DeviceType.CUDA),
-                              reverse=True)
                 log("  layer 0's device ms by kernel (top 8): " + ", ".join(
                     f"{name} {ms:.1f} (x{count})"
                     for ms, count, name in rows[:8]))
+            # the wide kernel over the pass: the trace's launches (it may
+            # drop records) and their total, beside the layer's byte bound
+            # (each batch's ids, its distinct valid source rows, the output)
+            (wide_ms, wide_n), = [(ms, count) for ms, count, name in rows
+                                  if name == "sage_aggregate_wide_kernel"]
+            D = tables[-1].shape[1]
+            bound = (n * width * 4 + distinct * D * 4 + n * D * 4) \
+                / HBM_BYTES_PER_S * 1e3
             tables.append(h)
             layers.append({"wall_ms": layer_wall, "device_busy_ms": busy,
                            "device_ops": streams[0][0],
-                           "idle_share": 1 - busy / layer_wall})
+                           "idle_share": 1 - busy / layer_wall,
+                           "wide_kernel": {
+                               "launches_traced": wide_n,
+                               "total_ms": wide_ms,
+                               "mean_ms": wide_ms / wide_n,
+                               "bound_ms": bound,
+                               "mean_bound_ms": bound / batches}})
             log(f"  layer {layer}: {tuple(tables[-2].shape)} -> "
                 f"{tuple(h.shape)}: wall {layer_wall:.1f} ms, device busy "
                 f"{busy:.1f} ms in {streams[0][0]} device ops (idle share "
-                f"{1 - busy / layer_wall:.3f})")
+                f"{1 - busy / layer_wall:.3f}); sage_aggregate_wide_kernel "
+                f"{wide_ms:.1f} ms over the {wide_n} launches the trace kept "
+                f"of {batches}, {wide_ms / wide_n:.4f} ms a launch (bound "
+                f"{bound:.3f} ms a layer, {bound / batches:.5f} a launch, "
+                f"for {distinct} distinct source rows: "
+                f"{bound / batches / (wide_ms / wide_n):.1%} of it)")
     if not torch.equal(tables[-1], logits):
         raise AssertionError("the layer-by-layer run differs in bits from "
                              "layerwise_inference")
@@ -2351,9 +2454,12 @@ def main() -> int:
                 f"D={D}": {k: w[k] for k in (
                     "edges", "h", "valid_slots", "ms", "call_ms",
                     "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "max_abs_err")} for D, w in sorted(wide.items())}
+                    "max_abs_err", "launches_traced")}
+                for D, w in sorted(wide.items())}
             entry["wide_rows"]["launches_per_pass"] = \
                 infer_counts[name]
+            entry["wide_rows"]["layers"] = [
+                lay["wide_kernel"] for lay in exact["layers"]]
         if serving and at_step:
             entry["training_step"] = {
                 k: at_step.get(k) for k in ("ms", "call_ms", "plain_ms",

@@ -56,13 +56,41 @@
 // kMaxStagedIds so the staged ids fit in 32 KB of shared memory.
 //
 // Wide rows (F > kMaxStagedIds: exact inference pads every row to the
-// graph's max in-degree, 11 361 on the H100 check's graph) take another
-// kernel in the same launch: one block per destination row (R = 1), which
-// stages the row's ids kMaxStagedIds at a time and keeps each column's sum
-// and the valid count in registers across the chunks.  It adds in the same
-// f order from the same +0.0, so its bits are those the narrow kernel
-// would give.  A simple path: each thread reads every staged id of the row
-// (most are -1 padding in exact inference), kChunk loads in flight.
+// graph's max in-degree, 11 361 on the H100 check's graph, and 99.8 % of
+// those slots are -1) take another kernel in the same launch: one block of
+// kWideThreads per destination row, whatever D is.  Its bytes are the
+// row's F ids (45 KB at 11 361) far more than the few source rows most
+// rows name, and one hub row names 11 361.  So, per chunk of kWideChunk
+// ids:
+//   1. The ids are read once, at bandwidth: each thread loads kWideVecs
+//      16-byte vectors (coalesced across the block, streamed past L2).  An
+//      odd F leaves a row's ids only 4-byte aligned, so the vectors are
+//      those of the 16-byte boundary at or below the row's start, and the
+//      one or two that straddle its ends are read one id at a time.
+//   2. The valid ids are compacted in f order into shared memory: each
+//      thread counts its vectors' valid ids, a warp scans the counts
+//      (packed 8 bits a vector, one shuffle scan for four vectors), warp
+//      0 scans the (vector, warp) totals, and each thread writes its valid
+//      ids at its offset.  The -1 padding costs its read and nothing else.
+//   3. The listed rows are gathered through a ring of kWideStages stages
+//      in kWideRingBytes of shared memory, with one warp per 32 columns
+//      adding and every other warp copying: the copiers fill a stage with
+//      16-byte cp.async copies (4-byte ones on the scalar path) as soon as
+//      the adders have emptied it, and signal its full mbarrier when the
+//      copies land (cp.async.mbarrier.arrive); the adders take the stages
+//      in list order and signal its empty mbarrier.  No block-wide barrier
+//      stands between stages, so a hub row keeps the whole ring in flight.
+// Each column's sum and the valid count carry over from chunk to chunk,
+// so the sum is the f-ordered one from +0.0 over the valid ids only; with
+// invalid terms being +0.0, those are the bits the narrow kernel gives.
+// The chunk's list (48 KB), the scan's totals, the mbarriers and the ring
+// (64 KB) are dynamic shared memory, opted in above 48 KB by the launcher:
+// two blocks an SM.  Columns past kWideCols take another pass over the row.
+// The ring's shape was chosen by timing variants on an H100: the hub row
+// is bound by issuing its copies, not by bytes in flight; three large
+// stages beat deeper rings of smaller ones, whose per-stage hand-off
+// costs more, and a single copying warp (or TMA bulk copies, one a row)
+// is slower again.
 //
 // Layout: edges (B, S, F) int32, valid iff in [0, N); h (B, N, D) float32;
 // out (B, S, D) float32.  B is the worker axis.
@@ -101,13 +129,44 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;  // backward
 constexpr int kRowsPerWarp = 8;    // backward: source rows one warp walks
 constexpr int kMaxStagedIds = 8192;  // forward: ids a block stages (32 KB)
 constexpr int kChunk = 8;  // forward, generic F: loads in flight per batch
-constexpr int kWideMaxThreads = 512;  // forward, F > kMaxStagedIds
+// forward, F > kMaxStagedIds (the wide-row kernel): a block of kWideThreads
+// takes kWideVecs int4 of ids a thread per chunk, kWideChunk ids; its
+// gather ring is kWideStages stages in kWideRingBytes (kWideSmem in all,
+// 112.4 KB: two blocks an SM).
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideVecs = 6;
+constexpr int kWideChunk = kWideThreads * kWideVecs * 4;  // 12 288 ids
+constexpr int kWideScan = kWideVecs * kWideWarps;  // per (vector, warp)
+constexpr int kWideStages = 3;
+constexpr int kWideRingBytes = 64 << 10;
+// columns (in T) a gather pass adds: at most half the block's threads, so
+// that at least half of its warps produce
+constexpr int kWideCols = kWideThreads / 2;
+// a ring stage holds at least one source row's kWideCols columns, float4
+// (and so float) ones
+static_assert(kWideRingBytes / kWideStages / 16 >= kWideCols,
+              "a ring stage must hold one row of a column pass");
+// shared memory: the chunk's list, the scan's totals, its count (padded
+// to 8 bytes), a full and an empty mbarrier a ring stage, the ring
+constexpr int kWideBarOffset = (kWideChunk + kWideScan + 2) * 4;
+constexpr int kWideRingOffset =
+    (kWideBarOffset + 2 * kWideStages * 8 + 15) / 16 * 16;
+constexpr int kWideSmem = kWideRingOffset + kWideRingBytes;
+// blocks an SM can hold (228 KB of shared memory, 1 KB of it reserved per
+// block)
+constexpr int kWideBlocksPerSM = 228 * 1024 / (kWideSmem + 1024);
+static_assert(kWideBlocksPerSM >= 1, "the wide kernel's shared memory");
+static_assert(kWideBarOffset % 8 == 0, "mbarriers are 8-byte aligned");
+static_assert(kWideScan % 32 == 0, "warp 0 scans kWideScan / 32 a lane");
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -203,50 +262,254 @@ __global__ void __launch_bounds__(kForwardMaxThreads<kF>)
   }
 }
 
-// Wide rows: T and Dv as above, F > kMaxStagedIds, one block per
-// destination row.  Columns are walked a block's width at a time (one pass
-// when Dv <= blockDim.x); for each, the row's ids are staged in chunks of
-// kMaxStagedIds, and the sum and count carry over from chunk to chunk.
+// cp.async copies into shared memory, 16 bytes (float4, L2 only) or 4
+// (float): the wide kernel's gather ring.
+__device__ __forceinline__ void cp_async(float4* dst, const float4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+// mbarriers in shared memory (by their shared-window address): the
+// wide kernel's producer/consumer hand-off
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_inval(unsigned bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(bar)
+      : "memory");
+}
+// arrives on `bar` once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Wide rows: T and Dv as above, F > kMaxStagedIds, one block of
+// kWideThreads per destination row.  Per chunk of kWideChunk ids: read the
+// ids (16-byte loads, the row's unaligned head and tail one id at a time),
+// compact the valid ones in f order into s_list (per-thread counts, a warp
+// scan of them packed 8 bits per vector, warp 0 scanning the warps'
+// totals), then gather their source rows through the kWideStages-deep
+// ring, copying warps ahead of adding warps, and add them in list order.
+// Columns past kWideCols take another pass over the row.
 template <typename T>
-__global__ void __launch_bounds__(kWideMaxThreads)
+__global__ void __launch_bounds__(kWideThreads, kWideBlocksPerSM)
     sage_aggregate_wide_kernel(const int* __restrict__ edges,
                                const T* __restrict__ h, int S, int F, int N,
                                int Dv, T* __restrict__ out) {
-  __shared__ int s_ids[kMaxStagedIds];
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int kVecsPerChunk = kWideThreads * kWideVecs;
+  constexpr int kStageElems = kWideRingBytes / kWideStages / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_list = reinterpret_cast<int*>(smem);      // kWideChunk ids
+  int* s_scan = s_list + kWideChunk;               // kWideScan totals
+  int* s_n = s_scan + kWideScan;                   // the chunk's count
+  T* ring = reinterpret_cast<T*>(smem + kWideRingOffset);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const long long row = blockIdx.x;
   const int* e = edges + row * F;
+  // the row as int4 vectors from the 16-byte boundary at or below e: id f
+  // is component (f + head) % 4 of vector (f + head) / 4
+  const int head = (int)((reinterpret_cast<unsigned long long>(e) >> 2) & 3);
+  const int4* ev = reinterpret_cast<const int4*>(e - head);
+  const long long Q = ((long long)head + F + 3) >> 2;
   const T* hb = h + row / S * (long long)N * Dv;
   T* o = out + row * Dv;
-  for (int c0 = 0; c0 < Dv; c0 += blockDim.x) {
-    const int c = c0 + threadIdx.x;
-    const bool live = c < Dv;
+  const unsigned bars =
+      (unsigned)__cvta_generic_to_shared(smem + kWideBarOffset);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kWideStages + s); };
+  for (int c0 = 0; c0 < Dv; c0 += kWideCols) {
+    const int Cp = min(Dv - c0, kWideCols);
+    // warps [0, nc) add (thread c < Cp owns column c0 + c), the other np
+    // threads copy
+    const int nc = (Cp + 31) / 32;
+    const int np = kWideThreads - 32 * nc;
+    const bool live = tid < Cp;
+    const int G = max(1, kStageElems / Cp);  // source rows a ring stage
+    // a producer's first (row, column) of a stage's G * Cp copies, and the
+    // step of np copies in rows and columns
+    const int pt = tid - 32 * nc;
+    const int g_first = pt / Cp, c_first = pt - g_first * Cp;
+    const int g_step = np / Cp;
+    const int c_step = np - g_step * Cp;
+    if (tid == 0) {
+      for (int s = 0; s < kWideStages; ++s) {
+        mbar_init(full(s), np);
+        mbar_init(empty(s), 32 * nc);
+      }
+    }
     T acc = zero<T>();
     int count = 0;
-    for (int f0 = 0; f0 < F; f0 += kMaxStagedIds) {
-      const int n = min(kMaxStagedIds, F - f0);
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int i = threadIdx.x; i < n; i += blockDim.x)
-        s_ids[i] = __ldg(e + f0 + i);
-      __syncthreads();
-      if (!live) continue;
-      for (int u0 = 0; u0 < n; u0 += kChunk) {
-        T x[kChunk];
+    int k0 = 0;  // ring stages used by earlier chunks of this pass
+    for (long long q0 = 0; q0 < Q; q0 += kVecsPerChunk) {
+      // ids: vector q0 + u * kWideThreads + tid, -1 outside the row
+      int x[kWideVecs][4];
+      unsigned packed[(kWideVecs + 3) / 4] = {};
 #pragma unroll
-        for (int u = 0; u < kChunk; ++u) {
-          const int j = u0 + u < n ? s_ids[u0 + u] : -1;
-          const bool ok = (unsigned)j < (unsigned)N;
-          count += ok;
-          x[u] = ok ? load(hb + (long long)j * Dv + c) : zero<T>();
+      for (int u = 0; u < kWideVecs; ++u) {
+        const long long q = q0 + u * kWideThreads + tid;
+        const long long f = 4 * q - head;
+        int4 v = make_int4(-1, -1, -1, -1);
+        if (f >= 0 && f + 4 <= F) {
+          v = __ldcs(ev + q);
+        } else if (q < Q) {
+          if (f >= 0) v.x = __ldcs(e + f);
+          if (f + 1 >= 0 && f + 1 < F) v.y = __ldcs(e + f + 1);
+          if (f + 2 >= 0 && f + 2 < F) v.z = __ldcs(e + f + 2);
+          if (f + 3 < F) v.w = __ldcs(e + f + 3);
         }
+        x[u][0] = v.x;
+        x[u][1] = v.y;
+        x[u][2] = v.z;
+        x[u][3] = v.w;
+        unsigned c = 0;
 #pragma unroll
-        for (int u = 0; u < kChunk; ++u) add(acc, x[u]);
+        for (int k = 0; k < 4; ++k) c += (unsigned)x[u][k] < (unsigned)N;
+        packed[u / 4] += c << (8 * (u % 4));
+      }
+      // inclusive warp scan, each 8-bit field one vector's counts (a warp
+      // holds at most 128 valid ids of one vector)
+      unsigned incl[(kWideVecs + 3) / 4];
+#pragma unroll
+      for (int p = 0; p < (kWideVecs + 3) / 4; ++p) {
+        unsigned v = packed[p];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const unsigned y = __shfl_up_sync(kFull, v, d);
+          if (lane >= d) v += y;
+        }
+        incl[p] = v;
+      }
+      if (lane == 31) {
+#pragma unroll
+        for (int u = 0; u < kWideVecs; ++u)
+          s_scan[u * kWideWarps + warp] =
+              (incl[u / 4] >> (8 * (u % 4))) & 255;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // exclusive scan of the kWideScan warp totals in f order (vector
+        // index major, warp minor), kPer a lane
+        constexpr int kPer = kWideScan / 32;
+        int t[kPer];
+        int sum = 0;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          t[j] = s_scan[lane * kPer + j];
+          sum += t[j];
+        }
+        int run = sum;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(kFull, run, d);
+          if (lane >= d) run += y;
+        }
+        if (lane == 31) *s_n = run;
+        run -= sum;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          s_scan[lane * kPer + j] = run;
+          run += t[j];
+        }
+      }
+      __syncthreads();
+      const int n = *s_n;
+#pragma unroll
+      for (int u = 0; u < kWideVecs; ++u) {
+        const int sh = 8 * (u % 4);
+        int off = s_scan[u * kWideWarps + warp] +
+                  (int)(((incl[u / 4] - packed[u / 4]) >> sh) & 255);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if ((unsigned)x[u][k] < (unsigned)N) s_list[off++] = x[u][k];
+      }
+      count += n;
+      __syncthreads();
+      // gather-add s_list[0, n): stage k of the chunk holds list rows kG ..
+      // kG + G - 1 in ring slot (k0 + k) % kWideStages.  The producers fill
+      // a slot once the adders have emptied it, up to the whole ring ahead;
+      // the adders take the stages in order as they land.
+      const int stages = (n + G - 1) / G;
+      if (tid >= 32 * nc) {
+        for (int k = 0; k < stages; ++k) {
+          const int kr = k0 + k;
+          const int s = kr % kWideStages;
+          if (kr >= kWideStages)
+            mbar_wait(empty(s), (kr / kWideStages - 1) & 1);
+          const int r0 = k * G;
+          const int nr = min(G, n - r0);
+          T* dst = ring + s * G * Cp;
+          for (int g = g_first, c = c_first; g < nr;) {
+            cp_async(dst + g * Cp + c,
+                     hb + (long long)s_list[r0 + g] * Dv + c0 + c);
+            g += g_step;
+            c += c_step;
+            if (c >= Cp) {
+              c -= Cp;
+              ++g;
+            }
+          }
+          cp_async_arrive(full(s));
+        }
+      } else {
+        for (int k = 0; k < stages; ++k) {
+          const int kr = k0 + k;
+          const int s = kr % kWideStages;
+          mbar_wait(full(s), (kr / kWideStages) & 1);
+          if (live) {
+            const T* src = ring + s * G * Cp + tid;
+            const int nr = min(G, n - k * G);
+#pragma unroll 4
+            for (int g = 0; g < nr; ++g) add(acc, src[g * Cp]);
+          }
+          mbar_arrive(empty(s));
+        }
+      }
+      k0 += stages;
+      __syncthreads();  // s_list, s_scan and the ring are free again
+    }
+    if (tid == 0) {
+      for (int s = 0; s < kWideStages; ++s) {
+        mbar_inval(full(s));
+        mbar_inval(empty(s));
       }
     }
     if (!live) continue;
     if (count == 0) {
-      __stcs(o + c, zero<T>());
+      __stcs(o + c0 + tid, zero<T>());
     } else {
-      o[c] = div(acc, (float)count);
+      o[c0 + tid] = div(acc, (float)count);
     }
   }
 }
@@ -362,11 +625,33 @@ cudaError_t launch_forward_wide(const int* edges, const float* h,
                                 long long rows, int S, int F, int N, int Dv,
                                 int threads, float* out,
                                 cudaStream_t stream) {
-  if (threads > kWideMaxThreads || rows > 0x7fffffffLL)
+  if (threads != kWideThreads || rows > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
-  sage_aggregate_wide_kernel<T><<<(unsigned int)rows, threads, 0, stream>>>(
-      edges, reinterpret_cast<const T*>(h), S, F, N, Dv,
-      reinterpret_cast<T*>(out));
+  // above 48 KB of dynamic shared memory only by opting in; the largest
+  // carveout lets two blocks share an SM.  Function attributes belong to
+  // a device's context, so they are set once a device (host API calls an
+  // exact pass would otherwise make twice for each of its 2931 launches;
+  // two threads setting them at once is harmless).
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !ready[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(sage_aggregate_wide_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWideSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          sage_aggregate_wide_kernel<T>,
+          cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_release);
+  }
+  sage_aggregate_wide_kernel<T>
+      <<<(unsigned int)rows, kWideThreads, kWideSmem, stream>>>(
+          edges, reinterpret_cast<const T*>(h), S, F, N, Dv,
+          reinterpret_cast<T*>(out));
   return cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@ of its first pass.
 
 The forward takes any fanout: rows wider than the ``MAX_STAGED_IDS`` ids
 a block stages (exact inference pads to the max in-degree) go through the
-wide-row kernel in the same launch, with the same bits.
+wide-row kernel in the same launch, with the same bits: it compacts each
+``WIDE_CHUNK_IDS`` ids of a row to the valid ones in f order and adds
+only those, which gives the bits of adding +0.0 for the others.
 
 ``sage_aggregate`` runs the plain version (and trains through autograd)
 for CPU tensors only; for CUDA tensors it is a ``torch.autograd.Function``
@@ -36,6 +38,10 @@ ROWPTR_TILE = 4 * THREADS   # kScanTile in csrc/sage_backward_index.cu
 # the forward kernel's launch shape (csrc/sage_aggregate.cu)
 MAX_STAGED_IDS = 8192       # kMaxStagedIds: edge ids a block stages
 MIN_THREADS = 256           # a block takes rows up to this many threads
+# the wide-row kernel (F > MAX_STAGED_IDS): one row a block of
+# kWideThreads, which compacts its valid ids kWideChunk at a time
+WIDE_THREADS = 512
+WIDE_CHUNK_IDS = 12288
 
 
 def forward_max_threads(F: int) -> int:
@@ -54,9 +60,11 @@ def forward_plan(D: int, F: int, vec: bool) -> tuple[int, int]:
     thread.  R makes the pairs an exact multiple of 32 threads (no idle
     lane), then doubles until the block has ``MIN_THREADS`` threads, and
     halves while the tile's R * F ids exceed ``MAX_STAGED_IDS``.  Past
-    ``MAX_STAGED_IDS`` (wide rows) R is 1 and the wide-row kernel stages
-    the row's ids in chunks of that many.
+    ``MAX_STAGED_IDS`` (wide rows) the wide-row kernel takes one row a
+    block of ``WIDE_THREADS``, whatever D is.
     """
+    if F > MAX_STAGED_IDS:
+        return 1, WIDE_THREADS
     C = D // 4 if vec else D
     k = pairs_per_thread(F)
     R = 32 * k // math.gcd(C, 32 * k)

@@ -9,7 +9,10 @@
     another order).  A numpy model of the CUDA forward's arithmetic (ids
     staged per tile of ``forward_plan``, f-ordered predicated sums from
     +0.0) equals an f-ordered torch loop bit for bit, is batch-invariant,
-    and agrees with the plain version and ``repro`` within 1e-5.
+    and agrees with the plain version and ``repro`` within 1e-5.  At wide
+    F (past the ids a block stages) the CPU path agrees with ``repro``'s
+    ``mean_aggregate`` within 1e-5 (rows all valid, all -1, all >= N,
+    mixed).
   * feature_gather: rows equal by value (``np.array_equal``) to ``repro``'s
     Pallas kernel in interpret mode.
   * gather_rows: exact against ``repro``'s ``gather_rows_reference`` (its
@@ -41,6 +44,8 @@ import torch
 
 from repro.core.graph import CSCGraph as JCSC
 from repro.core.graph import csc_from_numpy_edges as j_csc
+from repro.core.mfg import MFG as JMFG
+from repro.core.mfg import mean_aggregate as j_mean_aggregate
 from repro.kernels.feature_gather import feature_gather as j_feature_gather
 from repro.kernels.gather import gather_rows_reference
 from repro.kernels.ref import (ref_feature_gather, ref_fused_sample,
@@ -54,6 +59,7 @@ from repro_torch.kernels.feature_gather import (feature_gather,
 from repro_torch.kernels.fused_sample import fused_sample
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
 from repro_torch.kernels.sage_aggregate import (MAX_STAGED_IDS,
+                                                WIDE_CHUNK_IDS, WIDE_THREADS,
                                                 backward_index,
                                                 backward_prep_plain,
                                                 forward_max_threads,
@@ -322,11 +328,54 @@ def test_forward_plan_depends_on_d_and_f_only():
         for D in (0, 1, 33, 100, 130, 256, 4096):
             for vec in (True, False):
                 R, threads = forward_plan(D, F, vec)
-                # a wide row (F past the staged ids) is one row a block
-                assert R >= 1 and (R * F <= MAX_STAGED_IDS
-                                   or (F > MAX_STAGED_IDS and R == 1))
+                assert R >= 1 and R * F <= max(MAX_STAGED_IDS, F)
                 assert threads % 32 == 0
                 assert 32 <= threads <= forward_max_threads(F)
+                # a wide row (F past the staged ids) is one row a block of
+                # the wide kernel's fixed width, whatever D is
+                if F > MAX_STAGED_IDS:
+                    assert (R, threads) == (1, WIDE_THREADS)
+
+
+def _wide_inputs(F, D, N=300, seed=0):
+    """Wide rows (F past the staged ids), one of each kind: every id valid,
+    only -1, only ids >= N, and mixed (mostly -1 padding as exact
+    inference pads, a few ids >= N, valid ids around the wide kernel's
+    chunk boundaries and the row's ends)."""
+    rng = np.random.default_rng(seed + F + D)
+    edges = np.full((4, F), -1, np.int32)
+    edges[0] = rng.integers(0, N, F)
+    edges[2] = rng.integers(N, N + 50, F)
+    live = rng.random(F) < 0.01
+    edges[3, live] = rng.integers(-1, N + 3, int(live.sum()))
+    for b in range(0, F, WIDE_CHUNK_IDS):
+        near = slice(max(b - 5, 0), min(b + 5, F))
+        edges[3, near] = rng.integers(0, N, near.stop - near.start)
+    edges[3, -3:] = rng.integers(0, N, 3)
+    h = rng.normal(0, 1, (N, D)).astype(np.float32)
+    return edges, h
+
+
+@pytest.mark.parametrize("D", [33, 100])
+@pytest.mark.parametrize("F", [MAX_STAGED_IDS + 1, MAX_STAGED_IDS + 3, 11361])
+def test_wide_rows_match_repro_mean_aggregate(F, D):
+    """The forward's CPU path at wide F (rows all valid, all -1, all >= N,
+    mixed) against ``repro.core.mfg.mean_aggregate`` on the same inputs,
+    within 1e-5 (the sums run in another order); rows with no valid id are
+    +0.0."""
+    edges, h = _wide_inputs(F, D)
+    N = h.shape[0]
+    got = sage_aggregate(torch.from_numpy(edges), torch.from_numpy(h))
+    mask = (edges >= 0) & (edges < N)
+    S = edges.shape[0]
+    mfg = JMFG(dst_nodes=jnp.arange(S), src_nodes=jnp.arange(N),
+               num_src=jnp.int32(N), edges=jnp.asarray(edges),
+               edge_mask=jnp.asarray(mask),
+               indptr=jnp.zeros(S + 1, jnp.int32))
+    ref = jax.jit(j_mean_aggregate)(mfg, jnp.asarray(h))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    assert not got[1:3].any() and not torch.signbit(got[1:3]).any()
 
 
 @pytest.mark.parametrize("N,M,D", [(1, 1, 1), (50, 30, 8), (300, 129, 33),
