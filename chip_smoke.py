@@ -70,7 +70,8 @@ Phases (any failure raises and the script exits non-zero):
      step (the stager's host replay applies the window), every kernel of
      the path launched, a restart at step 5 replays steps 5-9; its step
      wall, the mean host ms of each driver, executor and stager span over
-     3 traced steps (``repro_torch.obs``; unfenced, and fenced), device
+     3 traced steps (1 for ``staged``; ``repro_torch.obs``; unfenced, and
+     fenced), device
      busy and idle share over 2 steps profiled one
      by one (taken again when their counts of device ops differ), the
      stager's ring-empty waits and pinned bytes, and peak
@@ -117,8 +118,42 @@ Phases (any failure raises and the script exits non-zero):
      for bit and its rows are within 1e-4 of a plain-version forward; the
      forward at that (512, 11 361, D) shape is timed beside its plain
      version and ``embedding_bag``.  Last, exact accuracy on the test
-     split (the unlabelled nodes) beside the sampled ``predict``'s on the
-     same nodes.
+     split (the unlabelled nodes), and on its first 16 384 nodes beside
+     the sampled ``predict``'s.
+ 12. the convs: gcn, gat (4 heads) and gin in turn at ``PRODUCTS`` widths,
+     random weights from seed 0, on phase 8's layout, ``pinned_hot`` store
+     and cache.  Each: one step with the kernels against the same step
+     with plain versions (loss within 1e-5, each gradient leaf within
+     tolerance); 5 ``SyncDriver`` steps (finite losses, 2 rounds a step,
+     all six kernel wrappers launched; step wall, device busy over 2
+     more profiled steps, peak memory); for gat the same 5 steps again
+     with its edges gathered from the projected table of its sources
+     (exact inference's way; the first loss equal), timed the same way
+     beside training's projection of the gathered rows.  With the 5
+     steps' weights: a ``Predictor`` at buckets (1, 8, 32, 128) over
+     phase 3's pipeline, its 128-seed ``predict`` within 1e-4 of a
+     plain-version forward (for gin an absolute 1e-4 of each row's
+     largest |logit|: its sums grow with the in-degree) and 100 of phase
+     6's ``hotset`` arrivals through ``GNNServer`` equal
+     to direct ``predict`` bit for bit; exact inference, gcn and gin
+     uncapped (one forward launch per batch and layer; the max in-degree
+     batch's aggregate equal to the f-ordered loop bit for bit), gat
+     under a cap of 2048 in-edges (the sampler's window; one launch per
+     batch, its last layer), each layer's wall and device busy under the
+     profiler, the max batch's rows against a plain-version forward (the
+     same tolerance), exact accuracy on the test split beside the sampled
+     ``predict``'s on its first 16 384 nodes.
+ 13. the data layer and the partitioners: ``rmat`` at phase 3's size
+     (``dataset_stats``), saved and loaded back memory-mapped and eager
+     equal bit for bit, ``Pipeline.build_from_source(path)`` under
+     ``hash`` and 3 training steps; ``sbm(4,0.9,0.1)`` at 100 000 nodes
+     under ``degree_stratified(0.3)`` through streaming LDG
+     (``partition_chunk_edges``) and 3 steps; ``AdaptiveFanout`` forced
+     down a rung and 2 steps at the new fanouts (``fused_sample`` and the
+     aggregate launched); ``metis``'s refusal without ``pymetis``; and
+     ``python -m repro_torch.launch.train_gnn --dataset <saved 20 000-node
+     rmat>.npz --partitioner labelprop(2)`` as a subprocess, which must
+     exit 0.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -170,10 +205,18 @@ FLUSH_KERNEL = "bitwise_not"     # the L2 flush's device kernel, by name
 # the forward's fanouts at and past the ids a block stages (MAX_STAGED_IDS)
 WIDE_FANOUTS = (8192, 8193, 11361, 16384)
 INFER_BATCH = 512                # layerwise_inference's default batch
+SAMPLED_TEST = 16_384            # test nodes the sampled predict reads
 TRACE_MARGIN_S = 0.1             # host wait at each end of a timing trace
 
 
+_START = time.perf_counter()
+
+
 def log(*args) -> None:
+    """Print a line; a section's header ("== " or "-- ") also gets the
+    script's seconds so far, which time its sections."""
+    if args and str(args[0]).startswith(("== ", "-- ")):
+        args = (*args, f"[{time.perf_counter() - _START:.1f} s]")
     print(*args, flush=True)
 
 
@@ -1265,6 +1308,7 @@ def training_phase(layout, data, cfg):
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"GB (torch.cuda.max_memory_allocated)")
     reference["stage_split"] = split
+    reference["pipe"] = pin
     return {"gather_rows": gr, "sage_aggregate_backward": bw,
             "sage_backward_index": bidx, "fused_sample": fs,
             "sage_aggregate": sa}, counts, reference
@@ -1283,23 +1327,31 @@ def _union(spans) -> float:
     return union + cur_b - cur_a
 
 
+def device_records(prof) -> list:
+    """The device ops of a trace, from the profiler's raw records: an
+    exact-inference layer holds 30-80 k of them, and ``prof.events()`` or
+    ``prof.key_averages()`` take seconds to build their objects."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def device_streams(prof) -> tuple[float, list]:
     """(time at least one device op ran, [(ops, summed ms, busy ms) of
     each stream, the stream with the most ops first]) of a trace.  The
     step runs on one stream; the stager's copies ride a stream of their
     own and may overlap the step's kernels."""
-    from torch.autograd import DeviceType
     by_stream = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_stream.setdefault(e.device_resource_id, []).append(
-                (e.time_range.start, e.time_range.end))
+    for e in device_records(prof):
+        start = e.start_ns()
+        by_stream.setdefault(e.device_resource_id(), []).append(
+            (start, start + e.duration_ns()))
     if not by_stream:
         raise AssertionError("the profiler recorded no device operation")
-    streams = sorted(((len(v), sum(b - a for a, b in v) / 1e3,
-                       _union(v) / 1e3) for v in by_stream.values()),
+    streams = sorted(((len(v), sum(b - a for a, b in v) / 1e6,
+                       _union(v) / 1e6) for v in by_stream.values()),
                      reverse=True)
-    return _union([x for v in by_stream.values() for x in v]) / 1e3, \
+    return _union([x for v in by_stream.values() for x in v]) / 1e6, \
         streams
 
 
@@ -1427,7 +1479,8 @@ RESTART = 5            # phase 9 restarts each run here
 def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
     """One phase-9 run: 10 steps from phase 8's initial parameters, held
     to phase 8's synchronous run bit for bit, then a restart at step 5, 3
-    steps timed by part unfenced and 3 fenced, and 2 profiled steps.
+    steps timed by part unfenced and 3 fenced (1 and 1 for the staged
+    store), and 2 profiled steps.
     Returns (launch counts of the 10 steps, numbers for PERF.md)."""
     import torch
     import repro_torch.kernels as K
@@ -1494,8 +1547,12 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         if replay != losses[RESTART:] or not same_params(params, final):
             raise AssertionError(f"{label}: the restart at step {RESTART} "
                                  f"gave {replay}, not {losses[RESTART:]}")
-        params, opt, host = traced_parts(driver, params, opt, fenced=False)
-        params, opt, fenced = traced_parts(driver, params, opt, fenced=True)
+        # the staged store's steps take about a second of host work each
+        span_steps = 1 if store == "staged" else 3
+        params, opt, host = traced_parts(driver, params, opt, fenced=False,
+                                         steps=span_steps)
+        params, opt, fenced = traced_parts(driver, params, opt, fenced=True,
+                                           steps=span_steps)
         params, opt, prof = profiled_steps(driver, params, opt)
         stats = driver.stager.stats() if driver.stager is not None else None
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1527,7 +1584,7 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         f"ms), idle share {out['idle_share']:.3f} (of the unprofiled "
         f"median wall {out['idle_share_of_median_wall']:.3f}); peak device "
         f"memory {peak:.2f} GB")
-    log("spans over 3 traced steps, mean host ms: " + ", ".join(
+    log(f"spans over {span_steps} traced step(s), mean host ms: " + ", ".join(
         f"{k} {v:.3f}" for k, v in host.items()) + "; fenced, host + "
         "device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items()))
     if "row_copy_ms" in prof:
@@ -2077,10 +2134,8 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
     full width with phase 8's trained parameters.  Returns (launch
     counts of the run, the forward's numbers at the wide shapes, numbers
     for PERF.md)."""
-    import numpy as np
     import torch
     import repro_torch.kernels as K
-    from torch.autograd import DeviceType
     from repro_torch.core.inference import (inference_width, layer_pass,
                                             layerwise_inference)
     from repro_torch.serve import Predictor
@@ -2140,9 +2195,13 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
                 layer_pass(params[layer], graph, tables[-1], cfg,
                            is_last=is_last, width=width)
             busy, streams = device_streams(prof)
-            rows = sorted(((_device_us(e) / 1e3, e.count, _short(e.key))
-                           for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA),
+            by_name = {}
+            for e in device_records(prof):
+                ms_n = by_name.setdefault(e.name(), [0.0, 0])
+                ms_n[0] += e.duration_ns() / 1e6
+                ms_n[1] += 1
+            rows = sorted(((ms, count, _short(name))
+                           for name, (ms, count) in by_name.items()),
                           reverse=True)
             if layer == 0:
                 log("  layer 0's device ms by kernel (top 8): " + ", ".join(
@@ -2183,33 +2242,633 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
     wide = check_wide_batch(params, graph, tables, cfg, width)
     del tables
 
-    # test split: the nodes the split leaves unlabelled, with the class the
-    # source drew for them (its generator's first draw)
+    test, labels_all = unlabelled_split(ds, data)
+    pred_exact = torch.argmax(logits, dim=-1).cpu().numpy()
+    exact_acc = float((pred_exact[test] == labels_all[test]).mean())
+    sub = test[:SAMPLED_TEST]
+    exact_sub = float((pred_exact[sub] == labels_all[sub]).mean())
+    t0 = time.perf_counter()
+    predictor = Predictor(pipe, params, cfg, buckets=(1024,),
+                          base_salt=SALT)
+    sampled = predictor.predict(sub)
+    t_pred = time.perf_counter() - t0
+    sampled_acc = float((sampled.argmax(-1) == labels_all[sub]).mean())
+    log(f"test split ({test.size} unlabelled nodes): exact accuracy "
+        f"{exact_acc:.4f}; on its first {sub.size}: exact {exact_sub:.4f}, "
+        f"sampled predict (hybrid+fused, fanouts {cfg.fanouts}, salt "
+        f"{SALT}) {sampled_acc:.4f} ({t_pred:.1f} s)")
+    return counts, wide, {
+        "wall_s": wall, "peak_device_gb": peak, "layers": layers,
+        "width": width, "batches_per_layer": batches,
+        "padding_share": padding, "test_nodes": int(test.size),
+        "exact_accuracy": exact_acc, "subset_nodes": int(sub.size),
+        "exact_accuracy_subset": exact_sub,
+        "sampled_accuracy_subset": sampled_acc, "sampled_predict_s": t_pred}
+
+
+# --------------------------------------------------------------------------
+# phase 12: the gcn, gat and gin convs at full width
+# --------------------------------------------------------------------------
+
+CONVS = ("gcn", "gat", "gin")
+CONV_STEPS = 5
+CONV_ARRIVALS = 100
+# gat's exact inference reads (batch, width, 256) floats of attention
+# sources a batch: uncapped (width 11 361) 5.96 GB, 977 times a layer.
+# The cap is the fused sampler's window: a node's first 2048 in-edges in
+# CSC order, the ones training and serving draw from (1.07 GB a gather)
+GAT_CAP = 2048
+
+
+def conv_close(conv: str, got, ref) -> tuple[float, float]:
+    """A conv's rows ``got`` against a plain-version forward ``ref`` (both
+    (rows, width), numpy or torch): (max abs err, the largest share of
+    its tolerance that any entry uses; the check passes at most 1).  An
+    entry's tolerance is LOGIT_TOL times its |ref|, plus an absolute
+    LOGIT_TOL; for gin, LOGIT_TOL times its row's largest |ref| where
+    that passes 1.  gin sums its neighbours, so a row's values grow with
+    its nodes' in-degrees (to 1e5 and more on the hub batch after 7
+    steps), and an entry that cancels to near zero carries the fp32
+    rounding of its row's scale; other rows keep theirs."""
+    import torch
+    got = torch.as_tensor(got)
+    ref = torch.as_tensor(ref, device=got.device)
+    atol = torch.full_like(ref[:, :1], LOGIT_TOL)
+    if conv == "gin":
+        atol = LOGIT_TOL * ref.abs().amax(-1, keepdim=True).clamp(min=1.0)
+    diff = (got - ref).abs()
+    share = (diff / (atol + LOGIT_TOL * ref.abs())).max()
+    return float(diff.max()), float(share)
+
+
+def unlabelled_split(ds, data):
+    """(test node ids, every node's class): the nodes the split leaves
+    unlabelled, with the class the source drew for them (its generator's
+    first draw, checked against the labelled ones)."""
+    import numpy as np
+    n = ds.graph.num_nodes
     labels_all = np.random.default_rng(data.seed).integers(
         0, data.num_classes, n).astype(np.int32)
     labelled = ds.labels >= 0
     if not np.array_equal(labels_all[labelled], ds.labels[labelled]):
         raise AssertionError("the recomputed classes disagree with the "
                              "dataset's labels")
-    test = np.flatnonzero(~labelled)
+    return np.flatnonzero(~labelled), labels_all
+
+
+def conv_exact(conv, params, cfg, graph, x, ds, data, serving_pipe):
+    """Exact inference of one conv (gat under GAT_CAP), each layer a
+    profiled ``layer_pass``: launch counts, layer walls and device busy,
+    the max in-degree batch's aggregate against the f-ordered loop (gcn
+    and gin: every layer's is the wide kernel's) and its rows against a
+    plain-version forward, exact and sampled accuracy."""
+    import numpy as np
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.core.inference import inference_width, layer_pass
+    from repro_torch.core.mfg import MFG
+    from repro_torch.core.sampler import build_indptr
+    from repro_torch.kernels.sage_aggregate import (sage_aggregate,
+                                                    sage_aggregate_plain)
+    from repro_torch.models.gnn import apply_layer
+    from repro_torch.serve import Predictor
+
+    cap = GAT_CAP if conv == "gat" else None
+    n, width = graph.num_nodes, inference_width(graph, cap)
+    batches = -(-n // INFER_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    tables, layers = [x], []
+    with torch.no_grad():
+        for layer in range(cfg.num_layers):
+            with kernel_trace() as prof:
+                t0 = time.perf_counter()
+                h = layer_pass(params[layer], graph, tables[-1], cfg,
+                               is_last=layer == cfg.num_layers - 1,
+                               width=width)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy, streams = device_streams(prof)
+            ops = sum(n for n, _, _ in streams)
+            tables.append(h)
+            layers.append({"wall_ms": wall, "device_busy_ms": busy,
+                           "device_ops": ops})
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    logits = tables[-1]
+    if logits.shape != (n, cfg.num_classes) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{conv} exact logits: shape "
+                             f"{tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    want = {k: 0 for k in counts}
+    # gat's attention layers launch no kernel; its last layer takes the
+    # mean, one launch a batch like every layer of gcn and gin
+    want["sage_aggregate"] = batches * (1 if conv == "gat"
+                                        else cfg.num_layers)
+    if counts != want:
+        raise AssertionError(f"{conv} exact inference launches {counts}, "
+                             f"expected {want}")
+    log(f"  exact ({'cap ' + str(cap) if cap else 'uncapped'}, width "
+        f"{width}): logits {tuple(logits.shape)} finite, launches {counts}, "
+        f"peak device memory {peak:.2f} GB; layer wall (profiled) / device "
+        f"busy ms: " + ", ".join(f"{lay['wall_ms']:.1f} / "
+                                 f"{lay['device_busy_ms']:.1f} "
+                                 f"({lay['device_ops']} ops)"
+                                 for lay in layers))
+
+    lo, hi, samples, valid = max_degree_batch(graph, width)
+    errs, shares = [], []
+    with torch.no_grad():
+        for layer in range(cfg.num_layers):
+            h = tables[layer]
+            if conv != "gat":
+                got = sage_aggregate(samples, h)
+                loop = f_ordered_mean(samples[None], h[None])[0]
+                torch.cuda.synchronize()
+                if not torch.equal(got, loop):
+                    raise AssertionError(
+                        f"{conv} exact layer {layer}: the max in-degree "
+                        f"batch's aggregate differs in bits from the "
+                        f"f-ordered loop")
+                del got, loop
+            mfg = MFG(dst_nodes=torch.arange(lo, hi, device=h.device),
+                      src_nodes=torch.arange(n, device=h.device),
+                      num_src=torch.tensor(n), edges=samples,
+                      edge_mask=valid, indptr=build_indptr(valid))
+            plain = apply_layer(params[layer], mfg, h, cfg,
+                                is_last=layer == cfg.num_layers - 1,
+                                aggregate=sage_aggregate_plain,
+                                h_dst=h[lo:hi])
+            err, share = conv_close(conv, tables[layer + 1][lo:hi], plain)
+            errs.append(err)
+            shares.append(share)
+            if not share <= 1.0:
+                raise AssertionError(f"{conv} exact layer {layer}: the max "
+                                     f"batch's rows differ from a "
+                                     f"plain-version forward by {err} "
+                                     f"({share:.3g} of the tolerance)")
+            del plain
+    log(f"  max in-degree batch [{lo}, {hi}): "
+        + ("aggregate == f-ordered loop bit for bit each layer; "
+           if conv != "gat" else "")
+        + "each layer's rows within " + ", ".join(
+            f"{e:.3g} ({t:.3g} of the tolerance)"
+            for e, t in zip(errs, shares))
+        + " of a plain-version forward")
+    del tables
+
+    test, labels_all = unlabelled_split(ds, data)
     pred_exact = torch.argmax(logits, dim=-1).cpu().numpy()
     exact_acc = float((pred_exact[test] == labels_all[test]).mean())
-    t0 = time.perf_counter()
-    predictor = Predictor(pipe, params, cfg, buckets=(1024,),
+    sub = test[:SAMPLED_TEST]
+    predictor = Predictor(serving_pipe, params, cfg, buckets=(1024,),
                           base_salt=SALT)
-    sampled = predictor.predict(test)
-    t_pred = time.perf_counter() - t0
-    sampled_acc = float((sampled.argmax(-1) == labels_all[test]).mean())
-    log(f"test split ({test.size} unlabelled nodes): exact accuracy "
-        f"{exact_acc:.4f}; sampled predict (hybrid+fused, fanouts "
-        f"{cfg.fanouts}, salt {SALT}) on the same nodes {sampled_acc:.4f} "
-        f"({t_pred:.1f} s)")
-    return counts, wide, {
-        "wall_s": wall, "peak_device_gb": peak, "layers": layers,
-        "width": width, "batches_per_layer": batches,
-        "padding_share": padding, "test_nodes": int(test.size),
-        "exact_accuracy": exact_acc, "sampled_accuracy": sampled_acc,
-        "sampled_predict_s": t_pred}
+    sampled = predictor.predict(sub)
+    sampled_acc = float((sampled.argmax(-1) == labels_all[sub]).mean())
+    exact_sub = float((pred_exact[sub] == labels_all[sub]).mean())
+    log(f"  accuracy on the test split: exact {exact_acc:.4f} ({test.size} "
+        f"nodes); on its first {sub.size}: exact {exact_sub:.4f}, sampled "
+        f"predict {sampled_acc:.4f}")
+    return counts, {"cap": cap, "width": width, "layers": layers,
+                    "peak_device_gb": peak, "max_batch_row_err": errs,
+                    "max_batch_row_tol_share": shares,
+                    "exact_accuracy": exact_acc,
+                    "exact_accuracy_subset": exact_sub,
+                    "sampled_accuracy_subset": sampled_acc,
+                    "subset_nodes": int(sub.size)}
+
+
+def gat_table_steps(pin, loss_fn, params):
+    """gat's CONV_STEPS driver steps from ``params`` with every layer's
+    edges gathered from ``gat_project``'s table of its sources (exact
+    inference's way), where training projects the gathered rows: the same
+    forward bits, a backward that scatters into the projected table.
+    Returns (losses, step walls ms, profiled steps, peak device GB)."""
+    import unittest.mock
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.optim import init_opt_state
+
+    apply = gnn.apply_layer
+
+    def via_table(layer, mfg, h_src, cfg, **kw):
+        return apply(layer, mfg, h_src, cfg,
+                     projected=gnn.gat_project(layer, h_src), **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with unittest.mock.patch.object(gnn, "apply_layer", via_table):
+        driver = pin.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                                  grad_clip=1.0)
+        opt = init_opt_state(params)
+        losses, walls = [], []
+        for _ in range(CONV_STEPS):
+            t0 = time.perf_counter()
+            params, opt, loss, _ = driver.step(params, opt)
+            losses.append(float(loss))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        _, _, prof = profiled_steps(driver, params, opt)
+        driver.close()
+    return losses, walls, prof, torch.cuda.max_memory_allocated() / 1e9
+
+
+def conv_phase(train_pipe, serving_pipe, ds, data, serving):
+    """Phase 12: gcn, gat (4 heads) and gin at PRODUCTS widths, random
+    weights from seed 0, on phase 8's layout, ``pinned_hot`` store and
+    degree cache.  Returns ({path: launch counts}, {conv: numbers})."""
+    import numpy as np
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.configs.graphsage_paper import PRODUCTS
+    from repro_torch.kernels.sage_aggregate import sage_aggregate_plain
+    from repro_torch.models.gnn import (gnn_forward, gnn_loss,
+                                        init_gnn_params)
+    from repro_torch.optim import init_opt_state, tree_leaves
+    from repro_torch.serve import GNNServer, Predictor
+
+    pin = train_pipe
+    seeds = pin.seeds(TRAIN_BATCH, TRAIN_SALT)
+    prepare, _ = pin.make_prepare_consume(None, counted=False)
+    with torch.no_grad():
+        bp = prepare(pin.shards, seeds, TRAIN_SALT, pin.cache)
+    graph = ds.graph.to("cuda")
+    x = torch.from_numpy(ds.features).cuda()
+    arrivals = serving["arrivals"][:CONV_ARRIVALS]
+    paths, out = {}, {}
+    for conv in CONVS:
+        t_conv = time.perf_counter()
+        cfg = dataclasses.replace(PRODUCTS, dropout=0.0, conv=conv,
+                                  gat_heads=4)
+        log(f"-- {conv}: {cfg.in_dim} -> {cfg.hidden_dim} -> "
+            f"{cfg.hidden_dim} -> {cfg.num_classes}, fanouts {cfg.fanouts}"
+            + (f", {cfg.gat_heads} heads" if conv == "gat" else ""))
+        params = init_gnn_params(cfg, torch.Generator().manual_seed(0),
+                                 "cuda")
+
+        def loss_fn(p, mfgs, h, lab, v, cfg=cfg):
+            return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+        def plain_loss_fn(p, mfgs, h, lab, v, cfg=cfg):
+            return gnn_loss(p, mfgs, h, lab, v, cfg,
+                            aggregate=sage_aggregate_plain)
+
+        _, consume = pin.make_prepare_consume(loss_fn, counted=False)
+        _, consume_plain = pin.make_prepare_consume(plain_loss_fn,
+                                                    counted=False)
+        lk, gk, _ = consume(params, bp)
+        lq, gq, _ = consume_plain(params, bp)
+        loss_err = abs(float(lk) - float(lq))
+        if not np.isfinite(float(lk)) or loss_err > LOSS_TOL:
+            raise AssertionError(f"{conv}: loss {float(lk)} vs plain "
+                                 f"{float(lq)}")
+        worst = 0.0
+        for a, b in zip(tree_leaves(gk), tree_leaves(gq)):
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            worst = max(worst, rel)
+            if rel > GRAD_RTOL:
+                raise AssertionError(f"{conv}: gradient leaf "
+                                     f"{tuple(a.shape)} differs from the "
+                                     f"plain step by {rel:.3g} of its max "
+                                     f"(tol {GRAD_RTOL})")
+        del gk, gq
+        log(f"  kernel step vs plain step: loss {float(lk):.6f} vs "
+            f"{float(lq):.6f} (abs err {loss_err:.3g}, tol {LOSS_TOL}); "
+            f"gradients: worst leaf max abs err {worst:.3g} of its max |g| "
+            f"(tol {GRAD_RTOL})")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        driver = pin.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                                  grad_clip=1.0)
+        params0, opt = params, init_opt_state(params)
+        K.reset_launch_counts()
+        rounds_before = pin.counter.rounds
+        losses, walls = [], []
+        for _ in range(CONV_STEPS):
+            t0 = time.perf_counter()
+            params, opt, loss, _ = driver.step(params, opt)
+            losses.append(float(loss))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        paths[f"{conv} steps"] = counts
+        rounds = (pin.counter.rounds - rounds_before) / CONV_STEPS
+        if not np.isfinite(losses).all() or rounds != 2:
+            raise AssertionError(f"{conv}: losses {losses}, {rounds} rounds "
+                                 f"per step (expected finite, 2)")
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            raise AssertionError(f"{conv}: kernels never launched on the "
+                                 f"training path: {missing}")
+        # the profiled steps' parameters are dropped: serving and exact
+        # inference read the 5 steps' whatever the profiler retakes
+        _, _, prof = profiled_steps(driver, params, opt)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        driver.close()
+        log(f"  {CONV_STEPS} SyncDriver steps: losses "
+            + ", ".join(f"{v:.6f}" for v in losses)
+            + f"; {rounds:g} rounds a step; step wall median "
+            f"{statistics.median(walls):.3f} ms (min {min(walls):.3f}, max "
+            f"{max(walls):.3f}); profiled step wall {prof['wall_ms']:.3f} "
+            f"ms, device busy {prof['device_busy_ms']:.3f} ms in "
+            f"{prof['own_stream_ops']} ops (idle share against the median "
+            f"{1 - prof['device_busy_ms'] / statistics.median(walls):.3f});"
+            f" peak device memory {peak:.2f} GB; launches per step "
+            + ", ".join(f"{k} {v / CONV_STEPS:g}" for k, v in counts.items()))
+        table = None
+        if conv == "gat":
+            t_losses, t_walls, t_prof, t_peak = gat_table_steps(
+                pin, loss_fn, params0)
+            if t_losses[0] != losses[0] or not np.isfinite(t_losses).all():
+                raise AssertionError(f"gat through the projected table: "
+                                     f"losses {t_losses}, not from "
+                                     f"{losses[0]}")
+            table = {"losses": t_losses, "step_wall_ms": t_walls,
+                     "profiled_step": t_prof, "peak_device_gb": t_peak}
+            log(f"  the same steps with the edges gathered from the "
+                f"projected table: losses "
+                + ", ".join(f"{v:.6f}" for v in t_losses)
+                + f" (the first equal); step wall median "
+                f"{statistics.median(t_walls):.3f} ms (min "
+                f"{min(t_walls):.3f}, max {max(t_walls):.3f}); profiled "
+                f"step wall {t_prof['wall_ms']:.3f} ms, device busy "
+                f"{t_prof['device_busy_ms']:.3f} ms in "
+                f"{t_prof['own_stream_ops']} ops; peak device memory "
+                f"{t_peak:.2f} GB")
+
+        t_train = time.perf_counter() - t_conv
+        pred = Predictor(serving_pipe, params, cfg, buckets=(1, 8, 32, 128),
+                         base_salt=SALT)
+        pred.warmup()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = pred.predict(serving["batch_seeds"])
+        t_predict = (time.perf_counter() - t0) * 1e3
+        batch, pos = serving["batch"], serving["pos"]
+        with torch.inference_mode():
+            plain = gnn_forward(params, list(batch.mfgs), batch.h_src, cfg,
+                                aggregate=sage_aggregate_plain)
+            plain = plain.cpu().numpy()[pos[:, 0], pos[:, 1]]
+        if logits.shape != (128, cfg.num_classes) \
+                or not np.isfinite(logits).all():
+            raise AssertionError(f"{conv}: predict logits {logits.shape}, "
+                                 f"finite {np.isfinite(logits).all()}")
+        err, share = conv_close(conv, logits, plain)
+        if not share <= 1.0:
+            raise AssertionError(f"{conv}: predict logits differ from the "
+                                 f"plain forward by {err} ({share:.3g} of "
+                                 f"the tolerance)")
+        stats, served = GNNServer(pred, max_delay=2e-3).run(
+            arrivals, warmup=False, collect_outputs=True)
+        direct = pred.predict([s for _, s in arrivals])
+        if not np.array_equal(served, direct):
+            raise AssertionError(
+                f"{conv}: served outputs differ from direct predict in "
+                f"{int((served != direct).any(axis=1).sum())} of "
+                f"{len(arrivals)} rows")
+        counts = K.launch_counts()
+        paths[f"{conv} serving"] = counts
+        missing = [k for k in SERVING_KERNELS if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{conv}: kernels never launched on the "
+                                 f"serving path: {missing}")
+        s = stats.summary()
+        log(f"  predict(128 seeds) {t_predict:.2f} ms, max abs err "
+            f"{err:.3g} against a plain-version forward ({share:.3g} of the "
+            f"tolerance); "
+            f"{s['num_requests']} hotset requests through GNNServer: p50 "
+            f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, buckets "
+            f"{s['bucket_histogram']}; served == direct predict bit for "
+            f"bit")
+        del pred
+
+        t_serve = time.perf_counter() - t_conv - t_train
+        counts, exact = conv_exact(conv, params, cfg, graph, x, ds, data,
+                                   serving_pipe)
+        paths[f"{conv} exact"] = counts
+        out[conv] = {"loss_vs_plain_abs_err": loss_err,
+                     "grad_worst_rel_err": worst, "losses": losses,
+                     "step_wall_ms": walls, "profiled_step": prof,
+                     "peak_device_gb": peak, "predict_ms": t_predict,
+                     "predict_max_abs_err": err,
+                     "predict_tol_share": share,
+                     "serve": {
+                         k: s[k] for k in ("p50_ms", "p99_ms", "qps",
+                                           "num_flushes")},
+                     "exact": exact,
+                     "phase_s": time.perf_counter() - t_conv}
+        if table is not None:
+            out[conv]["table_path"] = table
+        log(f"  {conv}: {out[conv]['phase_s']:.1f} s (training "
+            f"{t_train:.1f}, serving {t_serve:.1f}, exact "
+            f"{out[conv]['phase_s'] - t_train - t_serve:.1f})")
+    return paths, out
+
+
+# --------------------------------------------------------------------------
+# phase 13: the data layer and the partitioners
+# --------------------------------------------------------------------------
+
+SBM_NODES = 100_000              # streaming LDG places nodes one by one
+STREAM_CHUNK = 1 << 20           # edges a chunk of the stream
+DATA_STEPS = 3
+LAUNCHER_NODES = 20_000          # train_gnn's default --nodes
+TRAIN_PATH_KERNELS = ("fused_sample", "feature_gather", "sage_aggregate",
+                      "sage_backward_index", "sage_aggregate_backward")
+
+
+def same_dataset(a, b) -> bool:
+    import numpy as np
+    return (np.array_equal(a.graph.numpy()[0], b.graph.numpy()[0])
+            and np.array_equal(a.graph.numpy()[1], b.graph.numpy()[1])
+            and np.array_equal(a.features, b.features)
+            and np.array_equal(a.labels, b.labels)
+            and a.name == b.name and a.num_classes == b.num_classes)
+
+
+def data_steps(pipe, cfg, label: str, steps: int = DATA_STEPS):
+    """``steps`` SyncDriver steps on ``pipe`` (launch counts set to 0
+    first): finite losses, every kernel of the exchange store's training
+    path launched.  Returns (launch counts, losses, step walls)."""
+    import numpy as np
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.models.gnn import gnn_loss, init_gnn_params
+    from repro_torch.optim import init_opt_state
+
+    params = init_gnn_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    driver = pipe.train_driver(
+        lambda p, m, h, lab, v: gnn_loss(p, m, h, lab, v, cfg),
+        batch=TRAIN_BATCH, lr=TRAIN_LR, grad_clip=1.0)
+    opt = init_opt_state(params)
+    K.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, loss, _ = driver.step(params, opt)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    driver.close()
+    missing = [k for k in TRAIN_PATH_KERNELS if counts[k] == 0]
+    if not np.isfinite(losses).all() or missing:
+        raise AssertionError(f"{label}: losses {losses}, kernels never "
+                             f"launched: {missing}")
+    log(f"  {steps} steps ({label}): losses "
+        + ", ".join(f"{v:.6f}" for v in losses) + ", walls "
+        + ", ".join(f"{w:.1f}" for w in walls) + f" ms; launches {counts}")
+    return counts, losses, walls
+
+
+def data_phase(cfg):
+    """Phase 13: rmat through the on-disk format into a ``hash``
+    pipeline, sbm under ``degree_stratified`` through streaming LDG, the
+    launcher on a saved file with ``labelprop(2)``, metis's refusal and a
+    rung of ``AdaptiveFanout``, each training on the card at ``cfg``'s
+    widths.  Returns ({path: launch counts}, numbers)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.core.adaptive import AdaptiveFanout
+    from repro_torch.core.partition import edge_cut, resolve_partitioner
+    from repro_torch.data import (DataSpec, dataset_stats, load_dataset,
+                                  resolve_dataset, save_dataset, stats_label)
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+
+    paths, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log("-- rmat through the on-disk format, partitioner hash")
+        t0 = time.perf_counter()
+        rmat = DataSpec(source="rmat(0.57,0.19,0.19,0.05)",
+                        num_nodes=NUM_NODES, avg_degree=AVG_DEGREE,
+                        num_features=cfg.in_dim,
+                        num_classes=cfg.num_classes, seed=0)
+        ds = resolve_dataset(data=rmat)
+        t_gen = time.perf_counter() - t0
+        stats = dataset_stats(ds)
+        log(f"  {stats_label(stats)}: {json.dumps(stats)} (generated in "
+            f"{t_gen:.1f} s)")
+        t0 = time.perf_counter()
+        path = save_dataset(ds, os.path.join(tmp, "rmat"))
+        t_save = time.perf_counter() - t0
+        for mmap in (True, False):
+            t0 = time.perf_counter()
+            back = load_dataset(path, mmap=mmap)
+            if not same_dataset(back, ds):
+                raise AssertionError(f"load_dataset(mmap={mmap}) differs "
+                                     f"from the saved dataset")
+            log(f"  load_dataset(mmap={mmap}) == the dataset bit for bit "
+                f"({time.perf_counter() - t0:.2f} s with the comparison)")
+        log(f"  saved {os.path.getsize(path) / 1e6:.1f} MB in {t_save:.2f} s")
+        del back
+        t0 = time.perf_counter()
+        spec = PipelineSpec.from_scheme(
+            "hybrid+fused", num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+            partitioner="hash", data=rmat)
+        pipe = Pipeline.build_from_source(path, spec)
+        t_build = time.perf_counter() - t0
+        log(f"  build_from_source(path), hash: {t_build:.1f} s, n_max "
+            f"{pipe.layout.n_max}, edge cut {pipe.edge_cut_fraction:.4f}")
+        paths["rmat file, hash"], losses, walls = data_steps(
+            pipe, cfg, "rmat, hash")
+        out["rmat"] = {"stats": stats, "generate_s": t_gen,
+                       "save_s": t_save, "build_s": t_build,
+                       "edge_cut": pipe.edge_cut_fraction,
+                       "losses": losses, "step_wall_ms": walls}
+        del pipe, ds
+
+        log(f"-- sbm(4,0.9,0.1), {SBM_NODES} nodes, degree_stratified(0.3), "
+            f"streaming LDG")
+        t0 = time.perf_counter()
+        sbm = DataSpec(source="sbm(4,0.9,0.1)", num_nodes=SBM_NODES,
+                       avg_degree=AVG_DEGREE, num_features=cfg.in_dim,
+                       num_classes=cfg.num_classes,
+                       split="degree_stratified(0.3)", seed=0)
+        spec = PipelineSpec.from_scheme(
+            "hybrid+fused", num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+            partitioner="ldg", data=sbm)
+        pipe = Pipeline.build_from_source(
+            spec=spec, partition_chunk_edges=STREAM_CHUNK)
+        t_build = time.perf_counter() - t0
+        log(f"  {stats_label(dataset_stats(pipe.dataset))}; build with "
+            f"chunks of {STREAM_CHUNK} edges: {t_build:.1f} s, edge cut "
+            f"{pipe.edge_cut_fraction:.4f}, labelled "
+            f"{int((pipe.dataset.labels >= 0).sum())}")
+        paths["sbm, streaming ldg"], losses, walls = data_steps(
+            pipe, cfg, "sbm, streaming ldg")
+        out["sbm"] = {"stats": dataset_stats(pipe.dataset),
+                      "build_s": t_build,
+                      "edge_cut": pipe.edge_cut_fraction,
+                      "losses": losses, "step_wall_ms": walls}
+
+        log("-- AdaptiveFanout forced down a rung (patience 1, a flat loss)")
+        af = AdaptiveFanout(ladder=(cfg.fanouts, (10, 7, 4), (5, 5, 3)),
+                            patience=1)
+        af.update(losses[-1])
+        if not af.update(losses[-1]) or af.fanouts != (10, 7, 4):
+            raise AssertionError(f"AdaptiveFanout did not step down: stage "
+                                 f"{af.stage}")
+        rung = dataclasses.replace(cfg, fanouts=af.fanouts)
+        spec = PipelineSpec.from_scheme(
+            "hybrid+fused", num_parts=NUM_PARTS, fanouts=af.fanouts,
+            data=sbm)
+        rebuilt = Pipeline.from_layout(pipe.layout, spec)
+        prepare, _ = rebuilt.make_prepare_consume(None, counted=False)
+        with torch.no_grad():
+            b = prepare(rebuilt.shards, rebuilt.seeds(TRAIN_BATCH, 1), 1)
+        if tuple(m.edges.shape[-1] for m in b.mfgs) != af.fanouts:
+            raise AssertionError("the rebuilt step's MFGs are not at the "
+                                 "new fanouts")
+        paths["adaptive rung"], _, _ = data_steps(rebuilt, rung,
+                                                  f"rung {af.fanouts}", 2)
+        del pipe, rebuilt, b
+
+        log("-- metis")
+        try:
+            import pymetis  # noqa: F401
+            log("  pymetis is installed: the refusal cannot happen here")
+        except ImportError:
+            try:
+                resolve_partitioner("metis")
+            except ImportError as e:
+                log(f"  metis refuses without pymetis: {e}")
+            else:
+                raise AssertionError("metis resolved without pymetis")
+
+        log(f"-- train_gnn on a saved {LAUNCHER_NODES}-node rmat, "
+            f"labelprop(2)")
+        small = resolve_dataset(data=DataSpec(
+            source="rmat(0.57,0.19,0.19,0.05)", num_nodes=LAUNCHER_NODES,
+            avg_degree=10, num_features=cfg.in_dim,
+            num_classes=cfg.num_classes, seed=0))
+        small_path = save_dataset(small, os.path.join(tmp, "rmat_small"))
+        t0 = time.perf_counter()
+        ref_assign = resolve_partitioner("labelprop(2)").assign(
+            small.graph, 8, small.labels >= 0)
+        t_lp = time.perf_counter() - t0
+        cmd = [sys.executable, "-m", "repro_torch.launch.train_gnn",
+               "--dataset", small_path, "--partitioner", "labelprop(2)",
+               "--epochs", "1", "--steps-per-epoch", "2"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600, cwd=HERE,
+                             env=dict(os.environ,
+                                      PYTHONPATH=os.path.join(HERE, "src")))
+        t_launch = time.perf_counter() - t0
+        for line in run.stdout.strip().splitlines():
+            log(f"  | {line}")
+        if run.returncode != 0:
+            log(run.stderr[-4000:])
+            raise AssertionError(f"train_gnn exited {run.returncode}")
+        cut = edge_cut(small.graph, ref_assign) / small.graph.num_edges
+        log(f"  exit 0 in {t_launch:.1f} s; labelprop(2) at P = 8 alone: "
+            f"{t_lp:.2f} s on the host, edge cut {cut:.4f}")
+        out["launcher"] = {"seconds": t_launch, "labelprop_s": t_lp,
+                           "edge_cut": cut}
+    return paths, out
 
 
 def main() -> int:
@@ -2407,6 +3066,22 @@ def main() -> int:
     infer_counts, wide, exact = exact_inference_phase(
         ds, data, cfg_train, reference["params"], pipe)
     log(json.dumps({"exact_inference": exact, "wide_rows": wide}))
+
+    log("== phase 12: the gcn, gat and gin convs at full width (phase 8's "
+        "layout, pinned_hot store and cache)")
+    t0 = time.perf_counter()
+    conv_counts, convs = conv_phase(
+        reference.pop("pipe"), pipe, ds, data,
+        {"batch_seeds": batch_seeds, "batch": batch, "pos": pos,
+         "arrivals": arrivals})
+    log(json.dumps({"convs": convs}))
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    log("== phase 13: the data layer and the partitioners")
+    t0 = time.perf_counter()
+    data_counts, data_layer = data_phase(cfg_train)
+    log(json.dumps({"data_layer": data_layer}))
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
@@ -2432,6 +3107,8 @@ def main() -> int:
                         for path, c in placement_counts.items()})
         by_path.update({"traced run": traced_counts[name],
                         "exact inference": infer_counts[name]})
+        by_path.update({path: c[name] for path, c in conv_counts.items()})
+        by_path.update({path: c[name] for path, c in data_counts.items()})
         at_step = train.get(name)
         res = serving or at_step
         entry = {

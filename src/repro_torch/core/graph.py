@@ -1,4 +1,5 @@
-"""Graph containers: CSC adjacency, host-side CSR view, the host hash.
+"""Graph containers: CSC and COO adjacency and their conversions, the
+host-side CSR view, the host hash.
 
 Counterpart of ``repro.core.graph``.  The paper (FastSample §3.2, Fig. 2)
 works with a CSC matrix ``A = (R, C)``: ``R`` is the row-pointer vector
@@ -49,6 +50,36 @@ class CSCGraph:
     def numpy(self) -> tuple[np.ndarray, np.ndarray]:
         """Host (indptr, indices) arrays (no copy for CPU tensors)."""
         return self.indptr.cpu().numpy(), self.indices.cpu().numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class COOGraph:
+    """Coordinate-format adjacency: (dst[i], src[i]) per edge (paper Fig.
+    2: X = rows, Y = cols), int32 tensors."""
+
+    row: torch.Tensor           # dst node per edge
+    col: torch.Tensor           # src node per edge
+    num_nodes_hint: int = 0
+
+    @property
+    def num_edges(self) -> int:
+        return self.row.shape[0]
+
+
+def coo_to_csc(coo: COOGraph, num_nodes: int | None = None) -> CSCGraph:
+    """Sort edges by destination (stable) and build the row-pointer
+    vector, on the host; the result lies on the CPU."""
+    n = num_nodes if num_nodes is not None else int(coo.num_nodes_hint)
+    return csc_from_numpy_edges(coo.row.cpu().numpy().astype(np.int64),
+                                coo.col.cpu().numpy().astype(np.int64), n)
+
+
+def csc_to_coo(g: CSCGraph) -> COOGraph:
+    """Expand the row pointers back to per-edge destinations."""
+    row = torch.repeat_interleave(
+        torch.arange(g.num_nodes, dtype=torch.int32, device=g.device),
+        g.degrees().long(), output_size=g.num_edges)
+    return COOGraph(row=row, col=g.indices, num_nodes_hint=g.num_nodes)
 
 
 def csc_from_numpy_edges(dst: np.ndarray, src: np.ndarray,
@@ -121,3 +152,18 @@ def mix64(x: np.ndarray) -> np.ndarray:
     x = (x ^ (x >> 30)) * np.uint64(0xBF58476D1CE4E5B9)
     x = (x ^ (x >> 27)) * np.uint64(0x94D049BB133111EB)
     return x ^ (x >> 31)
+
+
+def validate_csc(g: CSCGraph) -> None:
+    """Structural invariants of a CSC graph; raises ``ValueError`` on the
+    first one broken."""
+    indptr, indices = (np.asarray(a) for a in g.numpy())
+    if indptr[0] != 0:
+        raise ValueError("R[0] must be 0")
+    if indptr[-1] != indices.shape[0]:
+        raise ValueError("R[-1] must equal nnz")
+    if np.any(np.diff(indptr) < 0):
+        raise ValueError("R must be non-decreasing")
+    if indices.size and (indices.min() < 0
+                         or indices.max() >= g.num_nodes):
+        raise ValueError("column index out of range")

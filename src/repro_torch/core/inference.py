@@ -18,6 +18,10 @@ is the same f-ordered sum over the same rows, and the products run in
 ``rowwise_matmul``'s fixed row blocks, so neither the batch size nor the
 last, shorter batch changes a node's bits.  On the card the aggregate is
 the hand-written forward (its wide-row kernel past 8192 ids a row).
+Every conv runs: gcn and gin aggregate like sage; gat projects the table
+once a layer (``gat_project``) and gathers each batch's attention
+sources from it, (batch, width, d_out) floats a batch, so a graph with
+hubs runs it under a ``max_degree`` cap.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 from repro_torch.core.graph import CSCGraph
 from repro_torch.core.mfg import MFG
 from repro_torch.core.sampler import build_indptr, relabel
-from repro_torch.models.gnn import GNNConfig, apply_layer
+from repro_torch.models.gnn import GNNConfig, apply_layer, gat_project
 
 
 def in_edges(graph: CSCGraph, seeds: torch.Tensor, max_degree: int):
@@ -81,6 +85,10 @@ def layer_pass(layer_params, graph: CSCGraph, h: torch.Tensor,
     n = graph.num_nodes
     all_nodes = torch.arange(n, dtype=torch.int32, device=h.device)
     num_src = torch.tensor(n, dtype=torch.int32, device=h.device)
+    # gat projects the whole table once a layer, not once a batch: the
+    # rows of rowwise_matmul do not depend on the row count, so the bits
+    # are those of a per-batch projection
+    projected = gat_project(layer_params, h) if cfg.conv == "gat" else None
     outs = []
     for lo in range(0, n, batch_size):
         seeds = all_nodes[lo:lo + batch_size]
@@ -91,7 +99,8 @@ def layer_pass(layer_params, graph: CSCGraph, h: torch.Tensor,
                   edges=samples, edge_mask=valid,
                   indptr=build_indptr(valid))
         outs.append(apply_layer(layer_params, mfg, h, cfg, is_last=is_last,
-                                h_dst=h[lo:lo + batch_size]))
+                                h_dst=h[lo:lo + batch_size],
+                                projected=projected))
     return torch.cat(outs)
 
 

@@ -1,10 +1,29 @@
 """Graph partitioning (§3.3) and the contiguous-ownership layout.
 
-Counterpart of ``repro.core.partition`` with the ``ldg`` partitioner only:
-BFS-ordered linear deterministic greedy over the in- and out-neighbours,
-balancing nodes and labeled nodes per partition (the paper's balance
-targets).  It is host-side numpy, step for step the same as ``repro``'s, so
-assignments and layouts are bit-identical.
+Counterpart of ``repro.core.partition``.  The paper uses METIS for
+edge-cut partitioning with three balance targets: nodes, edges and
+labeled nodes per partition (so every machine draws the same number of
+seeds per epoch).  Partitioners form a registry selected by
+``PlanSpec(partitioner=...)``:
+
+  ``"ldg"``        BFS-ordered linear deterministic greedy over the in-
+                   and out-neighbours (the default); ``assign_stream``
+                   runs its single pass over an edge stream instead
+                   (``partition_graph_streaming``).
+  ``"labelprop"``  LDG, then capacity-constrained label propagation that
+                   accepts only strictly cut-reducing moves
+                   (``refine_partition``); ``"labelprop(K)"`` sets the
+                   sweep budget.  The pure-numpy stand-in for METIS.
+  ``"metis"``      the paper's METIS through the optional ``pymetis``
+                   (an ``ImportError`` when it is absent), caps repaired
+                   and two refinement sweeps.
+  ``"random"`` / ``"hash"``  hash-shuffled round robin, the locality-free
+                   baseline.
+
+All of it is host-side numpy, step for step the same as ``repro``'s, so
+assignments and layouts are bit-identical.  ``refine_partition`` and the
+LDG placer are Python loops over nodes whose moves see the moves before
+them; they stay loops.
 
 After partitioning, nodes are relabeled so partition p owns the contiguous
 id range [offsets[p], offsets[p+1]); ownership is then one searchsorted and
@@ -31,6 +50,15 @@ from repro_torch.core.graph import (CSCGraph, csc_from_numpy_edges,
 # assignment
 # --------------------------------------------------------------------------
 
+def _caps(n: int, num_parts: int, labeled: np.ndarray, slack: float,
+          labeled_slack: float | None) -> tuple[float, float]:
+    """(node cap, labeled cap) per partition."""
+    if labeled_slack is None:
+        labeled_slack = slack
+    return (slack * n / num_parts,
+            max(1.0, labeled_slack * labeled.sum() / num_parts))
+
+
 class _LDGState:
     """Mutable state of the linear deterministic greedy placer:
     per-partition loads, capacities, and the growing ``assign`` vector."""
@@ -38,13 +66,10 @@ class _LDGState:
     def __init__(self, num_nodes: int, num_parts: int,
                  labeled: np.ndarray, slack: float,
                  labeled_slack: float | None):
-        if labeled_slack is None:
-            labeled_slack = slack
         self.num_parts = num_parts
         self.labeled = labeled
-        self.cap_nodes = slack * num_nodes / num_parts
-        self.cap_labeled = max(1.0,
-                               labeled_slack * labeled.sum() / num_parts)
+        self.cap_nodes, self.cap_labeled = _caps(
+            num_nodes, num_parts, labeled, slack, labeled_slack)
         self.assign = np.full(num_nodes, -1, np.int32)
         self.load_nodes = np.zeros(num_parts)
         self.load_labeled = np.zeros(num_parts)
@@ -129,6 +154,46 @@ def partition_graph(graph: CSCGraph, num_parts: int,
     return state.assign
 
 
+def partition_graph_streaming(edge_chunks, num_nodes: int, num_parts: int,
+                              labeled_mask: np.ndarray,
+                              slack: float = 1.05,
+                              labeled_slack: float | None = None
+                              ) -> np.ndarray:
+    """Single-pass LDG over an edge stream (``(dst, src)`` chunks, see
+    ``repro_torch.data.ingest``): each chunk's unassigned nodes are placed
+    in order of first appearance, scored against the chunk's edges of the
+    node (plus everything already assigned); nodes no edge touches are
+    placed last by load alone.  The result depends on the chunking, not
+    equal to ``partition_graph``'s."""
+    labeled = np.asarray(labeled_mask).astype(bool)
+    state = _LDGState(num_nodes, num_parts, labeled, slack, labeled_slack)
+
+    for dst, src in edge_chunks:
+        dst = np.asarray(dst, np.int64)
+        src = np.asarray(src, np.int64)
+        # chunk-local bidirectional adjacency: one CSR over concat(edges)
+        nodes = np.concatenate([dst, src])
+        peers = np.concatenate([src, dst])
+        order = np.argsort(nodes, kind="stable")
+        nodes_s, peers_s = nodes[order], peers[order]
+        uniq, starts = np.unique(nodes_s, return_index=True)
+        bounds = np.append(starts, nodes_s.size)
+        # place unassigned nodes in chunk first-appearance order
+        first = np.full(uniq.size, nodes.size, np.int64)
+        np.minimum.at(first, np.searchsorted(uniq, nodes),
+                      np.arange(nodes.size))
+        for i in np.argsort(first, kind="stable"):
+            v = int(uniq[i])
+            if state.assign[v] >= 0:
+                continue
+            state.place(v, peers_s[starts[i]:bounds[i + 1]])
+
+    empty = np.empty(0, np.int64)
+    for v in np.flatnonzero(state.assign < 0):
+        state.place(int(v), empty)       # isolated nodes: load balance only
+    return state.assign
+
+
 def edge_cut(graph: CSCGraph, assign: np.ndarray) -> int:
     """Number of edges whose endpoints live in different partitions."""
     _, indices = graph.numpy()
@@ -163,10 +228,13 @@ def _validate_assign(assign: np.ndarray, num_nodes: int, num_parts: int,
 
 
 class Partitioner:
-    """Base class of registry entries: ``assign`` validates what the
-    subclass's ``_assign`` returns."""
+    """Base class of registry entries: ``assign`` (and, where
+    ``supports_streaming``, ``assign_stream``) validates what the
+    subclass's ``_assign`` (``_assign_stream``) returns.  Entries are
+    deterministic in ``(graph, num_parts, labeled_mask, seed)``."""
 
     name: str = "?"
+    supports_streaming: bool = False
 
     def assign(self, graph: CSCGraph, num_parts: int, labeled_mask,
                *, seed: int = 0, slack: float = 1.05,
@@ -178,20 +246,272 @@ class Partitioner:
         return _validate_assign(out, graph.num_nodes, num_parts, slack,
                                 self.name)
 
+    def assign_stream(self, edge_chunks, num_nodes: int, num_parts: int,
+                      labeled_mask, *, seed: int = 0, slack: float = 1.05,
+                      labeled_slack: float | None = None) -> np.ndarray:
+        """Partition from an edge-chunk stream (``(dst, src)`` pairs, see
+        ``repro_torch.data.ingest``); the same validated contract."""
+        if not self.supports_streaming:
+            raise NotImplementedError(
+                f"partitioner {self.name!r} has no streaming variant; "
+                f"materialize the graph (repro_torch.data."
+                f"csc_from_edge_stream) and call assign, or use 'ldg'")
+        labeled = np.asarray(labeled_mask).astype(bool)
+        out = self._assign_stream(edge_chunks, num_nodes, num_parts,
+                                  labeled, seed=seed, slack=slack,
+                                  labeled_slack=labeled_slack)
+        return _validate_assign(out, num_nodes, num_parts, slack, self.name)
+
     def _assign(self, graph, num_parts, labeled, *, seed, slack,
                 labeled_slack) -> np.ndarray:
         raise NotImplementedError
 
+    def _assign_stream(self, edge_chunks, num_nodes, num_parts, labeled,
+                       *, seed, slack, labeled_slack) -> np.ndarray:
+        raise NotImplementedError
+
 
 class LDGPartitioner(Partitioner):
-    """BFS-ordered linear deterministic greedy (the default)."""
+    """BFS-ordered linear deterministic greedy (the default), with the
+    single-pass stream variant behind the same entry."""
 
     name = "ldg"
+    supports_streaming = True
 
     def _assign(self, graph, num_parts, labeled, *, seed, slack,
                 labeled_slack):
         return partition_graph(graph, num_parts, labeled, seed=seed,
                                slack=slack, labeled_slack=labeled_slack)
+
+    def _assign_stream(self, edge_chunks, num_nodes, num_parts, labeled,
+                       *, seed, slack, labeled_slack):
+        # the stream's order decides the placement: no seed to vary
+        return partition_graph_streaming(edge_chunks, num_nodes, num_parts,
+                                         labeled, slack=slack,
+                                         labeled_slack=labeled_slack)
+
+
+def _hash_assign(num_nodes: int, num_parts: int, labeled: np.ndarray,
+                 seed: int) -> np.ndarray:
+    """Hash-shuffled round robin: labeled and unlabeled nodes are dealt
+    separately, so both balance targets hold within one node per
+    partition."""
+    salt = np.uint64((int(seed) * 0x9E3779B97F4A7C15
+                      + 0x632BE59BD9B4E019) % (2 ** 64))
+    key = mix64(np.arange(num_nodes, dtype=np.uint64) + salt)
+    order = np.argsort(key, kind="stable")
+    assign = np.empty(num_nodes, np.int32)
+    lab_order = order[labeled[order]]
+    unlab_order = order[~labeled[order]]
+    assign[lab_order] = np.arange(lab_order.size) % num_parts
+    # deal the unlabeled remainder against per-partition quotas so the
+    # total counts stay within one of n/P
+    sizes = np.full(num_parts, num_nodes // num_parts, np.int64)
+    sizes[: num_nodes % num_parts] += 1
+    lab_counts = np.bincount(assign[lab_order], minlength=num_parts) \
+        if lab_order.size else np.zeros(num_parts, np.int64)
+    quota = sizes - lab_counts
+    while (quota < 0).any():         # labeled ceil landed on a floor slot
+        quota[int(np.argmin(quota))] += 1
+        quota[int(np.argmax(quota))] -= 1
+    seq = np.repeat(np.arange(num_parts, dtype=np.int32), quota)
+    assign[unlab_order] = seq[: unlab_order.size]
+    return assign
+
+
+class HashPartitioner(Partitioner):
+    """``random`` / ``hash``: ignores the topology (edge cut about 1 -
+    1/P), the floor every locality-aware entry is measured against; its
+    stream variant reads no edge."""
+
+    name = "random"
+    supports_streaming = True
+
+    def _assign(self, graph, num_parts, labeled, *, seed, slack,
+                labeled_slack):
+        return _hash_assign(graph.num_nodes, num_parts, labeled, seed)
+
+    def _assign_stream(self, edge_chunks, num_nodes, num_parts, labeled,
+                       *, seed, slack, labeled_slack):
+        return _hash_assign(num_nodes, num_parts, labeled, seed)
+
+
+def refine_partition(graph: CSCGraph, assign: np.ndarray, num_parts: int,
+                     labeled_mask, *, slack: float = 1.05,
+                     labeled_slack: float | None = None,
+                     sweeps: int = 10) -> np.ndarray:
+    """Capacity-constrained label-propagation refinement.
+
+    Sweeps nodes in id order; a node moves to the partition holding the
+    most of its (in + out) neighbours iff the move strictly reduces the
+    edge cut and the target is below the node cap and (for labeled nodes)
+    the labeled cap.  A move changes the scores of the nodes after it in
+    the same sweep, so the sweep is a loop.  Deterministic (ties keep the
+    lowest partition id); stops early when a sweep moves nothing.
+    """
+    n = graph.num_nodes
+    indptr, indices = graph.numpy()
+    view = csr_view(graph)
+    out_indptr, out_indices = view.indptr, view.indices
+    labeled = np.asarray(labeled_mask).astype(bool)
+    assign = np.asarray(assign, np.int32).copy()
+    cap_nodes, cap_labeled = _caps(n, num_parts, labeled, slack,
+                                   labeled_slack)
+    load_nodes = np.bincount(assign, minlength=num_parts).astype(float)
+    load_labeled = np.bincount(assign[labeled],
+                               minlength=num_parts).astype(float)
+    for _ in range(int(sweeps)):
+        moved = 0
+        for v in range(n):
+            nb = np.concatenate(
+                [indices[indptr[v]:indptr[v + 1]],
+                 out_indices[out_indptr[v]:out_indptr[v + 1]]])
+            if nb.size == 0:
+                continue
+            cur = int(assign[v])
+            score = np.bincount(assign[nb], minlength=num_parts)
+            ok = load_nodes < cap_nodes
+            if labeled[v]:
+                ok &= load_labeled < cap_labeled
+            ok[cur] = False
+            gain = np.where(ok, score - score[cur], -1)
+            best = int(np.argmax(gain))
+            if gain[best] > 0:
+                assign[v] = best
+                load_nodes[cur] -= 1
+                load_nodes[best] += 1
+                if labeled[v]:
+                    load_labeled[cur] -= 1
+                    load_labeled[best] += 1
+                moved += 1
+        if moved == 0:
+            break
+    return assign
+
+
+class LabelPropPartitioner(Partitioner):
+    """LDG placement, then ``refine_partition`` sweeps: its edge cut is at
+    most LDG's on every graph (the refinement only accepts strictly
+    cut-reducing, cap-respecting moves).  ``"labelprop(K)"`` sets the
+    sweep budget."""
+
+    name = "labelprop"
+
+    def __init__(self, sweeps: float = 10, *extra):
+        if extra:
+            raise ValueError(
+                f"labelprop takes at most one parameter (sweeps), got "
+                f"{(sweeps,) + extra}")
+        sweeps = int(sweeps)
+        if sweeps < 1:
+            raise ValueError(f"labelprop sweeps must be >= 1, got {sweeps}")
+        self.sweeps = sweeps
+
+    def _assign(self, graph, num_parts, labeled, *, seed, slack,
+                labeled_slack):
+        base = partition_graph(graph, num_parts, labeled, seed=seed,
+                               slack=slack, labeled_slack=labeled_slack)
+        return refine_partition(graph, base, num_parts, labeled,
+                                slack=slack, labeled_slack=labeled_slack,
+                                sweeps=self.sweeps)
+
+
+class MetisPartitioner(Partitioner):
+    """The paper's partitioner, through the optional ``pymetis`` package
+    (constructing it raises ``ImportError`` when that is absent).  METIS
+    balances nodes but not the labeled target, so its result is
+    cap-repaired and then refined for two sweeps with both caps on."""
+
+    name = "metis"
+
+    def __init__(self):
+        try:
+            import pymetis
+        except ImportError:
+            raise ImportError(
+                "partitioner 'metis' needs the optional dependency "
+                "pymetis (pip install pymetis); use 'labelprop' for a "
+                "pure-numpy clustering partitioner") from None
+        self._pymetis = pymetis
+
+    def _assign(self, graph, num_parts, labeled, *, seed, slack,
+                labeled_slack):
+        n = graph.num_nodes
+        indices = graph.numpy()[1].astype(np.int64)
+        dsts = csr_view(graph).dsts.astype(np.int64)
+        # METIS wants a symmetric, loop-free adjacency
+        u = np.concatenate([dsts, indices])
+        w = np.concatenate([indices, dsts])
+        keep = u != w
+        pairs = np.unique(np.stack([u[keep], w[keep]], axis=1), axis=0)
+        xadj = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(pairs[:, 0], minlength=n), out=xadj[1:])
+        kwargs = {}
+        options = getattr(self._pymetis, "Options", None)
+        if options is not None:
+            try:
+                kwargs["options"] = options(seed=int(seed))
+            except TypeError:       # older pymetis: unseedable, still
+                pass                # deterministic for fixed inputs
+        try:
+            _, membership = self._pymetis.part_graph(
+                num_parts, xadj=xadj, adjncy=pairs[:, 1], **kwargs)
+        except TypeError:           # a build without the options kwarg
+            _, membership = self._pymetis.part_graph(
+                num_parts, xadj=xadj, adjncy=pairs[:, 1])
+        assign = _repair_caps(graph, np.asarray(membership, np.int32),
+                              num_parts, labeled, slack, labeled_slack)
+        return refine_partition(graph, assign, num_parts, labeled,
+                                slack=slack, labeled_slack=labeled_slack,
+                                sweeps=2)
+
+
+def _repair_caps(graph: CSCGraph, assign: np.ndarray, num_parts: int,
+                 labeled: np.ndarray, slack: float,
+                 labeled_slack: float | None) -> np.ndarray:
+    """Evict lowest-degree nodes from over-cap partitions into the
+    least-loaded open ones until both balance targets hold (for
+    partitioners, like METIS, whose own balancing ignores the caps)."""
+    n = graph.num_nodes
+    assign = np.asarray(assign, np.int32).copy()
+    deg = np.diff(graph.numpy()[0])
+    cap_nodes, cap_labeled = _caps(n, num_parts, labeled, slack,
+                                   labeled_slack)
+    load_nodes = np.bincount(assign, minlength=num_parts).astype(float)
+    load_labeled = np.bincount(assign[labeled],
+                               minlength=num_parts).astype(float)
+
+    def evict(p: int, need_labeled: bool) -> None:
+        members = np.flatnonzero(assign == p)
+        if need_labeled:
+            members = members[labeled[members]]
+        members = members[np.argsort(deg[members], kind="stable")]
+        for v in members:
+            ok = load_nodes < cap_nodes
+            if labeled[v]:
+                ok &= load_labeled < cap_labeled
+            ok[p] = False
+            if not ok.any():
+                break
+            q = int(np.argmin(np.where(ok, load_nodes, np.inf)))
+            assign[v] = q
+            load_nodes[p] -= 1
+            load_nodes[q] += 1
+            if labeled[v]:
+                load_labeled[p] -= 1
+                load_labeled[q] += 1
+            over = load_labeled[p] > cap_labeled if need_labeled \
+                else load_nodes[p] > cap_nodes
+            if not over:
+                break
+
+    for p in range(num_parts):
+        if load_nodes[p] > cap_nodes:
+            evict(p, need_labeled=False)
+    for p in range(num_parts):
+        if load_labeled[p] > cap_labeled:
+            evict(p, need_labeled=True)
+    return assign
 
 
 _PARTITIONERS: dict[str, Callable[..., Partitioner]] = {}
@@ -213,7 +533,10 @@ def available_partitioners() -> tuple[str, ...]:
 
 
 def resolve_partitioner(name: str) -> Partitioner:
-    """Instantiate the partitioner registered under ``name``."""
+    """Instantiate the partitioner registered under ``name``, which may
+    carry inline parameters (``"labelprop(4)"``).  ``KeyError`` for an
+    unknown name; ``"metis"`` raises ``ImportError`` without
+    ``pymetis``."""
     from repro_torch.data.naming import parse_param_name
     base, params = parse_param_name(name, "partitioner")
     try:
@@ -224,14 +547,20 @@ def resolve_partitioner(name: str) -> Partitioner:
     return factory(*params)
 
 
-def _ldg_factory(*params):
-    if params:
-        raise ValueError(f"partitioner 'ldg' takes no parameters, got "
-                         f"{params}")
-    return LDGPartitioner()
+def _no_params(cls):
+    def factory(*params):
+        if params:
+            raise ValueError(f"partitioner {cls.name!r} takes no "
+                             f"parameters, got {params}")
+        return cls()
+    return factory
 
 
-register_partitioner("ldg", _ldg_factory)
+register_partitioner("ldg", _no_params(LDGPartitioner))
+register_partitioner("labelprop", lambda *p: LabelPropPartitioner(*p))
+register_partitioner("metis", _no_params(MetisPartitioner))
+register_partitioner("random", _no_params(HashPartitioner))
+register_partitioner("hash", _no_params(HashPartitioner))
 
 
 # --------------------------------------------------------------------------

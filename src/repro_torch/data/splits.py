@@ -1,11 +1,16 @@
 """Deterministic labeled-node split policies (counterpart of
-``repro.data.splits``; ``random`` only so far).
+``repro.data.splits``).
 
 A split policy maps ``(graph, full labels, seed) -> labels with -1 where
-unlabeled``.  ``"random(frac)"`` labels each node independently with
-probability ``frac`` through a SplitMix64 hash threshold of (node id,
-seed), so a split is reproducible from its name alone and bit-identical to
-``repro``'s.
+unlabeled``.  Both are pure hashes of (node id, seed) — SplitMix64 — so a
+split is reproducible from its name alone and bit-identical to
+``repro``'s:
+
+  ``"random(frac)"``             each node labeled independently with
+                                 probability ``frac``.
+  ``"degree_stratified(frac)"``  the hash-lowest ``frac`` within each
+                                 in-degree decile, so the labeled set
+                                 spans the degree spectrum.
 """
 from __future__ import annotations
 
@@ -48,6 +53,39 @@ class RandomSplit(SplitPolicy):
         return _node_hash_unit(graph.num_nodes, seed) < self.frac
 
 
+class DegreeStratifiedSplit(SplitPolicy):
+    """Label the hash-lowest ``frac`` of nodes within each in-degree
+    bucket (equal-population buckets, 10 by default)."""
+
+    name = "degree_stratified"
+
+    def __init__(self, frac: float = 0.3, buckets: float = 10):
+        frac = float(frac)
+        if not 0.0 < frac <= 1.0:
+            raise ValueError(f"split fraction must be in (0, 1], got {frac}")
+        self.frac = frac
+        self.buckets = max(int(buckets), 1)
+
+    def labeled_mask(self, graph, seed: int) -> np.ndarray:
+        n = graph.num_nodes
+        deg = np.diff(graph.numpy()[0])
+        u = _node_hash_unit(n, seed)
+        # rank nodes by degree (hash tie-break), cut into equal-population
+        # buckets, take frac per bucket by hash
+        order = np.lexsort((u, deg))
+        bucket = np.empty(n, np.int64)
+        bucket[order] = (np.arange(n) * self.buckets) // max(n, 1)
+        mask = np.zeros(n, bool)
+        for b in range(self.buckets):
+            ids = np.flatnonzero(bucket == b)
+            if not ids.size:
+                continue
+            take = int(round(self.frac * ids.size))
+            take = min(max(take, 1), ids.size)
+            mask[ids[np.argsort(u[ids], kind="stable")[:take]]] = True
+        return mask
+
+
 def register_split(name: str, factory: Callable[..., SplitPolicy], *,
                    overwrite: bool = False) -> None:
     """Register a split-policy factory (``factory(*params)``)."""
@@ -63,8 +101,8 @@ def available_splits() -> tuple[str, ...]:
 
 
 def resolve_split(name: str) -> SplitPolicy:
-    """Instantiate ``name`` (inline parameters allowed: ``"random(0.1)"``).
-    """
+    """Instantiate ``name`` (inline parameters allowed:
+    ``"random(0.1)"``, ``"degree_stratified(0.2,5)"``)."""
     base, params = parse_param_name(name, kind="split")
     try:
         factory = _SPLITS[base]
@@ -85,3 +123,4 @@ def apply_split(name: str, graph, labels_all: np.ndarray,
 
 
 register_split("random", lambda *a: RandomSplit(*a))
+register_split("degree_stratified", lambda *a: DegreeStratifiedSplit(*a))

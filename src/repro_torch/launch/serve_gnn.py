@@ -30,8 +30,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="where to run: cuda (the default) or cpu")
     ap.add_argument("--dataset", default="powerlaw(1.8)",
-                    help="graph source registry name (uniform | "
-                         "powerlaw(alpha))")
+                    help="graph source registry name or .npz path "
+                         "(see repro_torch.data)")
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--avg-degree", type=int, default=10)
     ap.add_argument("--scheme", default="hybrid",

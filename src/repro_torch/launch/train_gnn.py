@@ -24,6 +24,13 @@ device (counterpart of ``repro.launch.train_gnn``, same defaults).
       --trace t.json --trace-fence
   python -m repro_torch.obs.report t.json --summary
 
+  python -m repro_torch.launch.train_gnn --device cpu --devices 4 \\
+      --dataset "rmat(0.57,0.19,0.19,0.05)" --partitioner "labelprop(2)"
+  python -m repro_torch.launch.train_gnn --devices 4 \\
+      --dataset datasets/ogbn-arxiv.npz
+
+``--dataset`` takes a source registry name or the path of a dataset
+saved with ``repro_torch.data.save_dataset`` (or ``repro``'s).
 ``--scheme`` takes ``vanilla``, ``hybrid``, ``hybrid+fused`` or any
 registered placement scheme (``"hybrid_partial(0.25)"``).  ``--executor``
 takes ``vmap`` (``repro``'s name, the default) or ``stacked``: both are
@@ -53,17 +60,27 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where to run: cuda (the default) or cpu")
     ap.add_argument("--dataset", default="powerlaw(1.8)",
-                    help="graph source registry name (uniform | "
-                         "powerlaw(alpha))")
+                    help="graph source: a registry name from "
+                         "repro_torch.data (uniform | powerlaw(alpha) | "
+                         "rmat(a,b,c,d) | sbm(k,p_in,p_out)) or a path to "
+                         "a dataset saved with save_dataset (.npz)")
     ap.add_argument("--split", default="random(0.3)",
-                    help="labeled-node split policy (random(frac))")
+                    help="labeled-node split policy (random(frac) | "
+                         "degree_stratified(frac)); ignored for on-disk "
+                         "datasets")
     ap.add_argument("--scheme", default="hybrid+fused",
                     help="vanilla | hybrid | hybrid+fused, or any "
                          "registered placement scheme, e.g. "
                          "'hybrid_partial(0.25)' for degree-aware partial "
                          "replication")
     ap.add_argument("--partitioner", default="ldg",
-                    help="partitioner registry name (ldg)")
+                    help="partitioner registry name "
+                         "(repro_torch.core.partition): ldg (streaming "
+                         "greedy, the default) | labelprop (LDG + "
+                         "label-propagation refinement, lower edge "
+                         "cut) | metis (needs pymetis) | random / hash "
+                         "(locality-free baseline); parameterized forms "
+                         "like 'labelprop(20)' set the sweep count")
     ap.add_argument("--cache-capacity", type=int, default=0,
                     help="per-worker hot-remote-feature cache entries "
                          "(0 = off)")
@@ -118,7 +135,7 @@ def main(argv=None):
         obs_trace.start(args.trace, fenced=args.trace_fence,
                         process_name="train_gnn")
 
-    from repro_torch.data.spec import DataSpec
+    from repro_torch.data import DataSpec, dataset_stats, stats_label
     from repro_torch.device import resolve_device
     from repro_torch.models.gnn import GNNConfig, gnn_loss, init_gnn_params
     from repro_torch.optim import init_opt_state
@@ -139,8 +156,7 @@ def main(argv=None):
         staging_lead=args.staging_lead, data=data)
     pipe = Pipeline.build_from_source(spec=spec, device=device)
     ds = pipe.dataset
-    print(f"dataset: {ds.name}, {ds.graph.num_nodes} nodes, "
-          f"{ds.graph.num_edges} edges; device {device}")
+    print(f"dataset: {stats_label(dataset_stats(ds))}; device {device}")
 
     cfg = GNNConfig(in_dim=ds.features.shape[1], hidden_dim=256,
                     num_classes=ds.num_classes, num_layers=len(fanouts),

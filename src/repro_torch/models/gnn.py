@@ -1,18 +1,25 @@
-"""GraphSAGE over MFGs (the paper's §4 model): forward, loss and accuracy.
+"""GNNs over MFGs: GraphSAGE (the paper's §4 model), GCN, GAT and GIN —
+forward, loss and accuracy.
 
-Counterpart of ``repro.models.gnn`` for the ``sage`` conv.  Parameters are
-a plain list of per-layer dicts ``{"w_self": (d_in, d_out), "w_neigh":
-(d_in, d_out), "b": (d_out,)}`` — ``repro``'s layout — so
-``params_from_numpy`` carries ``repro``'s parameters across unchanged.
+Counterpart of ``repro.models.gnn``.  Parameters are a plain list of
+per-layer dicts in ``repro``'s layout — ``{"w_self": (d_in, d_out),
+"w_neigh": (d_in, d_out), "b": (d_out,)}``, plus ``attn_src`` /
+``attn_dst`` (H, d_out / H) for a gat layer whose width the heads divide,
+and a 0-d ``eps``, ``w_mlp`` (d_out, d_out) and ``b_mlp`` (d_out,) for gin
+— so ``params_from_numpy`` carries ``repro``'s parameters across unchanged.
 Layers consume MFGs bottom-up (layer 1 eats the bottom-most MFG) and every
 activation may carry the leading worker axis.
 
-The neighbour mean goes through the ``sage_aggregate`` kernels (forward
-and backward) on CUDA tensors.  The two products stay ``torch.matmul``,
-issued as fixed-shape (``ROW_CHUNK``, d_in) row blocks: cuBLAS picks its
-kernel, and with it the reduction order, from the shape, so one product
-over all rows would give a seed's logits bits that depend on how many
-seeds share the batch.
+The neighbour mean of sage, gcn, gin (whose sum is the mean times the
+valid count) and of gat's head-indivisible last layer goes through the
+``sage_aggregate`` kernels (forward and backward) on CUDA tensors.  gat's
+attention is plain PyTorch: a gather, a masked softmax and the weighted
+sum, whose sums over the fanout are pairwise trees of elementwise adds
+(``_sum_over``), so their order depends on F alone.  Every product,
+gat's per-head scores included, is ``rowwise_matmul``: fixed-shape
+(``ROW_CHUNK``, d_in) row blocks.  cuBLAS picks its kernel, and with it
+the reduction order, from the shape, so one product over all rows would
+give a seed's logits bits that depend on how many seeds share the batch.
 
 Dropout masks come from an explicit ``torch.Generator`` (``repro`` draws
 them with ``jax.random``, whose bits torch cannot reproduce); without a
@@ -21,6 +28,7 @@ generator, or with ``dropout == 0``, no dropout is applied.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Sequence
 
 import numpy as np
@@ -40,29 +48,47 @@ class GNNConfig:
     num_layers: int = 3
     fanouts: tuple[int, ...] = (15, 10, 5)   # (N_L, ..., N_1), top first
     dropout: float = 0.5                      # training only
-    conv: str = "sage"
+    conv: str = "sage"                        # sage | gcn | gat | gin
+    gat_heads: int = 4                        # attention heads (gat only)
 
     def __post_init__(self):
-        if self.conv != "sage":
-            raise ValueError(f"conv {self.conv!r} is not ported yet; "
-                             f"available: ('sage',)")
+        if self.conv not in CONVS:
+            raise ValueError(f"unknown conv {self.conv!r}; available: "
+                             f"{CONVS}")
+
+
+CONVS = ("sage", "gcn", "gat", "gin")
 
 
 def init_gnn_params(cfg: GNNConfig, generator: torch.Generator,
                     device) -> list[dict]:
-    """He-scaled normal weights and zero biases, ``repro``'s shapes and
-    scales, drawn on the CPU from ``generator`` and moved to ``device``."""
+    """``repro``'s parameters, shapes and scales: He-scaled normal weights
+    and zero biases; gat's attention vectors normal * 0.1 where the heads
+    divide the layer's width (the last layer, 47 wide, takes the mean
+    instead); gin's ``eps`` 0 and a He-scaled ``w_mlp``.  Drawn on the
+    CPU from ``generator`` (per layer: w_self, w_neigh, then the conv's
+    own) and moved to ``device``."""
     dims = ([cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
             + [cfg.num_classes])
     params = []
     for layer in range(cfg.num_layers):
         d_in, d_out = dims[layer], dims[layer + 1]
         scale = (2.0 / d_in) ** 0.5
-        w_self = torch.randn((d_in, d_out), generator=generator) * scale
-        w_neigh = torch.randn((d_in, d_out), generator=generator) * scale
-        params.append({"w_self": w_self.to(device),
-                       "w_neigh": w_neigh.to(device),
-                       "b": torch.zeros((d_out,), device=device)})
+        p = {"w_self": torch.randn((d_in, d_out), generator=generator)
+             * scale,
+             "w_neigh": torch.randn((d_in, d_out), generator=generator)
+             * scale,
+             "b": torch.zeros((d_out,))}
+        if cfg.conv == "gat" and d_out % cfg.gat_heads == 0:
+            shape = (cfg.gat_heads, d_out // cfg.gat_heads)
+            p["attn_src"] = torch.randn(shape, generator=generator) * 0.1
+            p["attn_dst"] = torch.randn(shape, generator=generator) * 0.1
+        if cfg.conv == "gin":
+            p["eps"] = torch.zeros(())
+            p["w_mlp"] = (torch.randn((d_out, d_out), generator=generator)
+                          * (2.0 / d_out) ** 0.5)
+            p["b_mlp"] = torch.zeros((d_out,))
+        params.append({k: v.to(device) for k, v in p.items()})
     return params
 
 
@@ -91,33 +117,145 @@ def rowwise_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     M = x2.shape[0]
     if M == 0:
         return x2.new_zeros((*lead, w.shape[1]))
-    full = M - M % ROW_CHUNK
-    blocks = [torch.matmul(x2[i:i + ROW_CHUNK], w)
-              for i in range(0, full, ROW_CHUNK)]
-    if full < M:
-        tail = torch.nn.functional.pad(x2[full:],
-                                       (0, 0, 0, ROW_CHUNK - (M - full)))
-        blocks.append(torch.matmul(tail, w)[:M - full])
+    # one split, not a slice a block: the gradient of a split is one cat,
+    # that of a slice a zero-filled tensor of all M rows
+    *pieces, last = x2.split(ROW_CHUNK)
+    blocks = [torch.matmul(piece, w) for piece in pieces]
+    tail = last.shape[0]
+    if tail < ROW_CHUNK:
+        last = torch.nn.functional.pad(last, (0, 0, 0, ROW_CHUNK - tail))
+    blocks.append(torch.matmul(last, w)[:tail])
     out = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
     return out.reshape(*lead, w.shape[1])
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[..., idx, :]`` per leading index: table (..., N, D), idx
+    (..., *K) in [0, N) -> (..., *K, D).  One advanced index into the
+    flattened table, whose gradient CUDA accumulates by sorted index
+    rather than by atomics."""
+    N, D = table.shape[-2:]
+    lead = table.shape[:-2]
+    if not lead:
+        return table[idx]
+    B = math.prod(lead)
+    off = torch.arange(B, device=idx.device).reshape(
+        *lead, *([1] * (idx.dim() - len(lead)))) * N
+    return table.reshape(B * N, D)[idx + off]
+
+
+def _sum_over(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of ``x`` over ``dim`` as a pairwise tree of elementwise adds,
+    zero-padded to a power of two: the order of a sum depends on the
+    length of ``dim`` alone, never on the other dims (a library reduction
+    picks its split from the whole shape).  Free of atomics."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    if n == 0:
+        return x.sum(dim)
+    width = 1 << (n - 1).bit_length()
+    if width != n:
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, width - n]
+        x = torch.nn.functional.pad(x, pad)
+    while width > 1:
+        width //= 2
+        x = x.narrow(dim, 0, width) + x.narrow(dim, width, width)
+    return x.squeeze(dim)
+
+
+def _per_head(attn: torch.Tensor) -> torch.Tensor:
+    """(H, dh) attention vectors -> the block-diagonal (H * dh, H) matrix
+    whose product with z (..., H * dh) is ``einsum("...hd,hd->...h")``."""
+    H, dh = attn.shape
+    eye = torch.eye(H, dtype=attn.dtype, device=attn.device)
+    return (attn[:, :, None] * eye[:, None, :]).reshape(H * dh, H)
+
+
+def gat_project(layer, h_src: torch.Tensor) -> tuple:
+    """gat's per-source tables: ``z = h_src @ w_neigh`` (..., N, d_out)
+    and, where the layer has attention, each source's per-head score ``z .
+    attn_src`` (..., N, H) (else None).  Exact inference builds them once
+    a layer for all its batches."""
+    z = rowwise_matmul(h_src, layer["w_neigh"])
+    if "attn_src" not in layer:
+        return z, None
+    return z, rowwise_matmul(z, _per_head(layer["attn_src"]))
+
+
+def _gat_aggregate(layer, mfg: MFG, h_src: torch.Tensor,
+                   h_dst: torch.Tensor, heads: int,
+                   projected: tuple | None) -> torch.Tensor:
+    """Masked GAT attention over the sampled edges, ``repro``'s
+    ``_gat_aggregate`` on ``z = h @ w_neigh``: returns (..., S, d_out); a
+    row with no valid edge is 0.  Each edge's projected source and score
+    are gathered from ``projected`` (``gat_project``'s tables) when the
+    caller has them (exact inference projects once a layer for all its
+    batches), else projected from the gathered ``h_src`` rows: the same
+    bits (a row of ``rowwise_matmul`` does not depend on the others).
+    Training takes the second way: its gradient then scatters into the
+    ``h_src`` rows only, and not at all in the first layer, whose sources
+    are the fetched features.  Through the table, gat's training step at
+    PRODUCTS widths took 2.3 to 2.6 times as long on an H100 80GB HBM3
+    at 700 W, its device busy 3.3 times (``chip_smoke.py`` phase 12 times
+    both)."""
+    mask = mfg.edge_mask[..., None]                          # (..., S, F, 1)
+    idx = mfg.edges.clamp(min=0)
+    if projected is None:
+        z_nb = rowwise_matmul(_rows(h_src, idx), layer["w_neigh"])
+        s_nb = rowwise_matmul(z_nb, _per_head(layer["attn_src"]))
+    else:
+        z_nb, s_nb = _rows(projected[0], idx), _rows(projected[1], idx)
+    z_dst = rowwise_matmul(h_dst, layer["w_neigh"])
+    s_dst = rowwise_matmul(z_dst, _per_head(layer["attn_dst"]))
+    e = torch.nn.functional.leaky_relu(s_nb + s_dst[..., None, :], 0.2)
+    e = torch.where(mask, e, -1e30)                          # (..., S, F, H)
+    p = torch.exp(e - e.amax(dim=-2, keepdim=True).detach())
+    a = torch.where(mask, p / _sum_over(p, -2)[..., None, :], 0.0)
+    z_nb = z_nb.reshape(*z_nb.shape[:-1], heads, -1)         # (..., S, F, H, dh)
+    out = _sum_over(a[..., None] * z_nb, -3)                 # (..., S, H, dh)
+    return out.reshape(*out.shape[:-2], -1)
 
 
 def apply_layer(layer, mfg: MFG, h_src: torch.Tensor, cfg: GNNConfig, *,
                 is_last: bool, generator: torch.Generator | None = None,
                 aggregate: Callable = sage_aggregate,
-                h_dst: torch.Tensor | None = None) -> torch.Tensor:
-    """One SAGE layer: (..., src_capacity, D_in) -> (..., num_dst, D_out).
-    ``aggregate(edges, h_src)`` is the neighbour mean (the kernel wrapper
-    by default; ``sage_aggregate_plain`` for a plain-version forward).
-    ``h_dst`` holds the destination rows when they are not the prefix of
-    ``h_src`` (exact inference reads its sources from the whole table).
-    Hidden layers apply dropout with masks drawn from ``generator`` (on
-    the activations' device) when it is given and ``cfg.dropout > 0``."""
+                h_dst: torch.Tensor | None = None,
+                projected: tuple | None = None) -> torch.Tensor:
+    """One layer of ``cfg.conv``: (..., src_capacity, D_in) -> (...,
+    num_dst, D_out).  ``aggregate(edges, h_src)`` is the neighbour mean
+    (the kernel wrapper by default; ``sage_aggregate_plain`` for a
+    plain-version forward).  ``h_dst`` holds the destination rows when
+    they are not the prefix of ``h_src`` (exact inference reads its
+    sources from the whole table); ``projected`` is gat's
+    ``gat_project(layer, h_src)`` when the caller has it.  Hidden layers
+    apply dropout with masks drawn from ``generator`` (on the
+    activations' device) when it is given and ``cfg.dropout > 0``."""
     if h_dst is None:
         h_dst = h_src[..., : mfg.num_dst, :]      # prefix convention
-    agg = aggregate(mfg.edges, h_src)
-    out = (rowwise_matmul(h_dst, layer["w_self"])
-           + rowwise_matmul(agg, layer["w_neigh"]) + layer["b"])
+    if cfg.conv == "sage":
+        agg = aggregate(mfg.edges, h_src)
+        out = (rowwise_matmul(h_dst, layer["w_self"])
+               + rowwise_matmul(agg, layer["w_neigh"]) + layer["b"])
+    elif cfg.conv == "gcn":                        # aggregate incl. self
+        agg = aggregate(mfg.edges, h_src)
+        out = rowwise_matmul(0.5 * (h_dst + agg), layer["w_neigh"]) \
+            + layer["b"]
+    elif cfg.conv == "gat":
+        if "attn_src" in layer:
+            out = _gat_aggregate(layer, mfg, h_src, h_dst, cfg.gat_heads,
+                                 projected)
+        else:                                      # head-indivisible layer
+            z_src = projected[0] if projected else \
+                rowwise_matmul(h_src, layer["w_neigh"])
+            out = aggregate(mfg.edges, z_src)
+        out = out + rowwise_matmul(h_dst, layer["w_self"]) + layer["b"]
+    else:                                          # gin: sum = mean * count
+        agg = aggregate(mfg.edges, h_src)
+        count = mfg.edge_mask.sum(dim=-1, keepdim=True).to(agg.dtype)
+        pre = rowwise_matmul((1.0 + layer["eps"]) * h_dst + agg * count,
+                             layer["w_neigh"]) + layer["b"]
+        out = rowwise_matmul(torch.relu(pre), layer["w_mlp"]) \
+            + layer["b_mlp"]
     if not is_last:
         out = torch.relu(out)
         if generator is not None and cfg.dropout > 0:

@@ -58,9 +58,13 @@ class Pipeline:
 
     @classmethod
     def build(cls, graph: CSCGraph, features, labels, spec: PipelineSpec,
-              *, labeled_mask=None, device=None) -> "Pipeline":
+              *, labeled_mask=None, partition_chunk_edges=None,
+              device=None) -> "Pipeline":
         """Partition ``graph`` (on the CPU) by the spec'd partitioner and
-        assemble every stage on ``device``."""
+        assemble every stage on ``device``.  ``partition_chunk_edges``
+        runs a streaming-capable partitioner's one-pass variant over the
+        graph's edges in chunks of that many, in CSC order, instead of
+        its in-memory walk."""
         from repro_torch.core.graph import csr_view_release
         from repro_torch.core.partition import (build_layout,
                                                 resolve_partitioner)
@@ -70,10 +74,18 @@ class Pipeline:
         labels = np.asarray(labels)
         if labeled_mask is None:
             labeled_mask = labels >= 0
-        assign = resolve_partitioner(plan.partitioner).assign(
-            graph, plan.num_parts, np.asarray(labeled_mask),
-            seed=plan.partition_seed, slack=plan.node_slack,
-            labeled_slack=plan.labeled_slack)
+        partitioner = resolve_partitioner(plan.partitioner)
+        kw = dict(seed=plan.partition_seed, slack=plan.node_slack,
+                  labeled_slack=plan.labeled_slack)
+        if partition_chunk_edges is not None:
+            from repro_torch.data.ingest import iter_edge_chunks
+            assign = partitioner.assign_stream(
+                iter_edge_chunks(graph, chunk_edges=partition_chunk_edges),
+                graph.num_nodes, plan.num_parts, np.asarray(labeled_mask),
+                **kw)
+        else:
+            assign = partitioner.assign(graph, plan.num_parts,
+                                        np.asarray(labeled_mask), **kw)
         layout = build_layout(graph, np.asarray(features), labels, assign,
                               plan.num_parts, device=device)
         csr_view_release(graph)
@@ -81,17 +93,21 @@ class Pipeline:
 
     @classmethod
     def build_from_source(cls, source=None, spec: PipelineSpec = None, *,
+                          mmap: bool = True, partition_chunk_edges=None,
                           device=None) -> "Pipeline":
-        """``Pipeline.build`` with the dataset resolved by the
-        ``repro_torch.data`` source registry (``source`` defaults to
-        ``spec.data.source``)."""
+        """``Pipeline.build`` with the dataset resolved by
+        ``repro_torch.data``: ``source`` (default ``spec.data.source``) is
+        a registry name or the path of a saved dataset, memory-mapped
+        unless ``mmap=False``.  Bit-identical to ``build`` on the resolved
+        dataset, which the pipeline keeps on ``.dataset``."""
         from repro_torch.data.spec import resolve_dataset
 
         if spec is None:
             raise ValueError("build_from_source needs a PipelineSpec")
         device = resolve_device(device)
-        ds = resolve_dataset(source, spec.data)
+        ds = resolve_dataset(source, spec.data, mmap=mmap)
         pipe = cls.build(ds.graph, ds.features, ds.labels, spec,
+                         partition_chunk_edges=partition_chunk_edges,
                          device=device)
         pipe.dataset = ds
         return pipe

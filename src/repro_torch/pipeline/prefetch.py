@@ -176,7 +176,10 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
             per_worker = loss_fn(leaves, mfgs, batch.h_src,
                                  batch.seed_labels, batch.seed_valid)
             loss = dist.pmean_ordered(per_worker)
-            flat = torch.autograd.grad(loss, tree_leaves(leaves))
+            # a conv may leave a parameter unused (gcn's w_self): its
+            # gradient is zeros, as jax.grad gives it
+            flat = torch.autograd.grad(loss, tree_leaves(leaves),
+                                       materialize_grads=True)
         it = iter(flat)
         grads = tree_map(lambda _: next(it), params)
         comm = batch.comm

@@ -25,6 +25,9 @@ OVERLAP_SLICE = ("pipeline.staging", "pipeline.prefetch", "serve.recycler",
 # the exact-inference and observability slice's modules
 OBS_SLICE = ("core.inference", "obs", "obs.trace", "obs.metrics",
              "obs.profile", "obs.report")
+# the convs, data-layer and partitioner slice's new modules
+DATA_SLICE = ("data.dataset_io", "data.ingest", "data.stats", "data.smoke",
+              "data.ogb", "core.adaptive", "optim.schedule")
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
                        re.MULTILINE)
@@ -55,14 +58,16 @@ def test_every_module_imports_without_jax_or_repro():
     names = set(out.stdout.split())
     assert len(names) >= 40
     assert {f"repro_torch.{m}"
-            for m in TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE} <= names
+            for m in TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
+            + DATA_SLICE} <= names
 
 
 def test_static_scan_finds_no_jax_or_repro_import():
     scanned = {p.relative_to(PORT).with_suffix("").as_posix().replace(
         "/", ".").removesuffix(".__init__") for p in _port_sources()
         if PORT in p.parents}
-    assert set(TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE) <= scanned
+    assert set(TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
+               + DATA_SLICE) <= scanned
     offenders = []
     for path in _port_sources():
         for m in FORBIDDEN.finditer(path.read_text()):
