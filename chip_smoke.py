@@ -68,10 +68,12 @@ Phases (any failure raises and the script exits non-zero):
      synchronous run bit for bit, 2 feature rounds per step (0 for
      ``staged``), the fused sampler's window overflow nonzero in some
      step (the stager's host replay applies the window), every kernel of
-     the path launched, a restart at step 5 replays steps 5-9; its step
+     the path launched, a restart at step 5 replays steps 5-9 (the
+     ``staged`` store, whose steps take a second of host work each: 3
+     steps, their losses and the parameters after them equal to phase
+     8's after its first 3, a restart at step 1, no span timing); its step
      wall, the mean host ms of each driver, executor and stager span over
-     3 traced steps (1 for ``staged``; ``repro_torch.obs``; unfenced, and
-     fenced), device
+     3 traced steps (``repro_torch.obs``; unfenced, and fenced), device
      busy and idle share over 2 steps profiled one
      by one (taken again when their counts of device ops differ), the
      stager's ring-empty waits and pinned bytes, and peak
@@ -126,10 +128,7 @@ Phases (any failure raises and the script exits non-zero):
      with plain versions (loss within 1e-5, each gradient leaf within
      tolerance); 5 ``SyncDriver`` steps (finite losses, 2 rounds a step,
      all six kernel wrappers launched; step wall, device busy over 2
-     more profiled steps, peak memory); for gat the same 5 steps again
-     with its edges gathered from the projected table of its sources
-     (exact inference's way; the first loss equal), timed the same way
-     beside training's projection of the gathered rows.  With the 5
+     more profiled steps, peak memory).  With the 5
      steps' weights: a ``Predictor`` at buckets (1, 8, 32, 128) over
      phase 3's pipeline, its 128-seed ``predict`` within 1e-4 of a
      plain-version forward (for gin an absolute 1e-4 of each row's
@@ -150,10 +149,32 @@ Phases (any failure raises and the script exits non-zero):
      under ``degree_stratified(0.3)`` through streaming LDG
      (``partition_chunk_edges``) and 3 steps; ``AdaptiveFanout`` forced
      down a rung and 2 steps at the new fanouts (``fused_sample`` and the
-     aggregate launched); ``metis``'s refusal without ``pymetis``; and
-     ``python -m repro_torch.launch.train_gnn --dataset <saved 20 000-node
-     rmat>.npz --partitioner labelprop(2)`` as a subprocess, which must
-     exit 0.
+     aggregate launched); ``metis``'s refusal without ``pymetis``.
+ 14. the fleet executors: phase 3's dataset, its ldg assignment and
+     phase 8's initial parameters written under ``build/fleet``; the
+     parent's stacked runs of ``hybrid+fused`` and ``vanilla`` (10
+     ``SyncDriver`` steps, ``exchange`` store, no cache) and a 128-seed
+     stacked ``predict``; then one 4-rank ``torch.distributed`` launch
+     (``repro_torch.launch.multihost``; this script re-run with
+     ``--fleet-rank``) in which each rank loads those files (no second
+     partitioning), builds its rank-local layout and trains the paper's
+     GraphSAGE for 10 ``SyncDriver`` steps in three fleets: ``shard_map``
+     4 ranks x 1 worker ``hybrid+fused``; ``multiprocess`` 2 x 2
+     ``hybrid+fused`` (on ranks 0 and 1); ``shard_map`` 4 x 1
+     ``vanilla``.  Gates: every rank's tensors on the card, every kernel
+     of the path launched in every rank (the wrappers' counts), 2 / 2 / 6
+     rounds a step, finite losses equal on every rank, step 0's loss
+     equal to the stacked one bit for bit, later losses and the
+     parameters within ``FLEET_*`` of the stacked run, fleets 1 and 2
+     equal bit for bit, fleet 1's ``predict`` equal to the stacked one
+     bit for bit.  Prints per fleet the step walls, each rank's peak
+     memory and, from rank 0's ``comm/*`` spans, each round's bytes, ms
+     and GB/s.  Then ``train_gnn --executor multiprocess --num-procs 2
+     --dataset <saved 20 000-node rmat>.npz --partitioner labelprop(2)
+     --trace`` at its other defaults but 1 step: exit 0, rank logs, rank
+     0's edge cut equal to the parent's labelprop(2) of the file (the
+     ranks refuse to train on partitions that differ), a merged trace
+     that ``validate_trace`` accepts.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -162,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -496,15 +518,18 @@ def f_ordered_mean(edges, h):
     import torch
     B, S, Fo = edges.shape
     N, D = h.shape[1:]
+    idx = edges.long()
+    ok = (idx >= 0) & (idx < N)
+    # every slot's row gathered at once; only the sum runs f by f (one add
+    # a slot, the same fp32 adds in the same order as a loop that gathers
+    # inside it); the count is exact
+    rows = torch.gather(h, 1, idx.clamp(0, max(N - 1, 0)).reshape(
+        B, S * Fo, 1).expand(-1, -1, D)).reshape(B, S, Fo, D)
+    rows.masked_fill_(~ok[..., None], 0.0)
     acc = torch.zeros((B, S, D), device=h.device)
-    count = torch.zeros((B, S), device=h.device)
     for f in range(Fo):
-        idx = edges[..., f].long()
-        ok = (idx >= 0) & (idx < N)
-        rows = torch.gather(h, 1, idx.clamp(0, max(N - 1, 0))[..., None]
-                            .expand(-1, -1, D))
-        acc = acc + torch.where(ok[..., None], rows, 0.0)
-        count = count + ok
+        acc = acc + rows[:, :, f]
+    count = ok.sum(dim=-1).to(acc.dtype)
     return acc / count.clamp(min=1)[..., None]
 
 
@@ -1126,7 +1151,8 @@ def feature_rows(layout, src):
 def training_phase(layout, data, cfg):
     """Phase 8: returns ({kernel name: its result at the step's shapes},
     launch counts of the 10-step driver run, that run as phase 9's
-    reference: {"params0", "losses", "params"})."""
+    reference: {"params0", "losses", "params", "params_after": {steps:
+    params}})."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1253,15 +1279,17 @@ def training_phase(layout, data, cfg):
     reference = {"params0": params}
     K.reset_launch_counts()
     rounds_before = pin.counter.rounds
-    losses, walls, hit_rates = [], [], []
-    for _ in range(TRAIN_STEPS):
+    losses, walls, hit_rates, after = [], [], [], {}
+    for k in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         params, opt, loss, m = driver.step(params, opt)
         losses.append(float(loss))          # synchronizes
         walls.append((time.perf_counter() - t0) * 1e3)
         hit_rates.append(float(m["cache_hit_rate"]))
+        after[k + 1] = params
     counts = K.launch_counts()
-    reference.update(losses=losses, params=params, walls=walls)
+    reference.update(losses=losses, params=params, walls=walls,
+                     params_after=after)
     rounds = (pin.counter.rounds - rounds_before) / TRAIN_STEPS
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -1474,14 +1502,21 @@ OVERLAP_RUNS = (       # (label, prefetch depth, staging, feature store)
     ("staged store, depth 1", 1, False, "staged"),
 )
 RESTART = 5            # phase 9 restarts each run here
+# the staged store's run: its steps take about a second of host work each,
+# so it runs 3 steps held to phase 8's first 3 losses and its parameters
+# after them, restarts at step 1 and times no spans
+STAGED_STEPS = 3
+STAGED_RESTART = 1
 
 
 def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
     """One phase-9 run: 10 steps from phase 8's initial parameters, held
     to phase 8's synchronous run bit for bit, then a restart at step 5, 3
-    steps timed by part unfenced and 3 fenced (1 and 1 for the staged
-    store), and 2 profiled steps.
-    Returns (launch counts of the 10 steps, numbers for PERF.md)."""
+    steps timed by part unfenced and 3 fenced, and 2 profiled steps (the
+    staged store: ``STAGED_STEPS`` steps held to phase 8's first losses
+    and its parameters after them, a restart at ``STAGED_RESTART``, no
+    span timing).
+    Returns (launch counts of the steps, numbers for PERF.md)."""
     import torch
     import repro_torch.kernels as K
     from repro_torch.models.gnn import gnn_loss
@@ -1495,6 +1530,9 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         return all(torch.equal(x, y)
                    for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
+    staged = store == "staged"
+    steps = STAGED_STEPS if staged else TRAIN_STEPS
+    restart = STAGED_RESTART if staged else RESTART
     spec = PipelineSpec.from_scheme(
         "hybrid+fused", num_parts=NUM_PARTS, fanouts=cfg.fanouts,
         cache_capacity=CACHE_K, cache_policy="degree", feature_store=store,
@@ -1511,8 +1549,8 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         K.reset_launch_counts()
         rounds_before = pipe.counter.rounds
         losses, walls, overflow = [], [], []
-        for k in range(TRAIN_STEPS):
-            if k == RESTART:
+        for k in range(steps):
+            if k == restart:
                 snapshot = (params, opt)
             t0 = time.perf_counter()
             params, opt, loss, m = driver.step(params, opt)
@@ -1520,17 +1558,18 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
             walls.append((time.perf_counter() - t0) * 1e3)
             overflow.append(int(m["sampler_window_overflow"]))
         counts = K.launch_counts()
-        rounds = (pipe.counter.rounds - rounds_before) / TRAIN_STEPS
+        rounds = (pipe.counter.rounds - rounds_before) / steps
         final = params
-        want_rounds = 0 if store == "staged" else 2
+        want_rounds = 0 if staged else 2
         if rounds != want_rounds:
             raise AssertionError(f"{label}: {rounds} rounds per step, "
                                  f"expected {want_rounds}")
-        if losses != ref["losses"] or not same_params(final, ref["params"]):
+        same = same_params(final, ref["params_after"][steps])
+        if losses != ref["losses"][:steps] or not same:
             raise AssertionError(
                 f"{label}: differs from phase 8's synchronous run: losses "
-                f"{losses} vs {ref['losses']}, parameters equal "
-                f"{same_params(final, ref['params'])}")
+                f"{losses} vs {ref['losses'][:steps]}, parameters equal "
+                f"{same}")
         if max(overflow) == 0:
             raise AssertionError(f"{label}: no window overflow in any step")
         path = [k for k in counts
@@ -1541,18 +1580,18 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
                                  f"{missing}")
         params, opt = snapshot
         replay = []
-        for k in range(RESTART, TRAIN_STEPS):
+        for k in range(restart, steps):
             params, opt, loss, _ = driver.step(params, opt, step_idx=k)
             replay.append(float(loss))
-        if replay != losses[RESTART:] or not same_params(params, final):
-            raise AssertionError(f"{label}: the restart at step {RESTART} "
-                                 f"gave {replay}, not {losses[RESTART:]}")
-        # the staged store's steps take about a second of host work each
-        span_steps = 1 if store == "staged" else 3
-        params, opt, host = traced_parts(driver, params, opt, fenced=False,
-                                         steps=span_steps)
-        params, opt, fenced = traced_parts(driver, params, opt, fenced=True,
-                                           steps=span_steps)
+        if replay != losses[restart:] or not same_params(params, final):
+            raise AssertionError(f"{label}: the restart at step {restart} "
+                                 f"gave {replay}, not {losses[restart:]}")
+        host, fenced = {}, {}
+        if not staged:
+            params, opt, host = traced_parts(driver, params, opt,
+                                             fenced=False, steps=3)
+            params, opt, fenced = traced_parts(driver, params, opt,
+                                               fenced=True, steps=3)
         params, opt, prof = profiled_steps(driver, params, opt)
         stats = driver.stager.stats() if driver.stager is not None else None
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1571,10 +1610,10 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
            "span_ms": host, "fenced_span_ms": fenced,
            "overflow_per_step": overflow, "rounds_per_step": rounds,
            "peak_device_gb": peak, "pinned_bytes": 0}
-    log(f"losses and final parameters equal phase 8's run bit for bit; "
-        f"restart at step {RESTART} replays steps {RESTART}-"
-        f"{TRAIN_STEPS - 1}; {rounds:g} rounds per step; window overflow "
-        f"per step {overflow}")
+    log(f"losses and parameters equal phase 8's run bit for bit over "
+        f"{steps} steps; restart at step {restart} "
+        f"replays steps {restart}-{steps - 1}; {rounds:g} rounds per step; "
+        f"window overflow per step {overflow}")
     log(f"step wall median {median:.3f} ms (min {min(walls):.3f}, max "
         f"{max(walls):.3f}); profiled steps: wall {prof['wall_ms']:.3f} "
         f"ms, device busy {prof['device_busy_ms']:.3f} ms (the step's "
@@ -1584,9 +1623,11 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         f"ms), idle share {out['idle_share']:.3f} (of the unprofiled "
         f"median wall {out['idle_share_of_median_wall']:.3f}); peak device "
         f"memory {peak:.2f} GB")
-    log(f"spans over {span_steps} traced step(s), mean host ms: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in host.items()) + "; fenced, host + "
-        "device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items()))
+    if host:
+        log("spans over 3 traced steps, mean host ms: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in host.items()) + "; fenced, host + "
+            "device ms: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in fenced.items()))
     if "row_copy_ms" in prof:
         nbytes = prof["row_copy_bytes"]
         log(f"one staged row buffer ({nbytes} B) copied to the device "
@@ -1598,7 +1639,7 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
         log(f"stager: ring found empty {stats['empty_waits']} times, pinned "
             f"host bytes {stats['pinned_bytes']} (its produce and stages "
             f"are the stager/ spans above)")
-    log("launches in the 10 steps: " + ", ".join(
+    log(f"launches in the {steps} steps: " + ", ".join(
         f"{k} {v}" for k, v in counts.items()))
     return counts, out
 
@@ -2440,40 +2481,6 @@ def conv_exact(conv, params, cfg, graph, x, ds, data, serving_pipe):
                     "subset_nodes": int(sub.size)}
 
 
-def gat_table_steps(pin, loss_fn, params):
-    """gat's CONV_STEPS driver steps from ``params`` with every layer's
-    edges gathered from ``gat_project``'s table of its sources (exact
-    inference's way), where training projects the gathered rows: the same
-    forward bits, a backward that scatters into the projected table.
-    Returns (losses, step walls ms, profiled steps, peak device GB)."""
-    import unittest.mock
-    import torch
-    from repro_torch.models import gnn
-    from repro_torch.optim import init_opt_state
-
-    apply = gnn.apply_layer
-
-    def via_table(layer, mfg, h_src, cfg, **kw):
-        return apply(layer, mfg, h_src, cfg,
-                     projected=gnn.gat_project(layer, h_src), **kw)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with unittest.mock.patch.object(gnn, "apply_layer", via_table):
-        driver = pin.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
-                                  grad_clip=1.0)
-        opt = init_opt_state(params)
-        losses, walls = [], []
-        for _ in range(CONV_STEPS):
-            t0 = time.perf_counter()
-            params, opt, loss, _ = driver.step(params, opt)
-            losses.append(float(loss))
-            walls.append((time.perf_counter() - t0) * 1e3)
-        _, _, prof = profiled_steps(driver, params, opt)
-        driver.close()
-    return losses, walls, prof, torch.cuda.max_memory_allocated() / 1e9
-
-
 def conv_phase(train_pipe, serving_pipe, ds, data, serving):
     """Phase 12: gcn, gat (4 heads) and gin at PRODUCTS widths, random
     weights from seed 0, on phase 8's layout, ``pinned_hot`` store and
@@ -2577,26 +2584,6 @@ def conv_phase(train_pipe, serving_pipe, ds, data, serving):
             f"{1 - prof['device_busy_ms'] / statistics.median(walls):.3f});"
             f" peak device memory {peak:.2f} GB; launches per step "
             + ", ".join(f"{k} {v / CONV_STEPS:g}" for k, v in counts.items()))
-        table = None
-        if conv == "gat":
-            t_losses, t_walls, t_prof, t_peak = gat_table_steps(
-                pin, loss_fn, params0)
-            if t_losses[0] != losses[0] or not np.isfinite(t_losses).all():
-                raise AssertionError(f"gat through the projected table: "
-                                     f"losses {t_losses}, not from "
-                                     f"{losses[0]}")
-            table = {"losses": t_losses, "step_wall_ms": t_walls,
-                     "profiled_step": t_prof, "peak_device_gb": t_peak}
-            log(f"  the same steps with the edges gathered from the "
-                f"projected table: losses "
-                + ", ".join(f"{v:.6f}" for v in t_losses)
-                + f" (the first equal); step wall median "
-                f"{statistics.median(t_walls):.3f} ms (min "
-                f"{min(t_walls):.3f}, max {max(t_walls):.3f}); profiled "
-                f"step wall {t_prof['wall_ms']:.3f} ms, device busy "
-                f"{t_prof['device_busy_ms']:.3f} ms in "
-                f"{t_prof['own_stream_ops']} ops; peak device memory "
-                f"{t_peak:.2f} GB")
 
         t_train = time.perf_counter() - t_conv
         pred = Predictor(serving_pipe, params, cfg, buckets=(1, 8, 32, 128),
@@ -2659,8 +2646,6 @@ def conv_phase(train_pipe, serving_pipe, ds, data, serving):
                                            "num_flushes")},
                      "exact": exact,
                      "phase_s": time.perf_counter() - t_conv}
-        if table is not None:
-            out[conv]["table_path"] = table
         log(f"  {conv}: {out[conv]['phase_s']:.1f} s (training "
             f"{t_train:.1f}, serving {t_serve:.1f}, exact "
             f"{out[conv]['phase_s'] - t_train - t_serve:.1f})")
@@ -2674,7 +2659,6 @@ def conv_phase(train_pipe, serving_pipe, ds, data, serving):
 SBM_NODES = 100_000              # streaming LDG places nodes one by one
 STREAM_CHUNK = 1 << 20           # edges a chunk of the stream
 DATA_STEPS = 3
-LAUNCHER_NODES = 20_000          # train_gnn's default --nodes
 TRAIN_PATH_KERNELS = ("fused_sample", "feature_gather", "sage_aggregate",
                       "sage_backward_index", "sage_aggregate_backward")
 
@@ -2724,16 +2708,15 @@ def data_steps(pipe, cfg, label: str, steps: int = DATA_STEPS):
 
 def data_phase(cfg):
     """Phase 13: rmat through the on-disk format into a ``hash``
-    pipeline, sbm under ``degree_stratified`` through streaming LDG, the
-    launcher on a saved file with ``labelprop(2)``, metis's refusal and a
-    rung of ``AdaptiveFanout``, each training on the card at ``cfg``'s
-    widths.  Returns ({path: launch counts}, numbers)."""
+    pipeline, sbm under ``degree_stratified`` through streaming LDG,
+    metis's refusal and a rung of ``AdaptiveFanout``, each training on the
+    card at ``cfg``'s widths.  Returns ({path: launch counts}, numbers)."""
     import tempfile
     import numpy as np
     import torch
     import repro_torch.kernels as K
     from repro_torch.core.adaptive import AdaptiveFanout
-    from repro_torch.core.partition import edge_cut, resolve_partitioner
+    from repro_torch.core.partition import resolve_partitioner
     from repro_torch.data import (DataSpec, dataset_stats, load_dataset,
                                   resolve_dataset, save_dataset, stats_label)
     from repro_torch.pipeline import Pipeline, PipelineSpec
@@ -2838,37 +2821,495 @@ def data_phase(cfg):
             else:
                 raise AssertionError("metis resolved without pymetis")
 
-        log(f"-- train_gnn on a saved {LAUNCHER_NODES}-node rmat, "
-            f"labelprop(2)")
-        small = resolve_dataset(data=DataSpec(
-            source="rmat(0.57,0.19,0.19,0.05)", num_nodes=LAUNCHER_NODES,
-            avg_degree=10, num_features=cfg.in_dim,
-            num_classes=cfg.num_classes, seed=0))
-        small_path = save_dataset(small, os.path.join(tmp, "rmat_small"))
-        t0 = time.perf_counter()
-        ref_assign = resolve_partitioner("labelprop(2)").assign(
-            small.graph, 8, small.labels >= 0)
-        t_lp = time.perf_counter() - t0
-        cmd = [sys.executable, "-m", "repro_torch.launch.train_gnn",
-               "--dataset", small_path, "--partitioner", "labelprop(2)",
-               "--epochs", "1", "--steps-per-epoch", "2"]
-        t0 = time.perf_counter()
-        run = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600, cwd=HERE,
-                             env=dict(os.environ,
-                                      PYTHONPATH=os.path.join(HERE, "src")))
-        t_launch = time.perf_counter() - t0
-        for line in run.stdout.strip().splitlines():
-            log(f"  | {line}")
-        if run.returncode != 0:
-            log(run.stderr[-4000:])
-            raise AssertionError(f"train_gnn exited {run.returncode}")
-        cut = edge_cut(small.graph, ref_assign) / small.graph.num_edges
-        log(f"  exit 0 in {t_launch:.1f} s; labelprop(2) at P = 8 alone: "
-            f"{t_lp:.2f} s on the host, edge cut {cut:.4f}")
-        out["launcher"] = {"seconds": t_launch, "labelprop_s": t_lp,
-                           "edge_cut": cut}
     return paths, out
+
+
+# --------------------------------------------------------------------------
+# phase 14: the fleet on the card
+# --------------------------------------------------------------------------
+
+# (label, executor, ranks, workers a rank, scheme, rounds a step)
+FLEETS = (
+    ("shard_map 4x1 hybrid+fused", "shard_map", 4, 1, "hybrid+fused", 2),
+    ("multiprocess 2x2 hybrid+fused", "multiprocess", 2, 2, "hybrid+fused",
+     2),
+    ("shard_map 4x1 vanilla", "shard_map", 4, 1, "vanilla", 6),
+)
+FLEET_DIR = os.path.join(HERE, "build", "fleet")
+FLEET_TIMEOUT_S = 420.0
+LAUNCHER_NODES = 20_000          # train_gnn's default --nodes
+# the pair of ranks 0 and 1 as an executor of its own (fleet 2 runs on it
+# while ranks 2 and 3 wait)
+PAIR_EXECUTOR = "multiprocess_ranks01"
+LAUNCH_TIME_ENV = "CHIP_SMOKE_FLEET_LAUNCHED"   # the parent's time.time()
+# fleet vs the stacked executor, the rule of repro_torch.pipeline.prefetch:
+# the fleet averages per-worker gradients in worker order, the stacked
+# step runs one backward over the mean loss (fp32 sums in another
+# order).  Step 0's loss is the same bits (same parameters; the forward's
+# rows do not depend on the split); the reordered sums then compound
+# through the AdamW steps, so later losses and the parameters are held
+# to relative bounds, ||fleet - stacked|| / ||stacked||, one after step 1
+# (read on an H100: 1.66e-6 hybrid+fused, 7.3e-8 vanilla) and one after
+# the 10 steps (3.03e-4, 2.26e-5)
+FLEET_LOSS_RTOL = 1e-3
+FLEET_PARAM_REL_L2 = {1: 1e-5, TRAIN_STEPS: 1e-3}
+ALL_KERNELS = ("fused_sample", "sage_aggregate", "sage_backward_index",
+               "sage_aggregate_backward", "feature_gather", "gather_rows")
+
+
+def fleet_kernels(scheme: str) -> tuple:
+    """The kernel wrappers a fleet step of ``scheme`` must launch (no
+    cache: no ``gather_rows``; vanilla draws through its own sampler)."""
+    return tuple(k for k in ALL_KERNELS if k != "gather_rows"
+                 and (k != "fused_sample" or scheme == "hybrid+fused"))
+
+
+def flat_params(params):
+    import numpy as np
+    return np.concatenate([v.detach().float().cpu().numpy().ravel()
+                           for layer in params
+                           for _, v in sorted(layer.items())])
+
+
+def comm_stats(events, steps: int) -> dict:
+    """Per round kind and payload, from a rank's ``comm/*`` spans: rounds a
+    step, bytes this rank sent in one, and the mean ms."""
+    out = {}
+    for ev in events:
+        if ev.get("ph") != "X" or not ev["name"].startswith("comm/"):
+            continue
+        a = ev.get("args", {})
+        key = f"{ev['name']} {a.get('what')} {a.get('bytes')}"
+        s = out.setdefault(key, {"op": ev["name"], "what": a.get("what"),
+                                 "rank_bytes": a.get("bytes"), "n": 0,
+                                 "ms": 0.0})
+        s["n"] += 1
+        s["ms"] += ev["dur"] / 1e3
+    for s in out.values():
+        s["per_step"] = s["n"] / steps
+        s["mean_ms"] = s["ms"] / s["n"]
+        if s["op"] != "comm/device_wait" and s["mean_ms"] > 0:
+            s["gb_per_s"] = s["rank_bytes"] / s["mean_ms"] / 1e6
+    return out
+
+
+def fleet_rank(workdir: str) -> int:
+    """One rank of phase 14's fleet: runs every fleet it belongs to and
+    writes ``rank<r>.json`` (and rank 0 its parameters and logits) into
+    ``workdir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    import repro_torch.kernels as K
+    from repro_torch.configs.graphsage_paper import PRODUCTS
+    from repro_torch.core.partition import build_layout
+    from repro_torch.data import load_dataset
+    from repro_torch.launch import multihost
+    from repro_torch.models.gnn import gnn_loss, params_from_numpy
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.optim import init_opt_state
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+    from repro_torch.pipeline.executor import (FleetExecutor,
+                                               register_executor)
+    from repro_torch.serve import Predictor
+
+    t_rank = time.perf_counter()
+    launched = time.time() - float(os.environ[LAUNCH_TIME_ENV])
+    rank, num_procs, device = multihost.init_from_env()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pair = tdist.new_group([0, 1])
+    register_executor(PAIR_EXECUTOR, lambda: FleetExecutor(pair))
+    ds = load_dataset(os.path.join(workdir, "dataset.npz"))
+    assign = np.load(os.path.join(workdir, "assign.npy"))
+    blob = np.load(os.path.join(workdir, "params0.npz"))
+    cfg = dataclasses.replace(PRODUCTS, dropout=0.0)
+    params_np = [{k.split("/", 1)[1]: blob[k] for k in blob.files
+                  if k.startswith(f"{i}/")} for i in range(cfg.num_layers)]
+    batch_seeds = np.load(os.path.join(workdir, "batch_seeds.npy"))
+
+    def loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+    results = {"rank": rank, "device": str(device),
+               "process_start_s": launched,
+               "startup_s": time.perf_counter() - t_rank, "fleets": {}}
+    layouts = {}
+    for i, (label, executor, ranks, per, scheme, rounds) in \
+            enumerate(FLEETS):
+        if rank < ranks:
+            t0 = time.perf_counter()
+            parts = (rank * per, (rank + 1) * per)
+            if parts not in layouts:
+                layouts[parts] = build_layout(
+                    ds.graph, ds.features, ds.labels, assign, NUM_PARTS,
+                    local_parts=parts)
+            t_layout = time.perf_counter() - t0
+            name = PAIR_EXECUTOR if ranks == 2 else executor
+            spec = PipelineSpec.from_scheme(
+                scheme, num_parts=NUM_PARTS, fanouts=cfg.fanouts,
+                executor=name)
+            pipe = Pipeline.from_layout(layouts[parts], spec)
+            t_build = time.perf_counter() - t0
+            params = params_from_numpy(params_np, device)
+            opt = init_opt_state(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tracer = obs_trace.start(None, capacity=1 << 16, pid=rank)
+            K.reset_launch_counts()
+            losses, walls = [], []
+            with pipe.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                                   grad_clip=1.0) as driver:
+                for k in range(TRAIN_STEPS):
+                    t0 = time.perf_counter()
+                    params, opt, loss, _ = driver.step(params, opt)
+                    losses.append(float(loss))      # synchronizes
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    if k == 0:
+                        params1 = flat_params(params)
+            counts = K.launch_counts()
+            obs_trace.stop(export=False)
+            on_cuda = all(t.is_cuda for t in (
+                pipe.shards.features, pipe.shards.labels,
+                pipe.layout.graph.indices, pipe.layout.offsets, loss,
+                pipe.seeds(TRAIN_BATCH, 0),
+                *(v for layer in params for v in layer.values())))
+            kinds = pipe.counter.kinds
+            res = {"losses": losses, "walls_ms": walls,
+                   "launches": counts, "on_cuda": on_cuda,
+                   "rounds_per_step": len(kinds) / TRAIN_STEPS,
+                   "round_kinds": kinds[:len(kinds) // TRAIN_STEPS],
+                   "worker_bytes_per_round":
+                       pipe.counter.bytes_per_round[
+                           :len(kinds) // TRAIN_STEPS],
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "layout_s": t_layout, "build_s": t_build,
+                   "comm": comm_stats(tracer.events(), TRAIN_STEPS),
+                   "params_sha": hashlib.sha256(
+                       flat_params(params).tobytes()).hexdigest()}
+            if rank == 0:
+                np.save(os.path.join(workdir, f"fleet{i}_params.npy"),
+                        flat_params(params))
+                np.save(os.path.join(workdir, f"fleet{i}_params1.npy"),
+                        params1)
+            if label == FLEETS[0][0]:
+                pred = Predictor(pipe, params_from_numpy(params_np, device),
+                                 cfg, buckets=(128,), base_salt=SALT)
+                logits = pred.predict(batch_seeds)
+                if rank == 0:
+                    np.save(os.path.join(workdir, "fleet_logits.npy"),
+                            logits)
+                del pred
+            results["fleets"][label] = res
+            del pipe, driver, params, opt, loss
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    tdist.destroy_process_group()
+    return 0
+
+
+def close_to_stacked(fleet, stacked, steps: int) -> dict:
+    """The parameters' rule after ``steps`` (``FLEET_PARAM_REL_L2``)."""
+    import numpy as np
+    d = np.abs(fleet.astype(np.float64) - stacked)
+    rel = float(np.linalg.norm(d) / np.linalg.norm(stacked))
+    out = {"max_abs": float(d.max()), "rel_l2": rel,
+           "rel_l2_limit": FLEET_PARAM_REL_L2[steps],
+           "over_1e-5": int((d > 1e-5).sum()),
+           "over_1e-3": int((d > 1e-3).sum()), "entries": int(d.size)}
+    out["ok"] = rel <= FLEET_PARAM_REL_L2[steps]
+    return out
+
+
+def stacked_fleet_reference(layout, cfg, params0, batch_seeds) -> dict:
+    """The parent's stacked runs that phase 14's fleets are held to: 10
+    ``SyncDriver`` steps of each fleet scheme over phase 3's layout,
+    ``exchange`` store, no cache, from phase 8's initial parameters (and
+    the 128-seed predict with those)."""
+    import numpy as np
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.models.gnn import gnn_loss
+    from repro_torch.optim import init_opt_state
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+    from repro_torch.serve import Predictor
+
+    def loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+    out = {}
+    for scheme in ("hybrid+fused", "vanilla"):
+        pipe = Pipeline.from_layout(layout, PipelineSpec.from_scheme(
+            scheme, num_parts=NUM_PARTS, fanouts=cfg.fanouts))
+        params = params0
+        opt = init_opt_state(params)
+        K.reset_launch_counts()
+        losses, walls = [], []
+        with pipe.train_driver(loss_fn, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                               grad_clip=1.0) as driver:
+            for k in range(TRAIN_STEPS):
+                t0 = time.perf_counter()
+                params, opt, loss, _ = driver.step(params, opt)
+                losses.append(float(loss))
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if k == 0:
+                    params1 = flat_params(params)
+        out[scheme] = {"losses": losses, "walls_ms": walls,
+                       "params": flat_params(params), "params1": params1,
+                       "rounds_per_step": pipe.counter.rounds / TRAIN_STEPS,
+                       "launches": K.launch_counts()}
+        if scheme == "hybrid+fused":
+            pred = Predictor(pipe, params0, cfg, buckets=(128,),
+                             base_salt=SALT)
+            out["logits"] = pred.predict(batch_seeds)
+            del pred
+        log(f"  stacked {scheme}, exchange store: step wall median "
+            f"{statistics.median(walls):.3f} ms; losses " + ", ".join(
+                f"{x:.6f}" for x in losses))
+        del pipe, driver, params, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_launcher_smoke(cfg) -> dict:
+    """``train_gnn --executor multiprocess --num-procs 2 --trace`` on a
+    saved ``LAUNCHER_NODES``-node rmat, partitioned by ``labelprop(2)`` in
+    every rank, at the launcher's other defaults but one step (a step
+    moves 2.4 GB a rank through gloo): exit 0, rank logs, rank 0's edge
+    cut equal to the parent's labelprop(2) of the file (the ranks check
+    among themselves that they derived the same partition), a valid
+    merged trace."""
+    from repro_torch.core.partition import edge_cut, resolve_partitioner
+    from repro_torch.data import DataSpec, resolve_dataset, save_dataset
+    from repro_torch.obs.trace import validate_trace
+    small = resolve_dataset(data=DataSpec(
+        source="rmat(0.57,0.19,0.19,0.05)", num_nodes=LAUNCHER_NODES,
+        avg_degree=10, num_features=cfg.in_dim, num_classes=cfg.num_classes,
+        seed=0))
+    path = save_dataset(small, os.path.join(FLEET_DIR, "rmat_small"))
+    t0 = time.perf_counter()
+    assign = resolve_partitioner("labelprop(2)").assign(
+        small.graph, 8, small.labels >= 0)
+    t_lp = time.perf_counter() - t0
+    cut = edge_cut(small.graph, assign) / small.graph.num_edges
+    trace = os.path.join(FLEET_DIR, "launcher_trace.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train_gnn",
+           "--executor", "multiprocess", "--num-procs", "2", "--dataset",
+           path, "--partitioner", "labelprop(2)", "--epochs", "1",
+           "--steps-per-epoch", "1", "--trace", trace]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=400,
+                         cwd=HERE, env=dict(os.environ,
+                                            PYTHONPATH=os.path.join(HERE,
+                                                                    "src")))
+    seconds = time.perf_counter() - t0
+    for line in run.stdout.strip().splitlines():
+        log(f"  | {line}")
+    if run.returncode != 0:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"train_gnn as a fleet exited {run.returncode}")
+    want = f"partitioned into 8 by 'labelprop(2)': edge-cut {cut:.1%}"
+    if want not in run.stdout:
+        raise AssertionError(f"rank 0 did not print {want!r}")
+    log_dir = run.stdout.strip().splitlines()[-1].rsplit(" ", 1)[-1]
+    for r in range(2):
+        if not os.path.exists(os.path.join(log_dir, f"rank{r}.out")):
+            raise AssertionError(f"no rank{r}.out in {log_dir}")
+    with open(trace) as f:
+        merged = json.load(f)
+    n = validate_trace(merged)
+    names = {ev["args"]["name"] for ev in merged["traceEvents"]
+             if ev.get("name") == "process_name"}
+    if not {"rank0", "rank1"} <= names:
+        raise AssertionError(f"merged trace processes {names}")
+    log(f"  exit 0 in {seconds:.1f} s; labelprop(2) at P = 8 in the parent: "
+        f"{t_lp:.2f} s on the host, edge cut {cut:.4f}, as rank 0 printed; "
+        f"rank logs in {log_dir}; merged trace {n} events, processes "
+        f"{sorted(names)}, valid")
+    return {"seconds": seconds, "trace_events": n, "labelprop_s": t_lp,
+            "edge_cut": cut}
+
+
+def fleet_phase(ds, layout, cfg, params0, batch_seeds, placement):
+    """Phase 14: the fleets on the card.  Returns ({path: launch counts
+    summed over the ranks}, numbers for PERF.md)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import save_dataset
+    from repro_torch.launch import multihost
+    from repro_torch.models.gnn import params_to_numpy
+
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    save_dataset(ds, os.path.join(FLEET_DIR, "dataset.npz"))
+    offsets = layout.host_offsets_labels()[0]
+    assign = np.empty(layout.graph.num_nodes, np.int64)
+    for p in range(NUM_PARTS):
+        assign[layout.perm[offsets[p]:offsets[p + 1]]] = p
+    np.save(os.path.join(FLEET_DIR, "assign.npy"), assign)
+    np.savez(os.path.join(FLEET_DIR, "params0.npz"), **{
+        f"{i}/{k}": v for i, layer in enumerate(params_to_numpy(params0))
+        for k, v in layer.items()})
+    np.save(os.path.join(FLEET_DIR, "batch_seeds.npy"), batch_seeds)
+    log(f"dataset, ldg assignment and phase 8's initial parameters written "
+        f"to {os.path.relpath(FLEET_DIR, HERE)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    log("-- the stacked runs the fleets are held to (launch counts set to "
+        "0 first)")
+    stacked = stacked_fleet_reference(layout, cfg, params0, batch_seeds)
+    torch.cuda.empty_cache()
+    parent_gb = torch.cuda.memory_allocated() / 1e9
+
+    log(f"-- the fleets: {len(FLEETS)} runs of {TRAIN_STEPS} SyncDriver "
+        f"steps in one 4-rank launch (fleet 2 on ranks 0-1)")
+    t0 = time.perf_counter()
+    log_dir = multihost.launch(
+        [sys.executable, os.path.abspath(__file__), "--fleet-rank",
+         FLEET_DIR], num_procs=4, device="cuda", timeout=FLEET_TIMEOUT_S,
+        log_dir=os.path.join(FLEET_DIR, "logs"),
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                 **{LAUNCH_TIME_ENV: repr(time.time())}))
+    t_fleet = time.perf_counter() - t0
+    ranks = []
+    for r in range(4):
+        with open(os.path.join(FLEET_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"fleet launch: {t_fleet:.1f} s wall; each rank's process start "
+        f"(python, imports) " + ", ".join(f"{x['process_start_s']:.1f}"
+                                          for x in ranks)
+        + " s, then joining the group and loading the files "
+        + ", ".join(f"{x['startup_s']:.1f}" for x in ranks) + " s")
+    log("host copies: none in the transport (gloo takes CUDA tensors and "
+        "copies them through pinned host memory inside the collective, so "
+        "the all_to_all ms below include them)")
+
+    counts, numbers = {}, {"fleets": {}, "parent_allocated_gb": parent_gb,
+                           "launch_s": t_fleet}
+    finals, failures = {}, []
+    for i, (label, executor, nranks, per, scheme, rounds) in \
+            enumerate(FLEETS):
+        res = [x["fleets"][label] for x in ranks[:nranks]]
+        ref = stacked[scheme]
+        for r, x in enumerate(res):
+            if not x["on_cuda"]:
+                raise AssertionError(f"{label}: rank {r}'s tensors are not "
+                                     f"all on cuda")
+            missing = [k for k in fleet_kernels(scheme)
+                       if x["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"{label}: rank {r} never launched "
+                                     f"{missing}")
+            if x["rounds_per_step"] != rounds:
+                raise AssertionError(f"{label}: rank {r} ran "
+                                     f"{x['rounds_per_step']} rounds a step"
+                                     f", expected {rounds}")
+            if not np.isfinite(x["losses"]).all():
+                raise AssertionError(f"{label}: rank {r} losses "
+                                     f"{x['losses']}")
+            if x["losses"] != res[0]["losses"] \
+                    or x["params_sha"] != res[0]["params_sha"]:
+                raise AssertionError(f"{label}: rank {r} differs from "
+                                     f"rank 0")
+        losses = np.asarray(res[0]["losses"])
+        want = np.asarray(ref["losses"])
+        params = np.load(os.path.join(FLEET_DIR, f"fleet{i}_params.npy"))
+        params1 = np.load(os.path.join(FLEET_DIR, f"fleet{i}_params1.npy"))
+        after1 = close_to_stacked(params1, ref["params1"], 1)
+        final = close_to_stacked(params, ref["params"], TRAIN_STEPS)
+        loss_rel = np.abs(losses - want) / np.abs(want)
+        if losses[0] != want[0]:
+            failures.append(f"{label}: step 0 loss {losses[0]} vs stacked "
+                            f"{want[0]}")
+        if not (loss_rel <= FLEET_LOSS_RTOL).all():
+            failures.append(f"{label}: losses {losses.tolist()} vs stacked "
+                            f"{want.tolist()}")
+        if not (after1["ok"] and final["ok"]):
+            failures.append(f"{label}: parameters vs stacked: after step 1 "
+                            f"{after1}, after {TRAIN_STEPS} {final}")
+        finals[label] = (losses, params)
+        walls = res[0]["walls_ms"]
+        comm = res[0]["comm"]
+        log(f"-- fleet {i + 1}: {label} ({nranks} ranks x {per} workers)")
+        log(f"  losses " + ", ".join(f"{x:.6f}" for x in losses)
+            + f"; step 0 loss {'==' if losses[0] == want[0] else '!='} "
+            f"stacked's bit for bit; |loss - stacked| / stacked by step "
+            + ", ".join(f"{x:.2g}" for x in loss_rel)
+            + f" (rtol {FLEET_LOSS_RTOL})")
+        for name, c in (("after step 1", after1),
+                        (f"after {TRAIN_STEPS}", final)):
+            log(f"  parameters {name}: ||diff|| / ||stacked|| "
+                f"{c['rel_l2']:.3g} (<= {c['rel_l2_limit']}), max |diff| "
+                f"{c['max_abs']:.3g}, entries past 1e-5 / 1e-3: "
+                f"{c['over_1e-5']} / {c['over_1e-3']} of {c['entries']}")
+        log(f"  {res[0]['rounds_per_step']:g} rounds a step "
+            f"({', '.join(res[0]['round_kinds'])}); per-worker capacity "
+            f"bytes a round {res[0]['worker_bytes_per_round']}")
+        log(f"  step wall median {statistics.median(walls):.3f} ms (min "
+            f"{min(walls):.3f}, max {max(walls):.3f}); ranks' medians "
+            + ", ".join(f"{statistics.median(x['walls_ms']):.3f}"
+                        for x in res)
+            + f"; stacked (same layout and store) "
+            f"{statistics.median(ref['walls_ms']):.3f} ms")
+        log("  peak device memory by rank (GB): " + ", ".join(
+            f"{x['peak_gb']:.2f}" for x in res) + f"; parent holds "
+            f"{parent_gb:.2f} GB allocated; layout + pipeline build "
+            + ", ".join(f"{x['build_s']:.1f}" for x in res) + " s")
+        for key, s in sorted(comm.items()):
+            rate = f", {s['gb_per_s']:.3f} GB/s" if "gb_per_s" in s else ""
+            log(f"  rank 0 {s['op']} {s['what']}: {s['per_step']:g} a step"
+                f", {s['rank_bytes']} B sent, {s['mean_ms']:.3f} ms a "
+                f"call{rate}")
+        log("  launches per rank: " + "; ".join(
+            ", ".join(f"{k} {v}" for k, v in x["launches"].items()
+                      if v) for x in res))
+        counts[f"fleet {label}"] = {
+            k: sum(x["launches"][k] for x in res) for k in ALL_KERNELS}
+        numbers["fleets"][label] = {
+            "ranks": nranks, "workers_per_rank": per, "scheme": scheme,
+            "losses": res[0]["losses"], "walls_ms": walls,
+            "step_wall_median_ms": statistics.median(walls),
+            "stacked_step_wall_median_ms": statistics.median(
+                ref["walls_ms"]),
+            "rounds_per_step": res[0]["rounds_per_step"],
+            "worker_bytes_per_round": res[0]["worker_bytes_per_round"],
+            "peak_gb_by_rank": [x["peak_gb"] for x in res],
+            "comm_rank0": comm, "params_after_1": after1,
+            "params_final": final,
+            "launches_by_rank": [x["launches"] for x in res]}
+    a, b = finals[FLEETS[0][0]], finals[FLEETS[1][0]]
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        failures.append(f"fleets 1 (4 x 1) and 2 (2 x 2) differ: losses "
+                        f"{a[0].tolist()} vs {b[0].tolist()}, parameters "
+                        f"max |diff| {float(np.abs(a[1] - b[1]).max())}")
+    else:
+        log("fleets 1 (4 ranks x 1 worker) and 2 (2 ranks x 2 workers): "
+            "losses and final parameters equal bit for bit")
+    logits = np.load(os.path.join(FLEET_DIR, "fleet_logits.npy"))
+    if not np.array_equal(logits, stacked["logits"]):
+        failures.append(
+            f"fleet 1's predict differs from the stacked one by "
+            f"{float(np.abs(logits - stacked['logits']).max())}")
+    else:
+        log(f"fleet 1's 128-seed predict {logits.shape} == the stacked "
+            f"predict bit for bit")
+    if failures:
+        raise AssertionError("phase 14: " + "; ".join(failures))
+    runs = placement["runs"]
+    log("beside phase 10's stacked walls (pinned_hot, cache): "
+        f"vanilla {runs['vanilla']['step_wall_median_ms']:.3f} ms, "
+        f"hybrid+fused {runs['hybrid+fused']['step_wall_median_ms']:.3f} "
+        f"ms.  One card: the ranks share it, time-sliced, and gloo moves "
+        f"their rounds through host memory; not a multi-card result")
+
+    log(f"-- train_gnn --executor multiprocess --num-procs 2 --trace on a "
+        f"saved {LAUNCHER_NODES}-node rmat, labelprop(2), one step")
+    numbers["launcher"] = fleet_launcher_smoke(cfg)
+    return counts, numbers
 
 
 def main() -> int:
@@ -2972,7 +3413,7 @@ def main() -> int:
             f"from the same rows of one 22528-row product at M = {bad_m}")
 
     # outside inference mode: the backward's plain version runs autograd
-    log("  edge shapes of the redesigned kernels:")
+    log("-- edge shapes of the redesigned kernels")
     check_edge_shapes(pipe.layout.graph)
 
     log("== phase 5: small-input parity (cuda vs cpu port)")
@@ -3082,6 +3523,15 @@ def main() -> int:
     data_counts, data_layer = data_phase(cfg_train)
     log(json.dumps({"data_layer": data_layer}))
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    log("== phase 14: the fleet executors on the card (ranks of one "
+        "torch.distributed job, gloo, all on this card)")
+    t0 = time.perf_counter()
+    fleet_counts, fleets = fleet_phase(ds, pipe.layout, cfg_train,
+                                       reference["params0"], batch_seeds,
+                                       placement)
+    log(json.dumps({"fleets": fleets}))
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
@@ -3109,6 +3559,8 @@ def main() -> int:
                         "exact inference": infer_counts[name]})
         by_path.update({path: c[name] for path, c in conv_counts.items()})
         by_path.update({path: c[name] for path, c in data_counts.items()})
+        by_path.update({path: c[name]
+                        for path, c in fleet_counts.items()})
         at_step = train.get(name)
         res = serving or at_step
         entry = {
@@ -3152,4 +3604,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-rank"]:
+        sys.exit(fleet_rank(sys.argv[2]))
     sys.exit(main())

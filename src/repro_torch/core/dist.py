@@ -3,8 +3,8 @@
 
 Counterpart of ``repro.core.dist``.  ``repro`` writes one per-worker program
 against a named axis and runs it under ``jax.vmap``; the port has no vmap,
-so every function here takes the P workers' data stacked on a leading axis
-and does all workers' work at once (worker p is row p).  Collectives
+so every function here takes the workers' data stacked on a leading axis
+and does all their work at once (worker p is row p).  Collectives
 become tensor operations on that axis:
 
   * ``exchange`` (all_to_all) is a transpose of the stacked ``(P, P, cap,
@@ -12,6 +12,18 @@ become tensor operations on that axis:
     returns a view, so a round moves no bytes until its reply is gathered.
   * ``pmean_ordered`` / ``psum_ordered`` reduce over the worker axis in
     index order and return the one replicated value.
+
+In a fleet (``repro_torch.pipeline.executor.FleetExecutor``) each OS
+process is one rank of a ``torch.distributed`` job and stacks only its own
+workers, global indices ``lo .. hi-1`` (a ``RankGroup``).  The same
+functions then take ``group=``: ``exchange`` becomes one
+``all_to_all_single`` over the ranks and the reductions an
+``all_gather`` followed by the same reduction in worker order, so their
+results equal the stacked ones bit for bit; the functions that index the
+worker axis take the rank's slice of the partition offsets.  Every
+cross-rank message goes through ``_collective`` (gloo; on a machine with
+one card all ranks share it, and gloo moves their messages through host
+memory).
 
 Communication schemes (the paper's accounting), which ``RoundCounter``
 records per step:
@@ -36,6 +48,7 @@ from repro_torch.core.sampler import (build_indptr, draw_columns,
                                       sample_mfgs, sample_neighbors,
                                       unfused_coo_csc_pass)
 from repro_torch.kernels.feature_gather import feature_gather
+from repro_torch.obs import trace as _trace
 
 
 class RoundCounter:
@@ -72,28 +85,157 @@ class RoundCounter:
             buf[0].numel() * buf.element_size())
 
 
+@dataclasses.dataclass(frozen=True)
+class RankGroup:
+    """One rank's place in a fleet: the process group its collectives run
+    over (``pg``; ``None`` is the default group) and the workers it hosts,
+    global indices ``lo .. hi-1``, stacked on axis 0 of every tensor it
+    holds.  Every rank of the group hosts ``hi - lo`` workers."""
+    lo: int
+    hi: int
+    num_parts: int
+    pg: object = None
+
+    @property
+    def local(self) -> int:
+        """Workers this rank hosts."""
+        return self.hi - self.lo
+
+    @property
+    def num_procs(self) -> int:
+        return self.num_parts // self.local
+
+    @property
+    def parts(self) -> tuple[int, int]:
+        return self.lo, self.hi
+
+
+def rank_group(num_parts: int, pg=None) -> RankGroup:
+    """This process's ``RankGroup`` in the process group ``pg`` (default:
+    the world of the initialized ``torch.distributed`` job): rank r of R
+    hosts workers ``r * P/R .. (r+1) * P/R - 1``."""
+    import torch.distributed as tdist
+
+    if not tdist.is_initialized():
+        raise RuntimeError(
+            "a fleet executor needs an initialized torch.distributed job; "
+            "start the ranks with repro_torch.launch.multihost.launch and "
+            "call multihost.init_from_env() in each")
+    size = tdist.get_world_size(pg)
+    if num_parts % size:
+        raise ValueError(f"num_parts={num_parts} must divide evenly across "
+                         f"{size} ranks")
+    per = num_parts // size
+    r = tdist.get_rank(pg)
+    return RankGroup(lo=r * per, hi=(r + 1) * per, num_parts=num_parts,
+                     pg=pg)
+
+
+def _collective(op: str, send: torch.Tensor, group: RankGroup,
+                what: str = "") -> torch.Tensor:
+    """The transport of every cross-rank message.
+
+    ``op`` ``"all_to_all"``: ``send`` (R * k, ...) is R equal chunks on
+    axis 0, chunk j for rank j; returns the same shape, chunk j from rank
+    j.  ``"all_gather"``: ``send`` (k, ...) from every rank; returns
+    (R * k, ...) in rank order.
+
+    Tensors go to the group's backend as they are.  gloo takes CUDA
+    tensors for both collectives (checked on an H100 with torch 2.11):
+    it copies them through pinned host memory inside the call, so no copy
+    is made here, and the collective's time includes gloo's two copies.
+    The call first waits for the current stream (gloo would wait for it
+    anyway), in a span of its own, so that the ``comm/<op>`` span
+    (``repro_torch.obs.trace``, with the op, ``what`` and the bytes sent)
+    times the transport alone.
+    """
+    import torch.distributed as tdist
+
+    send = send.contiguous()
+    args = {"op": op, "what": what,
+            "bytes": send.numel() * send.element_size()}
+    if send.is_cuda:
+        with _trace.span("comm/device_wait", cat="comm", **args):
+            torch.cuda.current_stream(send.device).synchronize()
+    with _trace.span(f"comm/{op}", cat="comm", **args):
+        if op == "all_to_all":
+            recv = torch.empty_like(send)
+            tdist.all_to_all_single(recv, send, group=group.pg)
+            return recv
+        if op == "all_gather":
+            parts = [torch.empty_like(send) for _ in range(group.num_procs)]
+            tdist.all_gather(parts, send, group=group.pg)
+            return torch.cat(parts)
+    raise ValueError(f"unknown collective {op!r}")
+
+
 def exchange(buf: torch.Tensor, counter: RoundCounter | None,
-             kind: str = "other") -> torch.Tensor:
-    """One all_to_all round over the stacked worker axis.
+             kind: str = "other", group: RankGroup | None = None
+             ) -> torch.Tensor:
+    """One all_to_all round over the worker axis.
 
     ``buf`` is (P, P, cap, ...): ``buf[p, q]`` is the payload worker p
     sends to worker q.  Returns the same layout where ``out[q, p]`` is the
-    payload worker q received from worker p (a transposed view).
+    payload worker q received from worker p (a transposed view).  With a
+    ``group`` the leading axis holds the rank's own workers only, (L, P,
+    cap, ...), and so does the result; the round is one
+    ``all_to_all_single`` over the ranks.
     """
     if counter is not None:
         counter.tick(buf, kind=kind)
-    return buf.transpose(0, 1)
+    if group is None:
+        return buf.transpose(0, 1)
+    L, R = group.local, group.num_procs
+    rest = buf.shape[2:]
+    # chunk j of the send buffer holds what every local worker sends to
+    # rank j's workers: (R, L_src, L_dst, ...)
+    send = buf.reshape(L, R, L, *rest).transpose(0, 1)
+    recv = _collective("all_to_all", send, group, what=kind)
+    # recv[j, s, d] came from worker j * L + s for local worker d
+    return recv.transpose(0, 2).transpose(1, 2).reshape(L, R * L, *rest)
 
 
-def pmean_ordered(x: torch.Tensor) -> torch.Tensor:
+def all_workers(x: torch.Tensor, group: RankGroup | None = None
+                ) -> torch.Tensor:
+    """Every worker's rows of ``x`` in worker order, on every rank: ``x``
+    itself when stacked, else the all_gather of the ranks' (L, ...) rows
+    into (P, ...)."""
+    if group is None:
+        return x
+    return _collective("all_gather", x, group, what="reduce")
+
+
+def pmean_ordered(x: torch.Tensor, group: RankGroup | None = None
+                  ) -> torch.Tensor:
     """Mean over the worker axis in index order (``repro``'s all_gather +
     local mean), as the one replicated value."""
-    return torch.mean(x, dim=0)
+    return torch.mean(all_workers(x, group), dim=0)
 
 
-def psum_ordered(x: torch.Tensor) -> torch.Tensor:
+def psum_ordered(x: torch.Tensor, group: RankGroup | None = None
+                 ) -> torch.Tensor:
     """Sum over the worker axis in index order, as the replicated value."""
-    return torch.sum(x, dim=0)
+    return torch.sum(all_workers(x, group), dim=0)
+
+
+def require_same_on_ranks(digest: bytes, group: RankGroup,
+                          what: str) -> None:
+    """Raise unless every rank of ``group`` holds the same ``digest`` of
+    ``what`` (its first 8 bytes, through one all_gather)."""
+    mine = torch.tensor([int.from_bytes(digest[:8], "little", signed=True)])
+    every = _collective("all_gather", mine, group, what=what).tolist()
+    if len(set(every)) != 1:
+        raise RuntimeError(f"the ranks disagree on {what}: digests {every} "
+                           f"in rank order")
+
+
+def local_offsets(offsets: torch.Tensor, group: RankGroup | None = None
+                  ) -> torch.Tensor:
+    """The partition boundaries of the workers this rank hosts: all P + 1
+    of them when stacked, ``offsets[lo : hi + 1]`` in a fleet."""
+    if group is None:
+        return offsets
+    return offsets[group.lo:group.hi + 1]
 
 
 # --------------------------------------------------------------------------
@@ -174,9 +316,10 @@ class WorkerShard:
 # local-CSC sampling (partitioned workers store only their in-edges)
 # --------------------------------------------------------------------------
 
-def worker_ranges(offsets: torch.Tensor):
-    """(my_offset (P,), n_local (P,)) of every worker, int64."""
-    offsets = offsets.long()
+def worker_ranges(offsets: torch.Tensor, group: RankGroup | None = None):
+    """(my_offset (P,), n_local (P,)) of every worker this rank hosts,
+    int64."""
+    offsets = local_offsets(offsets, group).long()
     return offsets[:-1], offsets[1:] - offsets[:-1]
 
 
@@ -215,7 +358,8 @@ def sample_neighbors_local(local_indptr: torch.Tensor,
 def exchange_sample_level(shard: WorkerShard, offsets: torch.Tensor,
                           num_parts: int, frontier: torch.Tensor,
                           fanout: int, salt,
-                          counter: RoundCounter | None):
+                          counter: RoundCounter | None,
+                          group: RankGroup | None = None):
     """One lower level of the partitioned sampling protocol (2 rounds):
     pack each worker's frontier by owner, ``exchange`` the requests, draw
     on the owning worker, ``exchange`` the replies back to the requesting
@@ -227,15 +371,16 @@ def exchange_sample_level(shard: WorkerShard, offsets: torch.Tensor,
     replies each worker contributed, ``m * 4 * (1 + fanout)``.
     """
     P, N = frontier.shape
-    my_offset, n_local = worker_ranges(offsets)
+    my_offset, n_local = worker_ranges(offsets, group)
     own = owner_of(offsets, frontier)
     buf, oidx, sidx = pack_by_owner(frontier, own, num_parts)
-    reqs = exchange(buf, counter, kind="sampling")          # round: ids
+    reqs = exchange(buf, counter, kind="sampling",
+                    group=group)                           # round: ids
     got = sample_neighbors_local(
         shard.local_indptr, shard.local_indices, my_offset, n_local,
         reqs.reshape(P, -1), fanout, salt)
     reply = exchange(got.view(P, num_parts, N, fanout), counter,
-                     kind="sampling")                      # round: nbrs
+                     kind="sampling", group=group)         # round: nbrs
     p = torch.arange(P, device=frontier.device).view(P, 1)
     samples = reply[p, oidx.long(), sidx.long()]
     ok = frontier >= 0
@@ -279,7 +424,8 @@ def vanilla_sample(shard: WorkerShard, offsets: torch.Tensor,
                    counter: RoundCounter | None, fused: bool = False, *,
                    hot_graph: CSCGraph | None = None,
                    hot_mask: torch.Tensor | None = None,
-                   all_hot: bool = False):
+                   all_hot: bool = False,
+                   group: RankGroup | None = None):
     """Multi-level sampling under the vanilla scheme: topology
     partitioned, so 2 rounds per level below the top (Fig. 3).  The draws
     equal ``hybrid_sample``'s (the paper's §4.2 equivalence).
@@ -290,10 +436,11 @@ def vanilla_sample(shard: WorkerShard, offsets: torch.Tensor,
     ``all_hot`` no level exchanges at all.  Hot and cold draws merge
     before the relabel.
 
-    seeds: (P, batch), each worker's own labeled nodes.  Returns ``(mfgs,
+    seeds: (P, batch), each worker's own labeled nodes (the rank's
+    workers only, with a ``group``).  Returns ``(mfgs,
     sampling_utilized_bytes (P,) f32)``.
     """
-    my_offset, n_local = worker_ranges(offsets)
+    my_offset, n_local = worker_ranges(offsets, group)
     util = torch.zeros(seeds.shape[0], dtype=torch.float32,
                        device=seeds.device)
     mfgs = []
@@ -320,7 +467,7 @@ def vanilla_sample(shard: WorkerShard, offsets: torch.Tensor,
             else:
                 samples, level_bytes = exchange_sample_level(
                     shard, offsets, num_parts, cold, fanout, salt_d,
-                    counter)
+                    counter, group)
                 util = util + level_bytes
                 if hot_graph is not None:
                     samples = torch.where(is_hot[..., None], hot_samples,
@@ -332,7 +479,8 @@ def vanilla_sample(shard: WorkerShard, offsets: torch.Tensor,
 
 
 def owner_local_ids(reqs: torch.Tensor, offsets: torch.Tensor,
-                    n_local: int) -> torch.Tensor:
+                    n_local: int, group: RankGroup | None = None
+                    ) -> torch.Tensor:
     """Row ids into each owner's shard for the requests it received.
 
     reqs: (P, P, N) where ``reqs[q, p]`` are the global ids worker p asked
@@ -341,14 +489,15 @@ def owner_local_ids(reqs: torch.Tensor, offsets: torch.Tensor,
     ``feature_gather`` kernel.
     """
     P = reqs.shape[0]
-    local = reqs - offsets[:-1].view(P, 1, 1)
+    local = reqs - local_offsets(offsets, group)[:-1].view(P, 1, 1)
     ok = (reqs >= 0) & (local >= 0) & (local < n_local)
     return torch.where(ok, local, -1).to(torch.int32).reshape(P, -1)
 
 
 def fetch_features(src_nodes: torch.Tensor, offsets: torch.Tensor,
                    num_parts: int, features: torch.Tensor,
-                   counter: RoundCounter | None) -> torch.Tensor:
+                   counter: RoundCounter | None,
+                   group: RankGroup | None = None) -> torch.Tensor:
     """The 2 feature rounds (ids out, rows back) for every worker.
 
     src_nodes: (P, N) global ids to fetch per worker (-1 padding yields
@@ -359,10 +508,12 @@ def fetch_features(src_nodes: torch.Tensor, offsets: torch.Tensor,
     P, N = src_nodes.shape
     own = owner_of(offsets, src_nodes)
     buf, oidx, sidx = pack_by_owner(src_nodes, own, num_parts)
-    reqs = exchange(buf, counter, kind="feature")          # round: ids
-    ids = owner_local_ids(reqs, offsets, features.shape[1])
-    rows = feature_gather(ids, features).view(P, P, N, -1)
-    reps = exchange(rows, counter, kind="feature")         # round: rows
+    reqs = exchange(buf, counter, kind="feature",
+                    group=group)                           # round: ids
+    ids = owner_local_ids(reqs, offsets, features.shape[1], group)
+    rows = feature_gather(ids, features).view(P, num_parts, N, -1)
+    reps = exchange(rows, counter, kind="feature",
+                    group=group)                           # round: rows
     p = torch.arange(P, device=src_nodes.device).view(P, 1)
     h = reps[p, oidx.long(), sidx.long()]
     return torch.where((src_nodes >= 0)[..., None], h,
@@ -388,7 +539,8 @@ def cache_lookup(cache, src_nodes: torch.Tensor):
 
 def fetch_features_cached(src_nodes: torch.Tensor, offsets: torch.Tensor,
                           num_parts: int, features: torch.Tensor, cache,
-                          counter: RoundCounter | None = None):
+                          counter: RoundCounter | None = None,
+                          group: RankGroup | None = None):
     """Cache-aware feature fetch, rows bit-identical to
     ``fetch_features``.
 
@@ -401,6 +553,7 @@ def fetch_features_cached(src_nodes: torch.Tensor, offsets: torch.Tensor,
     p = torch.arange(src_nodes.shape[0], device=src_nodes.device).view(-1, 1)
     hit_rows = cache.rows[p, pos_c]
     miss_ids = torch.where(is_hit, -1, src_nodes)
-    h_miss = fetch_features(miss_ids, offsets, num_parts, features, counter)
+    h_miss = fetch_features(miss_ids, offsets, num_parts, features, counter,
+                            group)
     h = torch.where(is_hit[..., None], hit_rows.to(h_miss.dtype), h_miss)
     return h, is_hit.sum(dim=-1)

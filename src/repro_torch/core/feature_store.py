@@ -45,13 +45,15 @@ class FeatureStore:
 
     def fetch(self, src_nodes: torch.Tensor, shard, cache, *,
               offsets: torch.Tensor, num_parts: int, counter=None,
-              staged_rows=None):
+              staged_rows=None, group=None):
         """Serve ``src_nodes``'s rows -> ``(h (P, N, D), hits (P,))``.
 
         ``src_nodes`` is the last level's frontier (P, N) of global ids,
         -1 padded; ``cache`` is the stacked ``FeatureCache`` or ``None``;
         ``staged_rows`` (P, N, D) are the host-gathered rows of
-        ``external_rows`` stores (ignored by the others).
+        ``external_rows`` stores (ignored by the others).  In a fleet,
+        ``group`` is the rank's ``dist.RankGroup`` and every stacked
+        argument holds the rank's workers only.
         """
         raise NotImplementedError
 
@@ -73,13 +75,13 @@ class ExchangeStore(FeatureStore):
     name = "exchange"
 
     def fetch(self, src_nodes, shard, cache, *, offsets, num_parts,
-              counter=None, staged_rows=None):
+              counter=None, staged_rows=None, group=None):
         if cache is not None:
             return dist.fetch_features_cached(
                 src_nodes, offsets, num_parts, shard.features, cache,
-                counter)
+                counter, group)
         h = dist.fetch_features(src_nodes, offsets, num_parts,
-                                shard.features, counter)
+                                shard.features, counter, group)
         return h, torch.zeros(src_nodes.shape[0], dtype=torch.int64,
                               device=src_nodes.device)
 
@@ -98,7 +100,7 @@ class PinnedHotStore(FeatureStore):
     needs_cache = True
 
     def fetch(self, src_nodes, shard, cache, *, offsets, num_parts,
-              counter=None, staged_rows=None):
+              counter=None, staged_rows=None, group=None):
         if cache is None:
             raise ValueError(
                 "pinned_hot feature store needs a built cache "
@@ -108,7 +110,7 @@ class PinnedHotStore(FeatureStore):
         hit_rows = gather_rows(cache.rows, hit_pos)
         miss_ids = torch.where(is_hit, -1, src_nodes)
         h_miss = dist.fetch_features(miss_ids, offsets, num_parts,
-                                     shard.features, counter)
+                                     shard.features, counter, group)
         h = torch.where(is_hit[..., None], hit_rows.to(h_miss.dtype),
                         h_miss)
         return h, is_hit.sum(dim=-1)
@@ -151,7 +153,7 @@ class StagedStore(FeatureStore):
         return torch.device(device).type == "cuda"
 
     def fetch(self, src_nodes, shard, cache, *, offsets, num_parts,
-              counter=None, staged_rows=None):
+              counter=None, staged_rows=None, group=None):
         if staged_rows is None:
             raise ValueError(
                 "staged feature store needs staged_rows from a "

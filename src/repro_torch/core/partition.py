@@ -571,7 +571,13 @@ register_partitioner("hash", _no_params(HashPartitioner))
 class PartitionLayout:
     """Relabeled graph + ownership metadata, on the pipeline's device
     (``perm`` stays on the host, and so do the host copies of ``offsets``
-    and ``labels`` that the seed draw reads: ``host_offsets_labels``)."""
+    and ``labels`` that the seed draw reads: ``host_offsets_labels``).
+
+    ``local_parts`` marks a rank-local build (a fleet executor's rank):
+    only the partitions in ``range(*local_parts)`` have their feature rows;
+    the other rows of ``features`` are zero and the rank never reads them.
+    ``labels`` and ``node_valid`` stay full on every rank: the host seed
+    draw scans the whole labeled table."""
     graph: CSCGraph              # relabeled global topology
     offsets: torch.Tensor        # (P+1,) int32 ownership ranges
     perm: np.ndarray             # new id -> old id
@@ -583,6 +589,7 @@ class PartitionLayout:
                                                         compare=False)
     labels_host: np.ndarray | None = dataclasses.field(default=None,
                                                        compare=False)
+    local_parts: tuple[int, int] | None = None    # rank-local [lo, hi)
 
     def host_offsets_labels(self) -> tuple[np.ndarray, np.ndarray]:
         """(offsets (P+1,) int64, labels (P, n_max) int32) on the host,
@@ -617,9 +624,16 @@ class PartitionLayout:
 
 def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
                  assign: np.ndarray, num_parts: int,
-                 device=torch.device("cpu")) -> PartitionLayout:
+                 device=torch.device("cpu"),
+                 local_parts: tuple[int, int] | None = None
+                 ) -> PartitionLayout:
     """Relabel so each partition owns a contiguous id range; shard
-    features; place the result on ``device``."""
+    features; place the result on ``device``.
+
+    ``local_parts=(lo, hi)`` builds a rank-local layout: only partitions
+    ``lo .. hi-1`` get their feature rows, the rest of the (P, n_max, D)
+    table stays zero.  Topology, offsets, labels and ``node_valid`` stay
+    full."""
     n = graph.num_nodes
     assign = np.asarray(assign)
     perm_new_to_old = np.argsort(assign, kind="stable")
@@ -638,6 +652,17 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
     new_src = old_to_new[indices].astype(np.int64)
     new_graph = csc_from_numpy_edges(new_dst, new_src, n)
 
+    if local_parts is not None:
+        lo, hi = int(local_parts[0]), int(local_parts[1])
+        if not 0 <= lo < hi <= num_parts:
+            raise ValueError(
+                f"local_parts {local_parts!r} out of range for "
+                f"num_parts={num_parts}")
+        local_parts = (lo, hi)
+        feature_parts = range(lo, hi)
+    else:
+        feature_parts = range(num_parts)
+
     D = features.shape[1]
     feat = np.zeros((num_parts, n_max, D), features.dtype)
     lab = np.full((num_parts, n_max), -1, np.int32)
@@ -645,7 +670,8 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
     for p in range(num_parts):
         ids_old = perm_new_to_old[offsets[p]:offsets[p + 1]]
         k = ids_old.size
-        feat[p, :k] = features[ids_old]
+        if p in feature_parts:
+            feat[p, :k] = features[ids_old]
         lab[p, :k] = labels[ids_old]
         valid[p, :k] = True
 
@@ -659,6 +685,7 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
         num_parts=num_parts,
         offsets_host=offsets.astype(np.int64),
         labels_host=lab,
+        local_parts=local_parts,
     )
 
 

@@ -67,11 +67,13 @@ class PlacementPlan:
     remote_source_fraction: float = 1.0
 
     def sample(self, shard, seeds, fanouts, salt, *, level_fn=None,
-               fused: bool = False, counter=None):
-        """``scheme.sample`` with this plan bound."""
+               fused: bool = False, counter=None, group=None):
+        """``scheme.sample`` with this plan bound; ``group`` is the rank's
+        ``dist.RankGroup`` in a fleet (``seeds`` and ``shard`` then hold
+        its workers only)."""
         return self.scheme.sample(self, shard, seeds, fanouts, salt,
                                   level_fn=level_fn, fused=fused,
-                                  counter=counter)
+                                  counter=counter, group=group)
 
     def shard_topology(self):
         """(local_indptr, local_indices) for the ``WorkerShard``: both
@@ -165,8 +167,9 @@ class PlacementScheme:
     """Base class: plan construction, sampling program, round accounting.
 
     ``sample(plan, shard, seeds, fanouts, salt, *, level_fn, fused,
-    counter) -> (mfgs, sampling_utilized_bytes)`` runs all P workers at
-    once on the stacked axis; the bytes are (P,) f32, the valid id and
+    counter, group) -> (mfgs, sampling_utilized_bytes)`` runs all P
+    workers at once on the stacked axis (a fleet rank's own workers, with
+    its ``dist.RankGroup`` as ``group``); the bytes are (P,) f32, the valid id and
     reply payload each worker put into sampling ``exchange`` rounds.  A
     scheme with ``uses_level_backend`` samples every level through
     ``level_fn``; the others draw through their own windowless samplers,
@@ -180,7 +183,7 @@ class PlacementScheme:
         raise NotImplementedError
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
-               fused: bool = False, counter=None):
+               fused: bool = False, counter=None, group=None):
         raise NotImplementedError
 
     def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
@@ -207,10 +210,10 @@ class VanillaScheme(PlacementScheme):
                              remote_source_fraction=_edge_share(remote))
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
-               fused: bool = False, counter=None):
+               fused: bool = False, counter=None, group=None):
         return dist.vanilla_sample(shard, plan.offsets, plan.num_parts,
                                    seeds, fanouts, salt, counter,
-                                   fused=fused)
+                                   fused=fused, group=group)
 
     def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
         return 2 * (num_layers - 1)
@@ -238,7 +241,7 @@ class HybridScheme(PlacementScheme):
                                    graph=layout.graph)
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
-               fused: bool = False, counter=None):
+               fused: bool = False, counter=None, group=None):
         if plan.graph is None:
             raise ValueError("hybrid scheme needs the replicated topology")
         mfgs = dist.hybrid_sample(plan.graph, seeds, fanouts, salt,
@@ -320,14 +323,14 @@ class HybridPartialScheme(PlacementScheme):
             replicated_edge_fraction=replicated / num_edges)
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
-               fused: bool = False, counter=None):
+               fused: bool = False, counter=None, group=None):
         hot = plan.hot_count > 0
         return dist.vanilla_sample(
             shard, plan.offsets, plan.num_parts, seeds, fanouts, salt,
             counter, fused=fused,
             hot_graph=plan.hot_graph if hot else None,
             hot_mask=plan.hot_mask if hot else None,
-            all_hot=plan.complete)
+            all_hot=plan.complete, group=group)
 
     def trace_sampling_rounds(self, num_layers: int, plan=None) -> int:
         if plan is not None:

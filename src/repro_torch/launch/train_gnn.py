@@ -1,6 +1,9 @@
 """Distributed GNN training launcher of the port — the paper's workload
-through the ``repro_torch.pipeline`` API, all P workers stacked on one
-device (counterpart of ``repro.launch.train_gnn``, same defaults).
+through the ``repro_torch.pipeline`` API (counterpart of
+``repro.launch.train_gnn``, same defaults).  By default all P workers are
+stacked on one device; ``--executor multiprocess`` runs them as a fleet
+of ``--num-procs`` ranks, one OS process each, and ``--executor
+shard_map`` (or ``--shard-map``) as a fleet of P ranks, one worker each.
 
   python -m repro_torch.launch.train_gnn --devices 4        # on the GPU
   python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
@@ -29,28 +32,62 @@ device (counterpart of ``repro.launch.train_gnn``, same defaults).
   python -m repro_torch.launch.train_gnn --devices 4 \\
       --dataset datasets/ogbn-arxiv.npz
 
+  python -m repro_torch.launch.train_gnn --executor multiprocess \\
+      --num-procs 2 --trace t.json          # 2 ranks x 4 workers, GPU
+  python -m repro_torch.launch.train_gnn --device cpu --nodes 3000 \\
+      --devices 2 --executor shard_map --epochs 1 --steps-per-epoch 3 \\
+      --batch 32
+
 ``--dataset`` takes a source registry name or the path of a dataset
 saved with ``repro_torch.data.save_dataset`` (or ``repro``'s).
 ``--scheme`` takes ``vanilla``, ``hybrid``, ``hybrid+fused`` or any
 registered placement scheme (``"hybrid_partial(0.25)"``).  ``--executor``
-takes ``vmap`` (``repro``'s name, the default) or ``stacked``: both are
-the port's ``StackedExecutor``.  ``--trace OUT.json`` records the driver,
-prefetch and stager spans (``repro_torch.obs``); ``--trace-fence``
-synchronizes inside them.  Not ported yet, and refused with an error: the
-``shard_map`` and ``multiprocess`` executors.
+takes ``vmap`` (``repro``'s name, the default) or ``stacked`` (both the
+port's ``StackedExecutor``), ``multiprocess`` or ``shard_map``.  A fleet
+run re-execs this command line as its ranks
+(``repro_torch.launch.multihost``, per-rank logs in a temporary
+directory it prints), prints rank 0's output, and fails if a rank fails
+or the fleet outlives ``--mh-timeout``.  Every rank runs on the card the
+parent would (``cuda`` unless ``--device cpu``); on a machine with one
+card the ranks share it and their collectives go through host memory
+(gloo).  A rank builds only its own partitions' feature rows unless a
+cache or the ``staged`` store needs the whole table.  ``--trace OUT.json``
+records the driver, prefetch, stager and collective spans
+(``repro_torch.obs``); a fleet's ranks write ``OUT.json.rank<r>``, which
+the parent merges into ``OUT.json`` (rank as pid).  ``--trace-fence``
+synchronizes inside the spans.
 """
 import argparse
+import os
+import sys
 import time
 
-_NOT_PORTED = "is not ported to repro_torch yet"
-_EXECUTORS = ("vmap", "stacked")    # both name the StackedExecutor
+_FLEET = ("multiprocess", "shard_map")
 
 
-def _refuse_unported(ap, args) -> None:
-    if args.shard_map or args.executor not in (None,) + _EXECUTORS:
-        ap.error(f"executor {args.executor or 'shard_map'!r} {_NOT_PORTED}; "
-                 f"the port runs the stacked executor (--executor vmap or "
-                 f"stacked)")
+def _launch_fleet(ap, args, executor) -> None:
+    """The parent of a fleet run: re-exec this command line as the ranks,
+    then print rank 0's output and merge the ranks' traces."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import multihost
+
+    num_procs = args.devices if executor == "shard_map" else args.num_procs
+    if num_procs < 1 or args.devices % num_procs:
+        ap.error(f"--devices {args.devices} must be divisible by "
+                 f"--num-procs {num_procs}")
+    device = resolve_device(args.device)
+    log_dir = multihost.launch(
+        [sys.executable, "-m", "repro_torch.launch.train_gnn"]
+        + list(args.argv), num_procs=num_procs, device=device.type,
+        timeout=args.mh_timeout)
+    with open(os.path.join(log_dir, "rank0.out")) as f:
+        sys.stdout.write(f.read())
+    if args.trace:
+        multihost.merge_rank_traces(args.trace, num_procs)
+        print(f"merged fleet trace written to {args.trace}")
+    print(f"{executor} run complete: {num_procs} ranks x "
+          f"{args.devices // num_procs} workers; per-rank logs in "
+          f"{log_dir}")
 
 
 def main(argv=None):
@@ -109,15 +146,25 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--lr", type=float, default=0.006)   # paper §4
     ap.add_argument("--shard-map", action="store_true",
-                    help="not ported (the port runs the stacked executor)")
+                    help="alias of --executor shard_map")
     ap.add_argument("--executor", default=None,
-                    help="vmap (the default) | stacked: both run the "
-                         "port's stacked executor; shard_map and "
-                         "multiprocess are not ported")
+                    choices=("vmap", "stacked") + _FLEET,
+                    help="vmap (the default) | stacked: all workers "
+                         "stacked on one device; multiprocess: "
+                         "--num-procs ranks of devices/num-procs workers "
+                         "each, one OS process a rank; shard_map: one "
+                         "rank a worker")
+    ap.add_argument("--num-procs", type=int, default=2,
+                    help="ranks of the multiprocess executor")
+    ap.add_argument("--mh-timeout", type=float, default=600.0,
+                    help="fleet wall-clock timeout in seconds (hang "
+                         "detection)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record a Chrome trace-event timeline of the run "
                          "(repro_torch.obs): driver/prefetch/stager spans, "
-                         "viewable in Perfetto.  Render the span summary "
+                         "viewable in Perfetto; a fleet's ranks write "
+                         "OUT.json.rankR and the parent merges them into "
+                         "OUT.json (rank as pid).  Render the span summary "
                          "with 'python -m repro_torch.obs.report OUT.json "
                          "--summary'")
     ap.add_argument("--trace-fence", action="store_true",
@@ -126,14 +173,36 @@ def main(argv=None):
                          "of the prepare/consume overlap (a profiling "
                          "mode, never for production numbers)")
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
-    executor = args.executor or "vmap"
+    args.argv = sys.argv[1:] if argv is None else list(argv)
+    executor = args.executor or ("shard_map" if args.shard_map else "vmap")
+
+    from repro_torch.launch import multihost
+
+    if executor in _FLEET and not multihost.is_worker():
+        _launch_fleet(ap, args, executor)
+        return
+
+    rank, local_parts = 0, None
+    if executor in _FLEET:
+        # a rank: join the process group first, then build only its own
+        # partitions' feature rows unless a stage reads other ones (the
+        # cache copies remote hot rows, the staged store's host gather
+        # walks the whole table)
+        rank, num_procs, _ = multihost.init_from_env()
+        per = args.devices // num_procs
+        if args.cache_capacity == 0 and args.feature_store != "staged":
+            local_parts = (rank * per, (rank + 1) * per)
 
     from repro_torch.obs import trace as obs_trace
 
+    trace_path = args.trace
     if args.trace:
-        obs_trace.start(args.trace, fenced=args.trace_fence,
-                        process_name="train_gnn")
+        fleet = executor in _FLEET
+        if fleet:
+            trace_path = multihost.rank_trace_path(args.trace, rank)
+        obs_trace.start(trace_path, fenced=args.trace_fence, pid=rank,
+                        process_name=f"rank{rank}" if fleet
+                        else "train_gnn")
 
     from repro_torch.data import DataSpec, dataset_stats, stats_label
     from repro_torch.device import resolve_device
@@ -153,22 +222,28 @@ def main(argv=None):
         cache_capacity=args.cache_capacity, cache_policy=args.cache_policy,
         partitioner=args.partitioner, feature_store=args.feature_store,
         prefetch_depth=args.prefetch_depth, staging=args.staging,
-        staging_lead=args.staging_lead, data=data)
-    pipe = Pipeline.build_from_source(spec=spec, device=device)
+        staging_lead=args.staging_lead, executor=executor, data=data)
+    pipe = Pipeline.build_from_source(spec=spec, local_parts=local_parts,
+                                      device=device)
     ds = pipe.dataset
-    print(f"dataset: {stats_label(dataset_stats(ds))}; device {device}")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"dataset: {stats_label(dataset_stats(ds))}; device {device}")
 
     cfg = GNNConfig(in_dim=ds.features.shape[1], hidden_dim=256,
                     num_classes=ds.num_classes, num_layers=len(fanouts),
                     fanouts=fanouts, dropout=0.0)
-    print(f"partitioned into {args.devices} by {args.partitioner!r}: "
-          f"edge-cut {pipe.edge_cut_fraction:.1%}")
+    say(f"partitioned into {args.devices} by {args.partitioner!r}: "
+        f"edge-cut {pipe.edge_cut_fraction:.1%}")
+    if pipe.group is not None:
+        say(f"fleet: {pipe.group.num_procs} ranks x {pipe.group.local} "
+            f"workers; rank-local build: "
+            f"{'yes' if local_parts is not None else 'no'}")
     if hasattr(pipe.placement, "replicated_edge_fraction"):
-        print(f"partial replication: "
-              f"{pipe.placement.replicated_edge_fraction:.1%} of edges "
-              f"replicated, expected rounds/step "
-              f"{pipe.expected_rounds_estimate:.2f} "
-              f"(hybrid=2, vanilla={2 * cfg.num_layers})")
+        say(f"partial replication: "
+            f"{pipe.placement.replicated_edge_fraction:.1%} of edges "
+            f"replicated, expected rounds/step "
+            f"{pipe.expected_rounds_estimate:.2f} "
+            f"(hybrid=2, vanilla={2 * cfg.num_layers})")
 
     def loss_fn(p, mfgs, h_src, labels, valid):
         return gnn_loss(p, mfgs, h_src, labels, valid, cfg)
@@ -178,16 +253,20 @@ def main(argv=None):
     with pipe.train_driver(loss_fn, batch=args.batch, lr=args.lr,
                            optimizer="adamw", grad_clip=1.0,
                            device=device) as driver:
-        _train(args, executor, pipe, driver, cfg, params, opt_state)
+        _train(args, executor, pipe, driver, cfg, params, opt_state, say)
     if args.trace:
         tracer = obs_trace.stop()
-        print(f"trace written to {args.trace} "
-              f"({tracer.num_recorded} spans, {tracer.dropped} dropped); "
-              f"view at https://ui.perfetto.dev or render with "
-              f"python -m repro_torch.obs.report {args.trace} --summary")
+        say(f"trace written to {trace_path} "
+            f"({tracer.num_recorded} spans, {tracer.dropped} dropped); "
+            f"view at https://ui.perfetto.dev or render with "
+            f"python -m repro_torch.obs.report {args.trace} --summary")
+    if pipe.group is not None:
+        import torch.distributed as tdist
+        tdist.destroy_process_group()
 
 
-def _train(args, executor, pipe, driver, cfg, params, opt_state) -> None:
+def _train(args, executor, pipe, driver, cfg, params, opt_state,
+           say) -> None:
     from repro_torch.obs.metrics import get_registry
 
     registry = get_registry()
@@ -198,7 +277,7 @@ def _train(args, executor, pipe, driver, cfg, params, opt_state) -> None:
         for s in range(args.steps_per_epoch):
             params, opt_state, loss, metrics = driver.step(params, opt_state)
             if epoch == 0 and s == 0:
-                print(f"scheme={args.scheme} executor={executor} "
+                say(f"scheme={args.scheme} executor={executor} "
                       f"prefetch={args.prefetch_depth} staging={staging} "
                       f"store={args.feature_store}: "
                       f"{pipe.counter.rounds} comm rounds/step "
@@ -218,7 +297,7 @@ def _train(args, executor, pipe, driver, cfg, params, opt_state) -> None:
                f"time {time.time() - t0:.2f}s")
         if args.cache_capacity:
             msg += f" cache-hit {float(metrics['cache_hit_rate']):.1%}"
-        print(msg)
+        say(msg)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ accelerates); the consume half is a gradient-free forward:
 
 ``logits`` is (P, batch, C), row p for worker p's seeds: serving routes
 each request to its seed's owner.  ``metrics`` are reduced over the worker
-axis in index order.
+axis in index order.  Built with ``group`` (a fleet rank's
+``dist.RankGroup``), prepare and the forward run over the rank's own
+workers; the consume gathers every worker's logits (an all_gather, so
+every rank, rank 0 included, gets all P rows) and reduces the metrics
+across the ranks.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
                                forward_fn: Callable, plan,
                                backend: str | None = None,
                                level_fn: Callable | None = None,
-                               counter: dist.RoundCounter | None = None):
+                               counter: dist.RoundCounter | None = None,
+                               group: dist.RankGroup | None = None):
     """Build the *prepare* / *consume* halves of the inference step.
 
     ``forward_fn(params, mfgs, h_src) -> (P, batch, C) logits``; the other
@@ -35,18 +40,19 @@ def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
     """
     prepare = make_prepare(offsets=offsets, num_parts=num_parts,
                            fanouts=fanouts, plan=plan, backend=backend,
-                           level_fn=level_fn, counter=counter)
+                           level_fn=level_fn, counter=counter, group=group)
 
     def consume(params, batch: PreparedBatch):
-        logits = forward_fn(params, list(batch.mfgs), batch.h_src)
+        logits = dist.all_workers(
+            forward_fn(params, list(batch.mfgs), batch.h_src), group)
         comm = batch.comm
         metrics = {
             "sampling_utilized_bytes": dist.psum_ordered(
-                comm["sampling_utilized_bytes"]),
+                comm["sampling_utilized_bytes"], group),
             "feature_utilized_bytes": dist.psum_ordered(
-                comm["feature_utilized_bytes"]),
+                comm["feature_utilized_bytes"], group),
             "sampler_window_overflow": dist.psum_ordered(
-                comm["sampler_window_overflow"]),
+                comm["sampler_window_overflow"], group),
         }
         return logits, metrics
 
@@ -56,13 +62,14 @@ def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
 def make_infer_step(*, offsets, num_parts, fanouts, forward_fn, plan,
                     backend: str | None = None,
                     level_fn: Callable | None = None,
-                    counter: dist.RoundCounter | None = None):
+                    counter: dist.RoundCounter | None = None,
+                    group: dist.RankGroup | None = None):
     """The composed inference program: ``step(params, shard, seeds, salt,
     cache=None) -> (logits, metrics)`` over the stacked worker axis."""
     prepare, consume = make_infer_prepare_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         forward_fn=forward_fn, plan=plan, backend=backend,
-        level_fn=level_fn, counter=counter)
+        level_fn=level_fn, counter=counter, group=group)
 
     def step(params, shard, seeds, salt, cache=None):
         return consume(params, prepare(shard, seeds, salt, cache))

@@ -6,11 +6,20 @@ moves the relabeled topology and the feature shards to ``device`` (CUDA
 unless the caller passes ``device="cpu"``), builds the feature cache the
 spec asks for, and returns an object whose ``train_step`` /
 ``train_driver`` run the training step and whose ``infer_step_fn`` runs
-the serving step, each over all P workers.
+the serving step, each over all P workers, through the executor the spec
+names (``repro_torch.pipeline.executor``).
+
+Under a fleet executor (``multiprocess``, ``shard_map``) the pipeline is
+one rank's: it moves the replicated topology and only its own workers'
+rows of the features, labels, local topology and cache to the device,
+and its seeds and step programs cover those workers (``group``).  With
+``local_parts`` the build materializes only those workers' feature rows
+at all (a rank-local build).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -18,7 +27,7 @@ import torch
 from repro_torch.core import dist
 from repro_torch.core.graph import CSCGraph
 from repro_torch.device import resolve_device
-from repro_torch.pipeline.executor import StackedExecutor
+from repro_torch.pipeline.executor import resolve_executor
 from repro_torch.pipeline.specs import PipelineSpec
 
 
@@ -41,6 +50,9 @@ class Pipeline:
     feature_store:    the ``FeatureStore`` serving the training step's
                       frontier rows (``PlanSpec.feature_store``).
     dataset:          the source ``GraphDataset`` (``build_from_source``).
+    group:            the rank's ``dist.RankGroup`` under a fleet
+                      executor (shards, cache and seeds hold its workers
+                      only), else None.
     """
     spec: PipelineSpec
     layout: "PartitionLayout"                       # noqa: F821
@@ -51,6 +63,7 @@ class Pipeline:
     placement: "PlacementPlan"                      # noqa: F821
     feature_store: "FeatureStore"                   # noqa: F821
     dataset: "GraphDataset | None" = None           # noqa: F821
+    group: dist.RankGroup | None = None
     _edge_cut: float | None = dataclasses.field(default=None, init=False,
                                                 repr=False)
 
@@ -58,19 +71,30 @@ class Pipeline:
 
     @classmethod
     def build(cls, graph: CSCGraph, features, labels, spec: PipelineSpec,
-              *, labeled_mask=None, partition_chunk_edges=None,
-              device=None) -> "Pipeline":
+              *, labeled_mask=None, local_parts=None,
+              partition_chunk_edges=None, device=None) -> "Pipeline":
         """Partition ``graph`` (on the CPU) by the spec'd partitioner and
-        assemble every stage on ``device``.  ``partition_chunk_edges``
-        runs a streaming-capable partitioner's one-pass variant over the
-        graph's edges in chunks of that many, in CSC order, instead of
-        its in-memory walk."""
+        assemble every stage on ``device``.  ``local_parts=(lo, hi)``
+        builds a fleet rank's pipeline whose feature table holds only
+        partitions ``lo .. hi-1`` (the partitioning is deterministic, so
+        every rank derives the same assignment); it refuses a cache, which
+        copies other partitions' rows.  ``partition_chunk_edges`` runs a
+        streaming-capable partitioner's one-pass variant over the graph's
+        edges in chunks of that many, in CSC order, instead of its
+        in-memory walk."""
         from repro_torch.core.graph import csr_view_release
         from repro_torch.core.partition import (build_layout,
                                                 resolve_partitioner)
 
         device = resolve_device(device)
         plan = spec.plan
+        if plan.cache_capacity > 0 and local_parts is not None:
+            raise ValueError(
+                "cache_capacity > 0 is incompatible with a rank-local "
+                "build (local_parts): the cache copies other partitions' "
+                "hot feature rows, which a rank-local build never "
+                "materializes.  Build the full layout (local_parts=None) "
+                "when caching.")
         labels = np.asarray(labels)
         if labeled_mask is None:
             labeled_mask = labels >= 0
@@ -86,20 +110,28 @@ class Pipeline:
         else:
             assign = partitioner.assign(graph, plan.num_parts,
                                         np.asarray(labeled_mask), **kw)
+        # a fleet rank moves only its own rows to the device, in
+        # from_layout: the layout stays on the host until then
+        fleet = resolve_executor(spec.executor).fleet
         layout = build_layout(graph, np.asarray(features), labels, assign,
-                              plan.num_parts, device=device)
+                              plan.num_parts,
+                              device=torch.device("cpu") if fleet
+                              else device,
+                              local_parts=local_parts)
         csr_view_release(graph)
         return cls.from_layout(layout, spec, device=device)
 
     @classmethod
     def build_from_source(cls, source=None, spec: PipelineSpec = None, *,
-                          mmap: bool = True, partition_chunk_edges=None,
+                          mmap: bool = True, local_parts=None,
+                          partition_chunk_edges=None,
                           device=None) -> "Pipeline":
         """``Pipeline.build`` with the dataset resolved by
         ``repro_torch.data``: ``source`` (default ``spec.data.source``) is
         a registry name or the path of a saved dataset, memory-mapped
         unless ``mmap=False``.  Bit-identical to ``build`` on the resolved
-        dataset, which the pipeline keeps on ``.dataset``."""
+        dataset, which the pipeline keeps on ``.dataset``; ``local_parts``
+        as in ``build``."""
         from repro_torch.data.spec import resolve_dataset
 
         if spec is None:
@@ -107,6 +139,7 @@ class Pipeline:
         device = resolve_device(device)
         ds = resolve_dataset(source, spec.data, mmap=mmap)
         pipe = cls.build(ds.graph, ds.features, ds.labels, spec,
+                         local_parts=local_parts,
                          partition_chunk_edges=partition_chunk_edges,
                          device=device)
         pipe.dataset = ds
@@ -118,35 +151,70 @@ class Pipeline:
         """Assemble a pipeline over an existing ``PartitionLayout``, moved
         to ``device`` if it lies elsewhere (so several specs can share one
         partitioning).  Placement, cache construction and the feature
-        store resolve by registry name from ``spec.plan``."""
-        from repro_torch.core.cache import resolve_cache_policy
+        store resolve by registry name from ``spec.plan``.  Under a fleet
+        executor only the topology and offsets move whole; the shards and
+        the cache are the rank's rows (``group``)."""
+        from repro_torch.core.cache import (FeatureCache,
+                                            resolve_cache_policy)
         from repro_torch.core.feature_store import resolve_feature_store
         from repro_torch.core.placement import resolve_scheme
 
         device = resolve_device(device)
-        if layout.device.type != device.type:
-            layout = layout.to(device)
         if layout.num_parts != spec.plan.num_parts:
             raise ValueError(
                 f"layout has {layout.num_parts} parts, spec asks for "
                 f"{spec.plan.num_parts}")
         plan = spec.plan
+        store = resolve_feature_store(plan.feature_store)
+        if store.external_rows and layout.local_parts is not None:
+            raise ValueError(
+                f"feature store {plan.feature_store!r} gathers frontier "
+                f"rows on the host from the full feature table; a "
+                f"rank-local layout (local_parts="
+                f"{tuple(layout.local_parts)!r}) never materializes other "
+                f"partitions' rows.  Build with local_parts=None.")
+        executor = resolve_executor(spec.executor)
+        group = executor.rank_group(plan.num_parts)
+        executor.check_layout(layout, group)
+        if group is None:
+            if layout.device.type != device.type:
+                layout = layout.to(device)
+
+            def mine(x):
+                return x
+        else:
+            # each rank derives the partition itself: a partitioner that
+            # is not deterministic across processes would mix other
+            # workers' rows into the rounds without an error
+            digest = hashlib.sha256(np.ascontiguousarray(layout.perm))
+            digest.update(layout.host_offsets_labels()[0].tobytes())
+            dist.require_same_on_ranks(digest.digest(), group,
+                                       "the partition")
+            # the topology is replicated; every other table keeps its
+            # host copy and moves the rank's rows only
+            layout = dataclasses.replace(
+                layout, graph=layout.graph.to(device),
+                offsets=layout.offsets.to(device))
+
+            def mine(x):
+                return None if x is None else x[group.lo:group.hi].to(device)
         placement = resolve_scheme(plan.scheme,
                                    frac=plan.replicate_frac).build(layout)
         local_indptr, local_indices = placement.shard_topology()
-        shards = dist.WorkerShard(features=layout.features,
-                                  labels=layout.labels,
-                                  local_indptr=local_indptr,
-                                  local_indices=local_indices)
+        shards = dist.WorkerShard(features=mine(layout.features),
+                                  labels=mine(layout.labels),
+                                  local_indptr=mine(local_indptr),
+                                  local_indices=mine(local_indices))
         cache = None
         if plan.cache_capacity > 0:
             cache = resolve_cache_policy(plan.cache_policy)(
                 layout, plan.cache_capacity, fanouts=spec.sampler.fanouts,
                 seed=plan.partition_seed)
+            cache = FeatureCache(ids=mine(cache.ids), rows=mine(cache.rows))
         return cls(spec=spec, layout=layout, shards=shards,
                    graph_replicated=placement.replicated_graph, cache=cache,
                    counter=dist.RoundCounter(), placement=placement,
-                   feature_store=resolve_feature_store(plan.feature_store))
+                   feature_store=store, group=group)
 
     # ------------------------------------------------------------- programs
 
@@ -170,7 +238,7 @@ class Pipeline:
             fanouts=self.spec.sampler.fanouts, loss_fn=loss_fn,
             plan=self.placement, backend=self.spec.sampler.backend,
             counter=self.counter, use_cache=self.cache is not None,
-            store=self.feature_store)
+            store=self.feature_store, group=self.group)
 
     def make_prepare_consume(self, loss_fn, *, counted: bool = True,
                              device=None):
@@ -190,7 +258,8 @@ class Pipeline:
             fanouts=self.spec.sampler.fanouts, loss_fn=loss_fn,
             plan=self.placement, backend=self.spec.sampler.backend,
             counter=self.counter if counted else None,
-            store=self.feature_store, features=self.spec.prefetch.features)
+            store=self.feature_store, features=self.spec.prefetch.features,
+            group=self.group)
 
     def make_prepare_fetch_consume(self, loss_fn, *, counted: bool = True,
                                    device=None):
@@ -208,14 +277,20 @@ class Pipeline:
             fanouts=self.spec.sampler.fanouts, loss_fn=loss_fn,
             plan=self.placement, backend=self.spec.sampler.backend,
             counter=self.counter if counted else None,
-            store=self.feature_store, features=False)
+            store=self.feature_store, features=False, group=self.group)
+
+    @property
+    def executor(self):
+        """A fresh instance of the executor ``spec.executor`` names."""
+        return resolve_executor(self.spec.executor)
 
     def step_fn(self, loss_fn, *, device=None):
-        """The training step bound to the stacked executor: ``fn(params,
+        """The training step bound to the spec's executor: ``fn(params,
         seeds, salt) -> (loss, grads, metrics)`` with stacked (P, batch)
-        seeds, on ``device`` (the pipeline's; ``None`` means CUDA)."""
-        return StackedExecutor().bind(self, self.make_step(loss_fn,
-                                                           device=device))
+        seeds (a fleet rank's own rows, ``local_rows``), on ``device``
+        (the pipeline's; ``None`` means CUDA)."""
+        return self.executor.bind(self, self.make_step(loss_fn,
+                                                       device=device))
 
     def train_step(self, loss_fn, *, lr: float = 1e-3,
                    optimizer: str = "adamw", grad_clip: float | None = 1.0,
@@ -271,7 +346,7 @@ class Pipeline:
             offsets=self.layout.offsets, num_parts=self.num_parts,
             fanouts=self.spec.sampler.fanouts, forward_fn=forward_fn,
             plan=self.placement, backend=self.spec.sampler.backend,
-            counter=self.counter if counted else None)
+            counter=self.counter if counted else None, group=self.group)
 
     def make_infer_step(self, forward_fn, *, counted: bool = False,
                         device=None):
@@ -285,33 +360,42 @@ class Pipeline:
             offsets=self.layout.offsets, num_parts=self.num_parts,
             fanouts=self.spec.sampler.fanouts, forward_fn=forward_fn,
             plan=self.placement, backend=self.spec.sampler.backend,
-            counter=self.counter if counted else None)
+            counter=self.counter if counted else None, group=self.group)
 
     def infer_step_fn(self, forward_fn, *, counted: bool = False,
                       device=None):
-        """Bind the inference step to the stacked executor:
+        """Bind the inference step to the spec's executor:
         ``fn(params, seeds, salt) -> (logits, metrics)`` with stacked
         (P, batch) seeds routed to their owners
-        (``repro_torch.serve.batcher.route_by_owner``) and (P, batch, C)
-        logits, on ``device`` (the pipeline's; ``None`` means CUDA)."""
-        return StackedExecutor().bind_infer(
+        (``repro_torch.serve.batcher.route_by_owner``; a fleet rank passes
+        its own rows, ``local_rows``) and (P, batch, C) logits of every
+        worker, on ``device`` (the pipeline's; ``None`` means CUDA)."""
+        return self.executor.bind_infer(
             self, self.make_infer_step(forward_fn, counted=counted,
                                        device=device))
 
     # ------------------------------------------------------------ utilities
 
+    def local_rows(self, x):
+        """The rows of the workers this pipeline hosts, from a (P, ...)
+        array over all workers: ``x`` itself unless it is a fleet rank's,
+        whose rows ``lo .. hi-1`` it returns."""
+        if self.group is None:
+            return x
+        return x[self.group.lo:self.group.hi]
+
     def seeds_host(self, batch: int, epoch_salt: int) -> np.ndarray:
         """(P, batch) per-worker minibatch seeds as a host int32 array,
         drawn from each worker's own labeled nodes (deterministic in
-        ``epoch_salt``)."""
+        ``epoch_salt``); a fleet rank's rows of the same draw."""
         from repro_torch.core.partition import seeds_per_worker_host
-        return seeds_per_worker_host(self.layout, batch,
-                                     epoch_salt=epoch_salt)
+        return self.local_rows(seeds_per_worker_host(
+            self.layout, batch, epoch_salt=epoch_salt))
 
     def seeds(self, batch: int, epoch_salt: int) -> torch.Tensor:
         """``seeds_host`` on the pipeline's device."""
-        from repro_torch.core.partition import seeds_per_worker
-        return seeds_per_worker(self.layout, batch, epoch_salt=epoch_salt)
+        return torch.from_numpy(self.seeds_host(batch, epoch_salt)).to(
+            self.device)
 
     @property
     def device(self) -> torch.device:

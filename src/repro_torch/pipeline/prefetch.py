@@ -13,6 +13,14 @@ the stacked worker axis (all P workers at once, on axis 0):
       forward and backward; loss and gradients are the mean over the
       worker axis, metrics are reduced over it in index order.
 
+Built with ``group`` (a fleet rank's ``dist.RankGroup``), both halves run
+over the rank's own workers and reduce across the ranks.  The gradient
+is then ``repro``'s: each worker's own gradient (one backward a worker),
+then their mean in worker order over all P workers.  So fleets of 2 or
+more ranks give the same bits whatever their split of the workers; the
+stacked executor's single backward sums the workers in another order,
+which moves the gradient by float rounding only.
+
 ``SeedStream`` derives step k's seeds and salt from k alone, so every
 driver replays the same minibatches.  Drivers resolve by registry name
 from ``PrefetchSpec.mode``:
@@ -71,12 +79,20 @@ class PreparedBatch:
     comm: dict
 
 
+def worker_rows(mfg, rows: slice):
+    """The MFG of the workers ``rows`` selects on the leading axis."""
+    return dataclasses.replace(mfg, **{
+        f.name: getattr(mfg, f.name)[rows]
+        for f in dataclasses.fields(mfg)})
+
+
 def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                                fanouts: Sequence[int], loss_fn: Callable,
                                plan, backend: str | None = None,
                                level_fn: Callable | None = None,
                                counter: dist.RoundCounter | None = None,
-                               store=None, features: bool = True):
+                               store=None, features: bool = True,
+                               group: dist.RankGroup | None = None):
     """Build ``(prepare, fetch, consume)``, the training step's halves with
     the feature stage exposed.
 
@@ -101,7 +117,10 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
     grads, metrics)`` fetches first when needed; ``loss_fn(params, mfgs,
     h_src, seed_labels, seed_valid)`` returns the per-worker losses (P,),
     ``loss`` is their mean and ``grads`` (a tree like ``params``) its
-    gradient; ``metrics`` has ``repro``'s keys.
+    gradient; ``metrics`` has ``repro``'s keys.  With ``group`` every
+    stacked argument and result holds the rank's workers only, and the
+    loss, gradients and metrics are reduced over all P workers (the
+    module's docstring says how).
     """
     from repro_torch.core.feature_store import ExchangeStore
 
@@ -127,7 +146,7 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
         src = batch.mfgs[-1].src_nodes
         h_src, hits = store.fetch(src, shard, cache, offsets=offsets,
                                   num_parts=num_parts, counter=counter,
-                                  staged_rows=staged)
+                                  staged_rows=staged, group=group)
         row_bytes = 4.0 + shard.features.shape[2] \
             * shard.features.element_size()
         comm = dict(batch.comm, feature_utilized_bytes=store.utilized_bytes(
@@ -144,13 +163,14 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                                 overflow_sink=sink)
         mfgs, samp_bytes = plan.sample(shard, seeds, fanouts, salt,
                                        level_fn=lf, fused=fused,
-                                       counter=counter)
+                                       counter=counter, group=group)
         P = seeds.shape[0]
         per_level = torch.zeros((P, L), dtype=torch.int64,
                                 device=seeds.device)
         for i, o in enumerate(sink):
             per_level[:, min(i, L - 1)] += o.to(torch.int64)
-        local_seed = (seeds - offsets[:-1].view(-1, 1)).clamp(
+        my_offset = dist.local_offsets(offsets, group)[:-1]
+        local_seed = (seeds - my_offset.view(-1, 1)).clamp(
             0, shard.labels.shape[1] - 1)
         seed_labels = torch.gather(shard.labels, 1, local_seed.long())
         zeros = torch.zeros(P, dtype=torch.float32, device=seeds.device)
@@ -166,14 +186,11 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                               comm=comm)
         return fetch(shard, batch, cache, staged) if features else batch
 
-    def consume(params, batch: PreparedBatch, shard=None, cache=None):
-        if batch.h_src is None:
-            batch = fetch(shard, batch, cache)
-        mfgs = list(batch.mfgs)
+    def grads_stacked(params, batch: PreparedBatch):
         with torch.enable_grad():
             leaves = tree_map(lambda p: p.detach().requires_grad_(True),
                               params)
-            per_worker = loss_fn(leaves, mfgs, batch.h_src,
+            per_worker = loss_fn(leaves, list(batch.mfgs), batch.h_src,
                                  batch.seed_labels, batch.seed_valid)
             loss = dist.pmean_ordered(per_worker)
             # a conv may leave a parameter unused (gcn's w_self): its
@@ -181,23 +198,50 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
             flat = torch.autograd.grad(loss, tree_leaves(leaves),
                                        materialize_grads=True)
         it = iter(flat)
-        grads = tree_map(lambda _: next(it), params)
+        return loss.detach(), tree_map(lambda _: next(it), params)
+
+    def grads_per_worker(params, batch: PreparedBatch):
+        losses, flats = [], []
+        for i in range(batch.seed_labels.shape[0]):
+            one = slice(i, i + 1)
+            with torch.enable_grad():
+                leaves = tree_map(
+                    lambda p: p.detach().requires_grad_(True), params)
+                loss_i = loss_fn(leaves, [worker_rows(m, one)
+                                          for m in batch.mfgs],
+                                 batch.h_src[one], batch.seed_labels[one],
+                                 batch.seed_valid[one])
+                g = torch.autograd.grad(loss_i.sum(), tree_leaves(leaves),
+                                        materialize_grads=True)
+            losses.append(loss_i.detach())
+            flats.append(torch.cat([x.reshape(-1) for x in g]))
+        loss = dist.pmean_ordered(torch.cat(losses), group)
+        mean = dist.pmean_ordered(torch.stack(flats), group)
+        it = iter(mean.split([p.numel() for p in tree_leaves(params)]))
+        return loss, tree_map(lambda p: next(it).view(p.shape), params)
+
+    grads_fn = grads_stacked if group is None else grads_per_worker
+
+    def consume(params, batch: PreparedBatch, shard=None, cache=None):
+        if batch.h_src is None:
+            batch = fetch(shard, batch, cache)
+        loss, grads = grads_fn(params, batch)
         comm = batch.comm
-        n_valid = (mfgs[-1].src_nodes >= 0).sum(dim=-1).clamp(min=1)
+        n_valid = (batch.mfgs[-1].src_nodes >= 0).sum(dim=-1).clamp(min=1)
         metrics = {
             "cache_hit_rate": dist.pmean_ordered(
-                (batch.hits / n_valid).to(torch.float32)),
+                (batch.hits / n_valid).to(torch.float32), group),
             "sampling_utilized_bytes": dist.psum_ordered(
-                comm["sampling_utilized_bytes"]),
+                comm["sampling_utilized_bytes"], group),
             "feature_utilized_bytes": dist.psum_ordered(
-                comm["feature_utilized_bytes"]),
+                comm["feature_utilized_bytes"], group),
             "sampler_window_overflow": dist.psum_ordered(
-                comm["sampler_window_overflow"]).to(torch.float32),
+                comm["sampler_window_overflow"], group).to(torch.float32),
             "sampler_window_overflow_per_level": dist.psum_ordered(
-                comm["sampler_window_overflow_per_level"]).to(
+                comm["sampler_window_overflow_per_level"], group).to(
                     torch.float32),
         }
-        return loss.detach(), grads, metrics
+        return loss, grads, metrics
 
     return prepare, fetch, consume
 
@@ -207,14 +251,14 @@ def make_prepare(*, offsets: torch.Tensor, num_parts: int,
                  backend: str | None = None,
                  level_fn: Callable | None = None,
                  counter: dist.RoundCounter | None = None,
-                 store=None):
+                 store=None, group: dist.RankGroup | None = None):
     """The prepare half alone (``make_prepare_fetch_consume``'s first
     callable, features fetched): ``prepare(shard, seeds, salt, cache=None,
     staged=None) -> PreparedBatch``."""
     prepare, _, _ = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts, loss_fn=None,
         plan=plan, backend=backend, level_fn=level_fn, counter=counter,
-        store=store)
+        store=store, group=group)
     return prepare
 
 
@@ -223,13 +267,14 @@ def make_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
                          backend: str | None = None,
                          level_fn: Callable | None = None,
                          counter: dist.RoundCounter | None = None,
-                         store=None, features: bool = True):
+                         store=None, features: bool = True,
+                         group: dist.RankGroup | None = None):
     """The *prepare* / *consume* halves of the training step
     (``make_prepare_fetch_consume`` without the standalone fetch)."""
     prepare, _, consume = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         loss_fn=loss_fn, plan=plan, backend=backend, level_fn=level_fn,
-        counter=counter, store=store, features=features)
+        counter=counter, store=store, features=features, group=group)
     return prepare, consume
 
 
@@ -283,7 +328,8 @@ class SeedStream:
 
     def seeds_host(self, k: int) -> np.ndarray:
         """(P, batch) seed ids of step ``k`` as a host int32 array (numpy
-        only, so a staging thread may call it)."""
+        only, so a staging thread may call it); a fleet rank's own rows of
+        the same draw (``Pipeline.seeds_host``)."""
         return self._pipeline.seeds_host(self.batch,
                                          epoch_salt=self.salt_int(k))
 
@@ -367,7 +413,7 @@ class DoubleBufferDriver(_StagedDriver):
     """Depth-``d`` driver: a FIFO of ``d`` prepared batches rides ahead of
     the consume half.
 
-    ``step(k)`` hands the runner (``StackedExecutor.bind_prefetch``) the
+    ``step(k)`` hands the runner (the executor's ``bind_prefetch``) the
     inputs of step ``k + depth``, whose prepare it enqueues before the
     consume of the oldest queued batch.  The FIFO is refilled whenever
     ``k`` breaks the sequence, so a restart at any k replays the
@@ -380,8 +426,6 @@ class DoubleBufferDriver(_StagedDriver):
     def __init__(self, pipeline, loss_fn, *, batch: int, lr: float = 1e-3,
                  optimizer: str = "adamw", grad_clip: float | None = 1.0,
                  base_salt: int = 0, staging=None, device=None):
-        from repro_torch.pipeline.executor import StackedExecutor
-
         depth = pipeline.spec.prefetch.depth
         if depth < 1:
             raise ValueError(
@@ -393,7 +437,7 @@ class DoubleBufferDriver(_StagedDriver):
             loss_fn, counted=False, device=device)
         update = make_update_fn(lr=lr, optimizer=optimizer,
                                 grad_clip=grad_clip)
-        self._runner = StackedExecutor().bind_prefetch(
+        self._runner = pipeline.executor.bind_prefetch(
             pipeline, prepare, prepare_warm, consume, update)
         self._queue = None
         self._init_stream(pipeline, batch, base_salt, staging, depth=depth)

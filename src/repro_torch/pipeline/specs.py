@@ -180,15 +180,25 @@ class PrefetchSpec:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineSpec:
-    """Everything ``Pipeline.build`` needs: plan + sampler + prefetch (+ an
-    optional data source for ``Pipeline.build_from_source``)."""
+    """Everything ``Pipeline.build`` needs: plan + sampler + executor +
+    prefetch (+ an optional data source for
+    ``Pipeline.build_from_source``).  ``executor`` names the
+    ``repro_torch.pipeline.executor`` registry entry the pipeline binds:
+    ``"vmap"`` / ``"stacked"`` (all workers on one device), or
+    ``"multiprocess"`` / ``"shard_map"`` (one process per rank; the
+    pipeline is then the calling rank's)."""
     plan: PlanSpec
     sampler: SamplerSpec
+    executor: str = "vmap"
     prefetch: PrefetchSpec = dataclasses.field(default_factory=PrefetchSpec)
     data: DataSpec | None = None
 
     def __post_init__(self):
         from repro_torch.core.feature_store import resolve_feature_store
+        from repro_torch.pipeline.executor import available_executors
+        if self.executor not in available_executors():
+            raise ValueError(f"unknown executor {self.executor!r}; "
+                             f"available: {available_executors()}")
         if resolve_feature_store(self.plan.feature_store).external_rows:
             if self.prefetch.depth < 1:
                 raise ValueError(
@@ -219,7 +229,7 @@ class PipelineSpec:
                     partitioner: str = "ldg", cache_policy: str = "degree",
                     feature_store: str = "exchange",
                     prefetch_depth: int = 0, staging: bool = False,
-                    staging_lead: int = 1,
+                    staging_lead: int = 1, executor: str = "vmap",
                     data: DataSpec | None = None) -> "PipelineSpec":
         """Parse a scheme string into a spec:
 
@@ -231,7 +241,8 @@ class PipelineSpec:
           <registered name>     -> passed to ``PlanSpec``, "unfused"
 
         The cache and feature-store arguments go to ``PlanSpec``, the
-        prefetch depth and staging to ``PrefetchSpec``."""
+        prefetch depth and staging to ``PrefetchSpec``, ``executor`` to
+        the spec."""
         from repro_torch.core.placement import (available_schemes,
                                                 parse_scheme_name)
 
@@ -253,6 +264,7 @@ class PipelineSpec:
                           partitioner=partitioner,
                           feature_store=feature_store),
             sampler=SamplerSpec(fanouts=tuple(fanouts), backend=backend),
+            executor=executor,
             prefetch=PrefetchSpec(depth=prefetch_depth, staging=staging,
                                   lead=staging_lead),
             data=data)

@@ -23,7 +23,8 @@ def make_worker_step(*, offsets: torch.Tensor, num_parts: int,
                      backend: str | None = None,
                      level_fn: Callable | None = None,
                      counter: dist.RoundCounter | None = None,
-                     use_cache: bool = False, store=None):
+                     use_cache: bool = False, store=None,
+                     group: dist.RankGroup | None = None):
     """Build the step for the placement plan ``plan`` (any registered
     scheme).
 
@@ -31,12 +32,13 @@ def make_worker_step(*, offsets: torch.Tensor, num_parts: int,
     per-worker losses; ``backend`` / ``level_fn`` select the level backend
     (mutually exclusive); ``store`` serves the frontier's rows (``None``
     = the exchange store).  With ``use_cache`` the step takes a trailing
-    ``FeatureCache`` argument.
+    ``FeatureCache`` argument.  ``group`` builds a fleet rank's step
+    (``repro_torch.pipeline.prefetch``).
     """
     prepare, consume = make_prepare_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         loss_fn=loss_fn, plan=plan, backend=backend, level_fn=level_fn,
-        counter=counter, store=store)
+        counter=counter, store=store, group=group)
 
     if use_cache:
         def step(params, shard, seeds, salt, cache):

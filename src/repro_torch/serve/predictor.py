@@ -18,6 +18,9 @@ program training runs, minus loss/grad) behind a request-shaped API:
     the model's products run in fixed row blocks, so a seed's logits are
     bit-identical across bucket sizes and co-batched seeds.
 
+Under a fleet executor every rank calls ``predict`` with the same seeds:
+each runs its own workers' rows and gets every worker's logits back.
+
 ``predict`` samples with the FIXED ``base_salt`` unless given ``salt=``,
 so the same seed resamples the same subgraph (deterministic serving).
 """
@@ -82,7 +85,11 @@ class Predictor:
     def _run(self, routed: np.ndarray, salt: int | None = None):
         salt = self.base_salt if salt is None else int(salt)
         with torch.inference_mode():
-            seeds = torch.from_numpy(routed).to(self.device)
+            # a fleet rank runs its own workers' rows and gets every
+            # worker's logits back
+            seeds = torch.from_numpy(
+                np.ascontiguousarray(self.pipeline.local_rows(routed))).to(
+                    self.device)
             logits, metrics = self._infer(self.params, seeds, salt)
             return (logits.cpu().numpy(),
                     {k: v.cpu().numpy() for k, v in metrics.items()})

@@ -28,6 +28,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import pathlib
 
 import numpy as np
 import jax
@@ -398,11 +399,15 @@ def test_launcher_trains_every_scheme_and_executor_name(flags, rounds):
     ["--executor", "shard_map"], ["--shard-map"], ["--trace", "t.json"],
     ["--executor", "multiprocess"]],
     ids=["executor", "shard-map", "trace", "executor-multiprocess"])
-def test_launcher_refuses_what_is_not_ported(flags, capsys, tmp_path):
-    """The executors not ported yet are refused.  ``--trace``, refused
-    until the observability slice, now runs: with ``--trace-fence`` the
-    launcher writes a trace that both packages' ``validate_trace`` accept,
-    holding the driver's spans with ``repro``'s names and cats."""
+def test_launcher_refuses_what_is_not_ported(flags, capsys, tmp_path,
+                                             monkeypatch):
+    """Nothing is refused any more.  ``--trace``, refused until the
+    observability slice, now runs: with ``--trace-fence`` the launcher
+    writes a trace that both packages' ``validate_trace`` accept, holding
+    the driver's spans with ``repro``'s names and cats.  The ``shard_map``
+    and ``multiprocess`` executors, refused until the multi-rank slice,
+    now run as a fleet of OS processes (2 ranks here) whose rank 0 output
+    the launcher prints."""
     if flags[0] == "--trace":
         path = str(tmp_path / flags[1])
         t_launch.main(["--device", "cpu", "--nodes", "800", "--devices",
@@ -423,9 +428,17 @@ def test_launcher_refuses_what_is_not_ported(flags, capsys, tmp_path):
                 ("prefetch/consume", "prefetch")} <= spans
         assert t_trace.active_tracer() is None
         return
-    with pytest.raises(SystemExit):
-        t_launch.main(["--device", "cpu", *flags])
-    assert "not ported" in capsys.readouterr().err
+    src = str(pathlib.Path(__file__).resolve().parent.parent / "src")
+    monkeypatch.setenv("PYTHONPATH", src)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    t_launch.main(["--device", "cpu", *flags, "--nodes", "800",
+                   "--devices", "2", "--epochs", "1", "--steps-per-epoch",
+                   "1", "--batch", "8", "--mh-timeout", "100"])
+    out = capsys.readouterr().out
+    executor = "shard_map" if flags[0] == "--shard-map" else flags[1]
+    assert f"executor={executor}" in out
+    assert "2 comm rounds/step" in out and "epoch 0: loss" in out
+    assert f"{executor} run complete: 2 ranks x 1 workers" in out
 
 
 def test_dropout_draws_from_the_generator():
