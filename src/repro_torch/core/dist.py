@@ -195,27 +195,27 @@ def exchange(buf: torch.Tensor, counter: RoundCounter | None,
     return recv.transpose(0, 2).transpose(1, 2).reshape(L, R * L, *rest)
 
 
-def all_workers(x: torch.Tensor, group: RankGroup | None = None
-                ) -> torch.Tensor:
+def all_workers(x: torch.Tensor, group: RankGroup | None = None,
+                what: str = "reduce") -> torch.Tensor:
     """Every worker's rows of ``x`` in worker order, on every rank: ``x``
     itself when stacked, else the all_gather of the ranks' (L, ...) rows
-    into (P, ...)."""
+    into (P, ...) (``what`` labels its ``comm/all_gather`` span)."""
     if group is None:
         return x
-    return _collective("all_gather", x, group, what="reduce")
+    return _collective("all_gather", x, group, what=what)
 
 
-def pmean_ordered(x: torch.Tensor, group: RankGroup | None = None
-                  ) -> torch.Tensor:
+def pmean_ordered(x: torch.Tensor, group: RankGroup | None = None,
+                  what: str = "reduce") -> torch.Tensor:
     """Mean over the worker axis in index order (``repro``'s all_gather +
     local mean), as the one replicated value."""
-    return torch.mean(all_workers(x, group), dim=0)
+    return torch.mean(all_workers(x, group, what), dim=0)
 
 
-def psum_ordered(x: torch.Tensor, group: RankGroup | None = None
-                 ) -> torch.Tensor:
+def psum_ordered(x: torch.Tensor, group: RankGroup | None = None,
+                 what: str = "reduce") -> torch.Tensor:
     """Sum over the worker axis in index order, as the replicated value."""
-    return torch.sum(all_workers(x, group), dim=0)
+    return torch.sum(all_workers(x, group, what), dim=0)
 
 
 def require_same_on_ranks(digest: bytes, group: RankGroup,

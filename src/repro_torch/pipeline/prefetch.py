@@ -10,16 +10,15 @@ the stacked worker axis (all P workers at once, on axis 0):
       fetch through the feature store.  No model parameter is read.
   consume(params, batch, shard, cache) -> (loss, grads, metrics)
       the feature fetch when the prepare half left it out, then the MFG
-      forward and backward; loss and gradients are the mean over the
-      worker axis, metrics are reduced over it in index order.
+      forward and backward; metrics are reduced over the worker axis in
+      index order.
 
-Built with ``group`` (a fleet rank's ``dist.RankGroup``), both halves run
-over the rank's own workers and reduce across the ranks.  The gradient
-is then ``repro``'s: each worker's own gradient (one backward a worker),
-then their mean in worker order over all P workers.  So fleets of 2 or
-more ranks give the same bits whatever their split of the workers; the
-stacked executor's single backward sums the workers in another order,
-which moves the gradient by float rounding only.
+The gradient is ``repro``'s: each worker's own forward and backward on
+its own slice (one backward a worker), then the mean of the losses and
+of the gradients over all P workers in worker order.  Built with
+``group`` (a fleet rank's ``dist.RankGroup``), both halves run over the
+rank's own workers and reduce across the ranks.  So the stacked
+executor and fleets of any split of the workers give the same bits.
 
 ``SeedStream`` derives step k's seeds and salt from k alone, so every
 driver replays the same minibatches.  Drivers resolve by registry name
@@ -186,21 +185,9 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                               comm=comm)
         return fetch(shard, batch, cache, staged) if features else batch
 
-    def grads_stacked(params, batch: PreparedBatch):
-        with torch.enable_grad():
-            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
-                              params)
-            per_worker = loss_fn(leaves, list(batch.mfgs), batch.h_src,
-                                 batch.seed_labels, batch.seed_valid)
-            loss = dist.pmean_ordered(per_worker)
-            # a conv may leave a parameter unused (gcn's w_self): its
-            # gradient is zeros, as jax.grad gives it
-            flat = torch.autograd.grad(loss, tree_leaves(leaves),
-                                       materialize_grads=True)
-        it = iter(flat)
-        return loss.detach(), tree_map(lambda _: next(it), params)
-
-    def grads_per_worker(params, batch: PreparedBatch):
+    def grads_fn(params, batch: PreparedBatch):
+        # repro's rule: each worker's own backward on its own slice, then
+        # the mean in worker order (one backward a worker, stacked or not)
         losses, flats = [], []
         for i in range(batch.seed_labels.shape[0]):
             one = slice(i, i + 1)
@@ -211,16 +198,16 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                                           for m in batch.mfgs],
                                  batch.h_src[one], batch.seed_labels[one],
                                  batch.seed_valid[one])
+                # a conv may leave a parameter unused (gcn's w_self):
+                # its gradient is zeros, as jax.grad gives it
                 g = torch.autograd.grad(loss_i.sum(), tree_leaves(leaves),
                                         materialize_grads=True)
             losses.append(loss_i.detach())
             flats.append(torch.cat([x.reshape(-1) for x in g]))
-        loss = dist.pmean_ordered(torch.cat(losses), group)
-        mean = dist.pmean_ordered(torch.stack(flats), group)
+        loss = dist.pmean_ordered(torch.cat(losses), group, "loss")
+        mean = dist.pmean_ordered(torch.stack(flats), group, "grads")
         it = iter(mean.split([p.numel() for p in tree_leaves(params)]))
         return loss, tree_map(lambda p: next(it).view(p.shape), params)
-
-    grads_fn = grads_stacked if group is None else grads_per_worker
 
     def consume(params, batch: PreparedBatch, shard=None, cache=None):
         if batch.h_src is None:
@@ -228,18 +215,22 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
         loss, grads = grads_fn(params, batch)
         comm = batch.comm
         n_valid = (batch.mfgs[-1].src_nodes >= 0).sum(dim=-1).clamp(min=1)
+        def reduced(op, x):
+            return op(x, group, "metrics")
+
         metrics = {
-            "cache_hit_rate": dist.pmean_ordered(
-                (batch.hits / n_valid).to(torch.float32), group),
-            "sampling_utilized_bytes": dist.psum_ordered(
-                comm["sampling_utilized_bytes"], group),
-            "feature_utilized_bytes": dist.psum_ordered(
-                comm["feature_utilized_bytes"], group),
-            "sampler_window_overflow": dist.psum_ordered(
-                comm["sampler_window_overflow"], group).to(torch.float32),
-            "sampler_window_overflow_per_level": dist.psum_ordered(
-                comm["sampler_window_overflow_per_level"], group).to(
-                    torch.float32),
+            "cache_hit_rate": reduced(
+                dist.pmean_ordered, (batch.hits / n_valid).to(torch.float32)),
+            "sampling_utilized_bytes": reduced(
+                dist.psum_ordered, comm["sampling_utilized_bytes"]),
+            "feature_utilized_bytes": reduced(
+                dist.psum_ordered, comm["feature_utilized_bytes"]),
+            "sampler_window_overflow": reduced(
+                dist.psum_ordered, comm["sampler_window_overflow"]
+            ).to(torch.float32),
+            "sampler_window_overflow_per_level": reduced(
+                dist.psum_ordered, comm["sampler_window_overflow_per_level"]
+            ).to(torch.float32),
         }
         return loss, grads, metrics
 

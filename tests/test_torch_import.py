@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the JAX package ``repro``.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/*_torch.py``) import neither ``jax`` nor the
+JAX package ``repro``.
 
   * In a subprocess where ``import jax`` and ``import repro`` fail, every
     module of ``repro_torch`` imports.
@@ -31,13 +32,18 @@ DATA_SLICE = ("data.dataset_io", "data.ingest", "data.stats", "data.smoke",
 # the multi-rank slice's modules (chip_smoke.py runs its fleet's ranks as
 # itself, so the scan of chip_smoke.py covers them)
 FLEET_SLICE = ("launch.multihost", "pipeline.executor", "core.dist")
+# the dry-run slice's module and the port's examples
+DRYRUN_SLICE = ("launch.dryrun_gnn",)
+EXAMPLES = ("quickstart_torch.py", "distributed_hybrid_torch.py",
+            "train_gnn_e2e_torch.py")
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
                        re.MULTILINE)
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + [ROOT / "examples" / name for name in EXAMPLES])
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -62,7 +68,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(names) >= 40
     assert {f"repro_torch.{m}"
             for m in TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
-            + DATA_SLICE + FLEET_SLICE} <= names
+            + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE} <= names
 
 
 def test_static_scan_finds_no_jax_or_repro_import():
@@ -70,7 +76,8 @@ def test_static_scan_finds_no_jax_or_repro_import():
         "/", ".").removesuffix(".__init__") for p in _port_sources()
         if PORT in p.parents}
     assert set(TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
-               + DATA_SLICE + FLEET_SLICE) <= scanned
+               + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE) <= scanned
+    assert all(p.is_file() for p in _port_sources())
     offenders = []
     for path in _port_sources():
         for m in FORBIDDEN.finditer(path.read_text()):

@@ -12,22 +12,16 @@ their launcher, on the CPU over gloo.
 * ``train_gnn`` as a fleet, ``multiprocess`` and ``shard_map``, with a
   merged trace.
 
-The rule the fleet's floats are held to: a fleet rank takes each worker's
-own gradient (one backward a worker) and averages them over all P workers
-in worker order (``repro``'s rule), where the stacked executor runs one
-backward over the mean loss, which sums the workers in another order.
-So:
+The rule the fleet's floats are held to: every executor, the stacked
+one included, takes each worker's own gradient (one backward a worker)
+and averages them over all P workers in worker order (``repro``'s rule),
+so a worker's forward and backward do not depend on how the workers are
+split.  So:
 
-  * integers (MFGs, fetched rows, rounds and their bytes) and step 0's
-    loss are bit for bit the stacked run's (the forward's rows do not
-    depend on how the workers are split);
-  * step 0's gradients are within rtol 1e-5, atol 1e-7 of the stacked
-    ones (fp32 sums over O(100) rows in another order);
-  * the 3-step losses are within rtol 1e-5.  Parameters are compared
-    after the first step only (atol 1e-5): AdamW moves a parameter by
-    about lr whatever its gradient's size, so a near-zero gradient whose
-    sign differs in the last bit moves it by 2 lr, and later steps carry
-    that on;
+  * integers (MFGs, fetched rows, rounds and their bytes), step 0's loss
+    and step 0's gradients are bit for bit the stacked run's;
+  * the 3-step losses, the parameters after the first step and after the
+    last are bit for bit the stacked run's;
   * every fleet cell gives the same losses and parameters bit for bit,
     on both ranks, across drivers, staging and schemes (the schemes draw
     the same neighbours here), as the stacked runs do.
@@ -413,8 +407,8 @@ def test_fleet_collectives_equal_stacked(fleet, nw):
 def test_fleet_prepare_equals_stacked_rows(fleet, scheme):
     """Step 0's MFGs and fetched rows: each rank's are the stacked run's
     rows of its workers, bit for bit, under every scheme, and under
-    vanilla with two workers a rank (``P4``); its loss is the stacked
-    loss bit for bit, its gradients within rtol 1e-5, atol 1e-7."""
+    vanilla with two workers a rank (``P4``); its loss and its gradients
+    are the stacked ones bit for bit."""
     ranks, stacked = fleet[0], fleet[1]
     keys = [k for k in stacked if k.startswith(scheme + "|mfg")
             or k == scheme + "|h_src"]
@@ -426,9 +420,9 @@ def test_fleet_prepare_equals_stacked_rows(fleet, scheme):
                 out[k], stacked[k][r * per:(r + 1) * per],
                 err_msg=f"rank {r} {k}")
         assert out[scheme + "|loss0"] == stacked[scheme + "|loss0"]
-        np.testing.assert_allclose(out[scheme + "|grads0"],
-                                   stacked[scheme + "|grads0"],
-                                   rtol=1e-5, atol=1e-7, err_msg=scheme)
+        np.testing.assert_array_equal(out[scheme + "|grads0"],
+                                      stacked[scheme + "|grads0"],
+                                      err_msg=scheme)
 
 
 def test_fleet_matrix_against_stacked(fleet):
@@ -443,14 +437,12 @@ def test_fleet_matrix_against_stacked(fleet):
             np.testing.assert_array_equal(out[key + "|bytes"],
                                           stacked[key + "|bytes"])
             assert out[key + "|kinds"].size == STEPS * want_rounds
-            # one step from the same parameters: the loss bit for bit
-            assert out[key + "|losses"][0] == stacked[key + "|losses"][0]
-            np.testing.assert_allclose(out[key + "|losses"],
-                                       stacked[key + "|losses"], rtol=1e-5,
-                                       err_msg=key)
-            np.testing.assert_allclose(out[key + "|params1"],
-                                       stacked[key + "|params1"], rtol=0,
-                                       atol=1e-5, err_msg=key)
+            # the losses and the parameters after the first and the last
+            # step: bit for bit
+            for what in ("losses", "params1", "params"):
+                np.testing.assert_array_equal(out[f"{key}|{what}"],
+                                              stacked[f"{key}|{what}"],
+                                              err_msg=f"{key} {what}")
 
 
 def test_fleet_cells_agree_bit_for_bit(fleet):

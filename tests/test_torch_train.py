@@ -9,8 +9,8 @@ are bit-identical), jitted under ``jax.vmap``.  Both packages start from
 dropout 0.
 
 Tolerances (fp32; XLA and torch order their matmul and reduction sums
-differently, and the port takes the worker mean on the loss where
-``repro`` averages per-worker gradients):
+differently; both packages average the per-worker gradients in worker
+order):
 
   * one step's loss: rtol 1e-5; gradients: rtol 1e-4 with atol 1e-6
     (entries near zero carry the absolute rounding of sums over O(100)
@@ -469,3 +469,51 @@ def test_dropout_draws_from_the_generator():
     no_drop = apply_layer(layer, _MFG, h, tcfg, is_last=False,
                           generator=torch.Generator().manual_seed(3))
     assert torch.equal(no_drop, plain)
+
+
+@pytest.mark.parametrize("conv", ["sage", "gat"])
+def test_stacked_grads_equal_per_worker(conv):
+    """One step at P = 4 on the stacked executor: its loss and gradients
+    are, bit for bit, the mean in worker order of each worker's own
+    forward and backward on its own slice of the batch (``repro``'s
+    rule)."""
+    from repro_torch.models.gnn import init_gnn_params
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.pipeline.prefetch import worker_rows
+
+    P = 4
+    cfg = TConfig(in_dim=12, hidden_dim=32, num_classes=4, num_layers=2,
+                  fanouts=FANOUTS, dropout=0.0, conv=conv)
+    tp = TPipeline.build_from_source(
+        spec=TSpec.from_scheme("hybrid+fused", num_parts=P,
+                               fanouts=FANOUTS, data=TDataSpec(**DATA)),
+        device="cpu")
+    params = init_gnn_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def loss_fn(p, m, h, lab, v):
+        return gnn_loss(p, m, h, lab, v, cfg)
+
+    seeds = tp.seeds(BATCH, 5)
+    loss, grads, _ = tp.step_fn(loss_fn, device="cpu")(params, seeds, 5)
+
+    prepare, _ = tp.make_prepare_consume(loss_fn, counted=False,
+                                         device="cpu")
+    b = prepare(tp.shards, seeds, 5)
+    losses, per_worker = [], []
+    for w in range(P):
+        one = slice(w, w + 1)
+        leaves = [{k: v.detach().requires_grad_(True)
+                   for k, v in layer.items()} for layer in params]
+        lw = loss_fn(leaves, [worker_rows(m, one) for m in b.mfgs],
+                     b.h_src[one], b.seed_labels[one], b.seed_valid[one])
+        gw = torch.autograd.grad(lw.sum(), tree_leaves(leaves),
+                                 materialize_grads=True)
+        losses.append(lw.detach())
+        per_worker.append(gw)
+    assert torch.equal(loss, torch.cat(losses).mean(dim=0))
+    got = tree_leaves(grads)
+    assert len(got) == len(per_worker[0])
+    for i, g in enumerate(got):
+        want = torch.stack([gw[i] for gw in per_worker]).mean(dim=0)
+        assert torch.equal(g, want), i
+    assert any(bool(g.abs().sum() > 0) for g in got)
