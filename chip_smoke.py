@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, exact-inference, fleet and
-dry-run paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, exact-inference, fleet,
+dry-run and LM paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # from the repository root
 
 Phases (any failure raises and the script exits non-zero):
 
   1. card and software: ``nvidia-smi`` name and power limit, torch/CUDA
-     versions; TF32 is switched off for matmul and cuDNN.
+     versions; TF32 is switched off for matmul and cuDNN, and bf16
+     products reduce in fp32.
   2. build: every CUDA source under ``src/repro_torch/csrc`` with nvcc.
   3. main-path set-up: ``Pipeline.build_from_source`` on ``powerlaw(1.8)``
      (500 000 nodes, average degree 24, 100 features, 47 classes), P = 4,
@@ -158,19 +159,19 @@ Phases (any failure raises and the script exits non-zero):
      aggregate launched); ``metis``'s refusal without ``pymetis``.
  14. the fleet executors: phase 3's dataset, its ldg assignment and
      phase 8's initial parameters written under ``build/fleet``; the
-     parent's stacked runs of ``hybrid+fused`` and ``vanilla`` (10
+     parent's stacked runs of ``hybrid+fused`` and ``vanilla`` (5
      ``SyncDriver`` steps at 500 seeds a worker, ``exchange`` store, no
      cache) and a 128-seed stacked ``predict``; then one 4-rank
      ``torch.distributed`` launch (``repro_torch.launch.multihost``; this
      script re-run with ``--fleet-rank``) in which each rank loads those
      files (no second partitioning), builds its rank-local layout and
-     trains the paper's GraphSAGE for 10 ``SyncDriver`` steps (500 seeds
-     a worker) in three fleets: ``shard_map`` 4 ranks x 1 worker
+     trains the paper's GraphSAGE for ``FLEET_STEPS`` (5) ``SyncDriver``
+     steps (500 seeds a worker) in three fleets: ``shard_map`` 4 ranks x 1 worker
      ``hybrid+fused``; ``multiprocess`` 2 x 2 ``hybrid+fused`` (on ranks 0
      and 1); ``shard_map`` 4 x 1 ``vanilla``.  Gates: every rank's tensors on the card, every kernel
      of the path launched in every rank (the wrappers' counts), 2 / 2 / 6
-     rounds a step, finite losses equal on every rank, the 10 losses and
-     the parameters after step 1 and after step 10 equal to the stacked
+     rounds a step, finite losses equal on every rank, the 5 losses and
+     the parameters after step 1 and after step 5 equal to the stacked
      run's bit for bit (every executor takes ``repro``'s gradient rule),
      fleets 1 and 2 equal bit for bit, fleet 1's ``predict`` equal to the
      stacked one bit for bit.  Prints per fleet the step walls, each rank's peak
@@ -198,6 +199,30 @@ Phases (any failure raises and the script exits non-zero):
      parameters, P = 4, ``hybrid+fused``) for ``E2E_STEPS`` steps with
      its own asserts (the loss falls, the checkpoint restores) and every
      kernel of its path launched.
+ 16. the LM scaffold (``repro_torch.models.lm`` and its launchers; no
+     hand-written kernel on its path, and none may launch): stablelm-1.6b
+     at full width and depth in bf16 (seeded weights): ``serve_lm``'s
+     ``prefill_cache`` over 4 x 32 Markov prompt tokens, its last logits
+     within rel-L2 ``LM_REL_TOL`` of ``forward(last_only=True)``, then 16
+     greedy decode tokens (prefill s, decode tok/s, peak memory); 3
+     ``make_lm_train_step`` steps at batch 8 x seq 128 (AdamW lr 1e-3,
+     f32 moments, finite losses, step ms, peak memory), then one step with
+     ``remat=True`` whose loss equals the first step's bit for bit.  At
+     full width in bf16, each a forward and the logits of every prompt
+     position through decode steps within rel-L2 of the forward's
+     (``LM_SSM_REL_TOL`` for the SSM families): mamba2-130m (1 x 512, four
+     SSD chunks), zamba2-1.2b (all 38 layers, 1 x 128, a KV cache per
+     shared-block application), whisper-small (2 x 32 over 1500 encoder
+     frames, cross K/V precomputed), qwen2-vl-7b (text only, and a forward
+     with a patch prefix on an M-RoPE grid), mixtral-8x22b cut to 2 layers
+     (no-drop capacity for decode vs forward; at its own capacity a
+     forward, 8 identical tokens through layer 0's MoE with tokens past
+     the capacity dropped, a skewed dispatch equal to the CPU's).  The ten
+     reduced configs in fp32, card against CPU from the same seeded
+     weights: logits within ``LM_REDUCED_TOL``, 8 greedy tokens equal
+     after a prompt past the SWA window.  Last, ``train`` (5 steps) and
+     ``serve_lm`` at ``--reduced`` and ``examples/serve_lm_torch.py``,
+     through their ``main``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2883,10 +2908,14 @@ LAUNCHER_BATCH = 64
 # while ranks 2 and 3 wait)
 PAIR_EXECUTOR = "multiprocess_ranks01"
 LAUNCH_TIME_ENV = "CHIP_SMOKE_FLEET_LAUNCHED"   # the parent's time.time()
+# steps of each fleet and of its stacked reference (a depth cut for the
+# time bound: it was TRAIN_STEPS, 10)
+FLEET_STEPS = 5
 # fleet vs the stacked executor: both take the rule of
 # repro_torch.pipeline.prefetch (each worker's own backward, then the mean
-# in worker order), so the losses of all 10 steps and the parameters after
-# step 1 and after the last are held equal to the stacked run's bit for bit
+# in worker order), so the losses of all FLEET_STEPS steps and the
+# parameters after step 1 and after the last are held equal to the stacked
+# run's bit for bit
 ALL_KERNELS = ("fused_sample", "sage_aggregate", "sage_backward_index",
                "sage_aggregate_backward", "feature_gather", "gather_rows")
 
@@ -2995,7 +3024,7 @@ def fleet_rank(workdir: str) -> int:
             losses, walls = [], []
             with pipe.train_driver(loss_fn, batch=FLEET_BATCH, lr=TRAIN_LR,
                                    grad_clip=1.0) as driver:
-                for k in range(TRAIN_STEPS):
+                for k in range(FLEET_STEPS):
                     t0 = time.perf_counter()
                     params, opt, loss, _ = driver.step(params, opt)
                     losses.append(float(loss))      # synchronizes
@@ -3012,14 +3041,14 @@ def fleet_rank(workdir: str) -> int:
             kinds = pipe.counter.kinds
             res = {"losses": losses, "walls_ms": walls,
                    "launches": counts, "on_cuda": on_cuda,
-                   "rounds_per_step": len(kinds) / TRAIN_STEPS,
-                   "round_kinds": kinds[:len(kinds) // TRAIN_STEPS],
+                   "rounds_per_step": len(kinds) / FLEET_STEPS,
+                   "round_kinds": kinds[:len(kinds) // FLEET_STEPS],
                    "worker_bytes_per_round":
                        pipe.counter.bytes_per_round[
-                           :len(kinds) // TRAIN_STEPS],
+                           :len(kinds) // FLEET_STEPS],
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                    "layout_s": t_layout, "build_s": t_build,
-                   "comm": comm_stats(tracer.events(), TRAIN_STEPS),
+                   "comm": comm_stats(tracer.events(), FLEET_STEPS),
                    "params_sha": hashlib.sha256(
                        flat_params(params).tobytes()).hexdigest()}
             if rank == 0:
@@ -3057,7 +3086,7 @@ def diff_to_stacked(fleet, stacked) -> dict:
 
 
 def stacked_fleet_reference(layout, cfg, params0, batch_seeds) -> dict:
-    """The parent's stacked runs that phase 14's fleets are held to: 10
+    """The parent's stacked runs that phase 14's fleets are held to: 5
     ``SyncDriver`` steps of each fleet scheme over phase 3's layout,
     ``exchange`` store, no cache, from phase 8's initial parameters (and
     the 128-seed predict with those)."""
@@ -3082,7 +3111,7 @@ def stacked_fleet_reference(layout, cfg, params0, batch_seeds) -> dict:
         losses, walls = [], []
         with pipe.train_driver(loss_fn, batch=FLEET_BATCH, lr=TRAIN_LR,
                                grad_clip=1.0) as driver:
-            for k in range(TRAIN_STEPS):
+            for k in range(FLEET_STEPS):
                 t0 = time.perf_counter()
                 params, opt, loss, _ = driver.step(params, opt)
                 losses.append(float(loss))
@@ -3091,7 +3120,7 @@ def stacked_fleet_reference(layout, cfg, params0, batch_seeds) -> dict:
                     params1 = flat_params(params)
         out[scheme] = {"losses": losses, "walls_ms": walls,
                        "params": flat_params(params), "params1": params1,
-                       "rounds_per_step": pipe.counter.rounds / TRAIN_STEPS,
+                       "rounds_per_step": pipe.counter.rounds / FLEET_STEPS,
                        "launches": K.launch_counts()}
         if scheme == "hybrid+fused":
             pred = Predictor(pipe, params0, cfg, buckets=(128,),
@@ -3198,7 +3227,7 @@ def fleet_phase(ds, layout, cfg, params0, batch_seeds, placement):
     torch.cuda.empty_cache()
     parent_gb = torch.cuda.memory_allocated() / 1e9
 
-    log(f"-- the fleets: {len(FLEETS)} runs of {TRAIN_STEPS} SyncDriver "
+    log(f"-- the fleets: {len(FLEETS)} runs of {FLEET_STEPS} SyncDriver "
         f"steps in one 4-rank launch (fleet 2 on ranks 0-1)")
     t0 = time.perf_counter()
     log_dir = multihost.launch(
@@ -3260,7 +3289,7 @@ def fleet_phase(ds, layout, cfg, params0, batch_seeds, placement):
                             f"{want.tolist()}")
         if not (after1["equal"] and final["equal"]):
             failures.append(f"{label}: parameters vs stacked: after step 1 "
-                            f"{after1}, after {TRAIN_STEPS} {final}")
+                            f"{after1}, after {FLEET_STEPS} {final}")
         finals[label] = (losses, params)
         walls = res[0]["walls_ms"]
         comm = res[0]["comm"]
@@ -3270,7 +3299,7 @@ def fleet_phase(ds, layout, cfg, params0, batch_seeds, placement):
             f"stacked run's bit for bit (|loss - stacked| / stacked by "
             f"step " + ", ".join(f"{x:.2g}" for x in loss_rel) + ")")
         for name, c in (("after step 1", after1),
-                        (f"after {TRAIN_STEPS}", final)):
+                        (f"after {FLEET_STEPS}", final)):
             log(f"  parameters {name}: "
                 f"{'==' if c['equal'] else '!='} the stacked run's bit for "
                 f"bit (||diff|| / ||stacked|| {c['rel_l2']:.3g}, max |diff| "
@@ -3609,6 +3638,478 @@ def dryrun_phase() -> tuple[dict, dict]:
     return counts, numbers
 
 
+# --------------------------------------------------------------------------
+# phase 16: the LM scaffold
+# --------------------------------------------------------------------------
+
+# bf16 logits of decode against the full forward through the same weights:
+# ||a - b|| / ||b|| over every compared position.  The SSM families'
+# forward rounds its conv output to bf16 where decode keeps it in float32
+# (repro's design), so they get more room: at the reduced widths in bf16 at
+# full depth, the CPU gives 0.031 (mamba2, 24 layers) and 0.036 (zamba2,
+# 38 layers) for the two paths (the attention families 0)
+LM_REL_TOL = 0.05
+LM_SSM_REL_TOL = 0.1
+# the reduced configs in float32, the card against the CPU (the path the
+# CPU tests hold to repro), as those tests' logit tolerance
+LM_REDUCED_TOL = dict(rtol=1e-4, atol=2e-4)
+LM_SERVE = {"batch": 4, "prompt": 32, "gen": 16}
+LM_TRAIN = {"batch": 8, "seq": 128, "steps": 3, "lr": 1e-3}
+# greedy tokens decoded after the prompt, card against CPU; the prompt
+# passes the 64-slot window of the reduced SWA configs
+LM_GREEDY = 8
+LM_RING_PROMPT = 64
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def timed(fn):
+    """(fn(), seconds) with the card synchronized on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fresh_peak() -> int:
+    """Reset the peak-memory counter; returns the bytes allocated now."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gb(base: int = 0) -> float:
+    import torch
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def lm_decode_logits(params, cfg, toks, enc_out=None):
+    """Logits of every prompt position through decode steps, the caches
+    filled as ``serve_lm.prefill_cache`` fills them (its context)."""
+    import torch
+    from repro_torch.models import lm
+    B, S = toks.shape
+    state = lm.init_decode_state(cfg, B, max(2 * S, 64), enc_out=enc_out,
+                                 params=params)
+    outs = []
+    for t in range(S):
+        lg, state = lm.decode_step(params, state,
+                                   {"tokens": toks[:, t:t + 1]}, cfg)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1), state
+
+
+def lm_greedy(params, cfg, prompts, gen: int, enc_out=None):
+    """Greedy tokens after ``prompts``: the prompt through decode steps,
+    then ``gen`` tokens, each the argmax of the last."""
+    import torch
+    from repro_torch.models import lm
+    logits, state = lm_decode_logits(params, cfg, prompts, enc_out)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = [tok]
+    for _ in range(gen - 1):
+        lg, state = lm.decode_step(params, state, {"tokens": tok}, cfg)
+        tok = lg[:, -1].argmax(-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, 1).cpu()
+
+
+def lm_profile(fn) -> dict:
+    """One call of ``fn`` under the profiler: its wall ms, device busy ms,
+    device ops, idle share, and the kernels with the most device time."""
+    import torch
+    torch.cuda.synchronize()
+    with kernel_trace() as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, _ = device_streams(prof)
+    by_name, ops = {}, 0
+    for e in device_records(prof):
+        name = _short(e.name())
+        by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e6
+        ops += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "busy_ms": busy, "ops": ops,
+            "idle_share": 1 - busy / wall,
+            "top_kernels_ms": {k: round(v, 3) for k, v in top}}
+
+
+def lm_main_path(card: str) -> dict:
+    """stablelm-1.6b at full width and depth in bf16: ``prefill_cache``
+    over the prompts, its last logits against ``forward(last_only=True)``,
+    greedy decode; ``make_lm_train_step`` steps (AdamW), then one step
+    with ``remat=True`` whose loss equals the first ``remat=False``
+    step's."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.launch.serve_lm import prefill_cache
+    from repro_torch.models import lm
+    from repro_torch.optim import init_opt_state, tree_leaves
+    from repro_torch.train.loop import make_lm_train_step
+
+    cfg = get_config("stablelm-1.6b")
+    base = fresh_peak()
+    params = lm.init_model(cfg, torch.Generator("cuda").manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(params)) / 1e9
+    src = MarkovTokenSource(cfg.vocab_size, seed=0)
+    B, S, G = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["gen"]
+    prompts = torch.from_numpy(src.batch(B, S - 1)).cuda()
+    prefill_cache(params, prompts[:, :2], cfg)            # warm-up
+    (state, logits), prefill_s = timed(
+        lambda: prefill_cache(params, prompts, cfg))
+    with torch.no_grad():
+        last, _ = lm.forward(params, {"tokens": prompts}, cfg, remat=False,
+                             last_only=True)
+    err = rel_l2(logits[:, -1], last[:, 0])
+    max_abs = float((logits[:, -1] - last[:, 0]).abs().max())
+    if not (torch.isfinite(logits).all() and err <= LM_REL_TOL):
+        raise AssertionError(f"stablelm prefill: last logits differ from "
+                             f"forward(last_only=True) by rel-L2 {err}")
+
+    def decode():
+        nonlocal state
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out = []
+        for _ in range(G):
+            lg, state = lm.decode_step(params, state, {"tokens": tok}, cfg)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, 1)
+
+    toks, decode_s = timed(decode)
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("stablelm decode: tokens out of range")
+    serve_peak = peak_gb(base)
+    decode_prof = lm_profile(lambda: lm.decode_step(
+        params, state, {"tokens": toks[:, -1:]}, cfg))
+    log(f"  stablelm-1.6b ({n_params:,} parameters, {weights_gb:.2f} GB of "
+        f"bf16 weights; param_count() {cfg.param_count():,}): prefill "
+        f"{B}x{S} {prefill_s:.3f} s; last logits vs forward(last_only) "
+        f"rel-L2 {err:.4g} (tol {LM_REL_TOL}), max abs {max_abs:.4g}; "
+        f"decode {G} x {B} greedy tokens in {decode_s:.3f} s "
+        f"({G * B / decode_s:.1f} tok/s); peak {serve_peak:.2f} GB on "
+        f"{card}; one profiled decode step: {decode_prof}")
+    del state, logits, last
+
+    Bt, St = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                src.train_batch(Bt, St, seed=s).items()}
+               for s in range(LM_TRAIN["steps"])]
+    base = fresh_peak()
+    step = make_lm_train_step(cfg, lr=LM_TRAIN["lr"], remat=False)
+    p, opt = params, init_opt_state(params)
+    losses, step_ms = [], []
+    for b in batches:
+        (p, opt, m), secs = timed(lambda: step(p, opt, b))
+        losses.append(float(m["loss"]))
+        step_ms.append(secs * 1e3)
+    train_peak = peak_gb(base)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"stablelm training: losses {losses}")
+    train_prof = lm_profile(lambda: step(p, opt, batches[0]))
+    del p, opt, m
+    remat = make_lm_train_step(cfg, lr=LM_TRAIN["lr"], remat=True)
+    # the first checkpointed step sets up torch.utils.checkpoint (seconds
+    # of host work): a one-sequence warm-up, timed apart
+    _, remat_warm_s = timed(lambda: remat(params, init_opt_state(params), {
+        k: v[:1] for k, v in batches[0].items()}))
+    base = fresh_peak()
+    (_, _, m), remat_s = timed(
+        lambda: remat(params, init_opt_state(params), batches[0]))
+    remat_peak = peak_gb(base)
+    remat_loss = float(m["loss"])
+    if remat_loss != losses[0]:
+        raise AssertionError(f"stablelm: the remat step's loss {remat_loss!r}"
+                             f" != the first step's {losses[0]!r}")
+    log(f"  stablelm-1.6b training, batch {Bt} x seq {St}, AdamW lr "
+        f"{LM_TRAIN['lr']}, f32 moments: losses {losses}, step ms "
+        f"{[round(x, 3) for x in step_ms]}, peak {train_peak:.2f} GB; "
+        f"remat=True step: loss == the first step's bit for bit, "
+        f"{remat_s * 1e3:.3f} ms (after a one-sequence warm-up of "
+        f"{remat_warm_s:.3f} s), peak {remat_peak:.2f} GB; one profiled "
+        f"step: {train_prof}")
+    del params, m, batches
+    return {"params": n_params, "weights_gb": weights_gb,
+            "param_count": cfg.param_count(), "prefill_s": prefill_s,
+            "prefill_last_rel_l2": err, "prefill_last_max_abs": max_abs,
+            "decode_s": decode_s, "decode_tok_per_s": G * B / decode_s,
+            "serve_peak_gb": serve_peak, "train_losses": losses,
+            "train_step_ms": step_ms, "train_peak_gb": train_peak,
+            "remat_step_ms": remat_s * 1e3, "remat_warmup_s": remat_warm_s,
+            "remat_peak_gb": remat_peak, "decode_profile": decode_prof,
+            "train_profile": train_prof}
+
+
+def lm_family(name: str, cfg, B: int, S: int, card: str, *,
+              vision: bool = False) -> dict:
+    """One family at full width in bf16: a forward, and the logits of
+    every prompt position through decode steps against it.  ``vision``:
+    qwen2-vl also runs a forward with its patch prefix and an M-RoPE
+    grid (finite, and unlike the text-only forward's logits)."""
+    import torch
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves
+
+    base = fresh_peak()
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = lm.init_model(cfg, gen)
+    weights_gb = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(params)) / 1e9
+    toks = torch.from_numpy(MarkovTokenSource(cfg.vocab_size, seed=0).batch(
+        B, S - 1)).cuda()
+    batch = {"tokens": toks}
+    enc_out = None
+    extra = ""
+    if cfg.family == "vlm":
+        # text only: no patches, t = h = w = the position (decode's rope)
+        batch["vision_embeds"] = torch.zeros((B, 0, cfg.d_model),
+                                             device="cuda")
+        batch["positions"] = torch.arange(S, device="cuda").expand(3, B, S)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen, device="cuda")
+    with torch.no_grad():
+        (full, _), fwd_s = timed(lambda: lm.forward(params, batch, cfg,
+                                                    remat=False))
+        if cfg.is_encdec:
+            enc_out = lm._encode(params, batch["frames"], cfg)
+    (dec, state), dec_s = timed(
+        lambda: lm_decode_logits(params, cfg, toks, enc_out))
+    err = rel_l2(dec, full)
+    last = rel_l2(dec[:, -1], full[:, -1])
+    tol = LM_SSM_REL_TOL if cfg.family in ("ssm", "hybrid") else LM_REL_TOL
+    if not (torch.isfinite(full).all() and torch.isfinite(dec).all()
+            and err <= tol):
+        raise AssertionError(f"{name}: decode logits differ from the "
+                             f"forward's by rel-L2 {err} (tol {tol})")
+    if cfg.family == "hybrid":
+        apps = lm.num_shared_apps(cfg)
+        if state.shared_kv.k.shape[0] != apps:
+            raise AssertionError(f"{name}: {state.shared_kv.k.shape[0]} "
+                                 f"shared caches, expected {apps}")
+        extra = f"; {apps} shared-block applications, a KV cache each"
+    if cfg.is_encdec:
+        extra = (f"; cross K/V precomputed from {cfg.encoder_seq} encoder "
+                 f"frames, {tuple(state.cross_kv[0].shape)}")
+    if vision:
+        n_patch = S // 4
+        grid = torch.arange(S, device="cuda") - n_patch + 2
+        pos = torch.stack([grid, grid, grid]).clamp(min=0)
+        i = torch.arange(n_patch, device="cuda")
+        pos[0, :n_patch] = 0                      # one frame of 2 x 4 patches
+        pos[1, :n_patch] = i // 4
+        pos[2, :n_patch] = i % 4
+        vis = dict(batch, positions=pos[:, None].expand(3, B, S),
+                   vision_embeds=torch.randn((B, n_patch, cfg.d_model),
+                                             generator=gen, device="cuda"))
+        with torch.no_grad():
+            vl, _ = lm.forward(params, vis, cfg, remat=False)
+        moved = rel_l2(vl, full)
+        if not (torch.isfinite(vl).all() and moved > 0.0):
+            raise AssertionError(f"{name}: patch-prefix forward: finite "
+                                 f"{bool(torch.isfinite(vl).all())}, moved "
+                                 f"{moved}")
+        extra = (f"; with {n_patch} patch embeddings and an M-RoPE grid: "
+                 f"finite, rel-L2 {moved:.3g} from the text-only logits")
+    peak = peak_gb(base)
+    log(f"  {name} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{weights_gb:.2f} GB of bf16 weights): forward {B}x{S} "
+        f"{fwd_s:.3f} s, {S} decode steps {dec_s:.3f} s; decode vs forward "
+        f"rel-L2 {err:.4g} (last position {last:.4g}, tol {tol}){extra}; "
+        f"peak {peak:.2f} GB on {card}")
+    del params, full, dec, state
+    return {"layers": cfg.num_layers, "weights_gb": weights_gb,
+            "batch": B, "seq": S, "forward_s": fwd_s, "decode_s": dec_s,
+            "rel_l2": err, "last_rel_l2": last, "peak_gb": peak}
+
+
+def lm_moe_drops(cfg, card: str) -> dict:
+    """mixtral-8x22b, two layers at full width in bf16: the forward at its
+    own capacity (finite); decode against the forward with no drops
+    (``capacity_factor`` 8, as repro's own test); layer 0's MoE on 8
+    identical tokens, which all pick the same two experts of 3 slots each
+    (``moe_capacity`` at 8 tokens), so tokens 3-7 are dropped from both
+    (their output exactly 0, the others' not); the dispatch of 2048 x 2
+    skewed assignments on the card == on the CPU, with drops."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm, moe
+
+    out = lm_family("mixtral-8x22b (2 layers, capacity_factor 8: no drops)",
+                    dataclasses.replace(cfg, capacity_factor=8.0), 2, 32,
+                    card)
+    gen = torch.Generator("cuda").manual_seed(1)
+    params = lm.init_model(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        logits, aux = lm.forward(params, {"tokens": toks}, cfg, remat=False)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("mixtral forward: logits not finite")
+        blk = lm.layers(params["blocks"], cfg.num_layers)[0]["moe"]
+        x = torch.randn((1, 1, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16).expand(1, 8, -1)
+        y, _ = moe.apply_moe(blk, x.contiguous(), cfg)
+    C = moe.moe_capacity(cfg, 8)
+    y = y[0].float()
+    if not (C < 8 and bool((y[C:] == 0).all())
+            and bool((y[:C].abs().amax(-1) > 0).all())):
+        raise AssertionError(f"mixtral drops: capacity {C}, row max "
+                             f"{y.abs().amax(-1).tolist()}")
+    # skewed assignments (expert e drawn with weight (e + 1)^2), so the
+    # most loaded experts overflow their capacity
+    weight = (torch.arange(cfg.num_experts, device="cuda") + 1.0) ** 2
+    top_e = torch.multinomial(weight, 2048 * cfg.top_k, replacement=True,
+                              generator=gen).view(2048, cfg.top_k)
+    C2 = moe.moe_capacity(cfg, 2048)
+    on_card = moe.dispatch(top_e, cfg.num_experts, C2)
+    on_cpu = moe.dispatch(top_e.cpu(), cfg.num_experts, C2)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+        raise AssertionError("mixtral: the card's dispatch differs from the "
+                             "CPU's")
+    dropped = int((~on_card[3]).sum())
+    if not dropped:
+        raise AssertionError("mixtral: the skewed dispatch dropped nothing")
+    log(f"  mixtral-8x22b at its own capacity: forward 2x64 finite, aux "
+        f"{float(aux):.4f}; 8 identical tokens through layer 0's MoE "
+        f"(capacity {C}): tokens {C}-7 dropped (output 0), 0-{C - 1} kept; "
+        f"the dispatch of 2048 x {cfg.top_k} skewed assignments (capacity "
+        f"{C2}, {dropped} dropped) == the CPU's")
+    del params, logits
+    return dict(out, forward_aux=float(aux), capacity_8_tokens=C,
+                random_dispatch_dropped=dropped)
+
+
+def lm_reduced_batch(cfg, S: int) -> dict:
+    """The CPU tests' batch of a reduced config (seeded numpy)."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(0)
+    B = 2
+    b = {"tokens": r.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = r.normal(0, 1, (B, S // 4, cfg.d_model)
+                                      ).astype(np.float32)
+        grid = r.integers(0, S, (3, B, S)).astype(np.int32)
+        grid[0] = np.arange(S)
+        b["positions"] = grid
+    if cfg.is_encdec:
+        b["frames"] = r.normal(0, 1, (B, cfg.encoder_seq, cfg.d_model)
+                               ).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def lm_reduced_parity() -> dict:
+    """The ten reduced configs in float32 (TF32 off), on the card against
+    the CPU from the same seeded weights: the forward's logits within
+    ``LM_REDUCED_TOL``, and ``LM_GREEDY`` greedy tokens equal after a
+    prompt of ``LM_RING_PROMPT`` tokens (past the SWA configs' 64-slot
+    window) or 16."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.data.tokens import MarkovTokenSource
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_map
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch)
+        p_cpu = lm.init_model(cfg, torch.Generator().manual_seed(0))
+        p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
+        S = 128 if cfg.family in ("ssm", "hybrid") else 32
+        b_cpu = lm_reduced_batch(cfg, S)
+        b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
+        with torch.no_grad():
+            want, _ = lm.forward(p_cpu, b_cpu, cfg, remat=False)
+            got, _ = lm.forward(p_gpu, b_gpu, cfg, remat=False)
+            enc = ((lm._encode(p_cpu, b_cpu["frames"], cfg),
+                    lm._encode(p_gpu, b_gpu["frames"], cfg))
+                   if cfg.is_encdec else (None, None))
+        err = float((got.cpu() - want).abs().max())
+        if not torch.allclose(got.cpu(), want, **LM_REDUCED_TOL):
+            raise AssertionError(f"{arch} reduced: card vs CPU logits max "
+                                 f"abs err {err}")
+        P = LM_RING_PROMPT if cfg.window else 16
+        prompts = torch.from_numpy(MarkovTokenSource(
+            cfg.vocab_size, seed=1).batch(2, P - 1))
+        t_cpu = lm_greedy(p_cpu, cfg, prompts, LM_GREEDY, enc[0])
+        t_gpu = lm_greedy(p_gpu, cfg, prompts.cuda(), LM_GREEDY, enc[1])
+        if not torch.equal(t_cpu, t_gpu):
+            raise AssertionError(f"{arch} reduced: greedy tokens differ: "
+                                 f"card {t_gpu.tolist()} cpu "
+                                 f"{t_cpu.tolist()}")
+        out[arch] = {"max_abs_err": err, "prompt": P,
+                     "tokens": t_gpu[0].tolist()}
+        log(f"  {cfg.name}: logits card vs CPU max abs err {err:.3g} (tol "
+            f"{LM_REDUCED_TOL}); {LM_GREEDY} greedy tokens after a "
+            f"{P}-token prompt equal: {t_gpu[0].tolist()}")
+    return out
+
+
+def lm_launchers() -> dict:
+    """``train`` (5 steps), ``serve_lm`` and ``examples/serve_lm_torch.py``
+    at ``--reduced``, in-process through their ``main``, on the default
+    device."""
+    import math
+    from repro_torch.launch import serve_lm, train
+    tr = train.main(["--arch", "stablelm-1.6b", "--reduced", "--steps",
+                     "5", "--log-every", "4"])
+    if len(tr["losses"]) != 5 or not all(map(math.isfinite, tr["losses"])):
+        raise AssertionError(f"train launcher: losses {tr['losses']}")
+    sv = serve_lm.main(["--arch", "stablelm-1.6b", "--reduced"])
+    if not sv["finite"] or sv["tokens"].shape != (4, 17):
+        raise AssertionError(f"serve_lm launcher: {sv}")
+    ex = load_example("serve_lm_torch").main([])
+    log(f"  train --reduced: losses {tr['losses']}; serve_lm --reduced: "
+        f"{sv['tok_per_s']:.1f} tok/s; examples/serve_lm_torch.py: "
+        f"{list(ex)} served")
+    return {"train_losses": tr["losses"], "serve_tok_per_s":
+            sv["tok_per_s"]}
+
+
+def lm_phase(card: str) -> dict:
+    """Phase 16: the LM scaffold (no hand-written kernel on its path)."""
+    import dataclasses
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+
+    K.reset_launch_counts()
+    out = {"card": card}
+    log("-- stablelm-1.6b: serving and training at full width and depth")
+    out["stablelm"] = lm_main_path(card)
+    log("-- the other families at full width (bf16): decode vs forward")
+    for name, B, S in (("mamba2-130m", 1, 512), ("zamba2-1.2b", 1, 128),
+                       ("whisper-small", 2, 32), ("qwen2-vl-7b", 2, 32)):
+        out[name] = lm_family(name, get_config(name), B, S, card,
+                              vision=name == "qwen2-vl-7b")
+    out["mixtral-8x22b"] = lm_moe_drops(
+        dataclasses.replace(get_config("mixtral-8x22b"), num_layers=2), card)
+    log("-- the ten reduced configs, card vs CPU (float32)")
+    out["reduced"] = lm_reduced_parity()
+    log("-- the LM launchers and the example at --reduced")
+    out["launchers"] = lm_launchers()
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"the LM path launched hand-written kernels: "
+                             f"{launched}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3642,7 +4143,9 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for matmul and cuDNN (full fp32 products)")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    log("TF32 off for matmul and cuDNN (full fp32 products); bf16 products "
+        "reduce in fp32")
 
     log("== phase 2: build")
     t = _build.build_all()
@@ -3838,6 +4341,14 @@ def main() -> int:
     dryrun_counts, dryrun = dryrun_phase()
     log(json.dumps({"dryrun": dryrun}))
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    log("== phase 16: the LM scaffold (stablelm-1.6b serving and training "
+        "at full width; the other families; the reduced configs; the "
+        "launchers)")
+    t0 = time.perf_counter()
+    lm_numbers = lm_phase(card)
+    log(json.dumps({"lm": lm_numbers}))
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "

@@ -1,5 +1,5 @@
-"""The distributed GNN trainer (the paper's workload), counterpart of the
-GNN part of ``repro.train.loop``."""
+"""Training loops (counterpart of ``repro.train.loop``): the distributed
+GNN trainer (the paper's workload) and a generic LM train step."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,9 +7,13 @@ import time
 
 import torch
 
+from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import lm
 from repro_torch.models.gnn import GNNConfig, gnn_loss, init_gnn_params
-from repro_torch.optim import init_opt_state
+from repro_torch.optim import apply_updates, init_opt_state
+from repro_torch.optim.optimizers import (clip_by_global_norm, tree_leaves,
+                                          tree_map)
 from repro_torch.pipeline import Pipeline, PipelineSpec
 
 
@@ -118,3 +122,31 @@ class GNNTrainer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def make_lm_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
+                       remat: bool = True, optimizer: str = "adamw"):
+    """Generic LM train step: ``lm_loss``, its gradient by autograd, the
+    gradient clipped to global norm 1.0, then ``apply_updates``.  Returns
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with ``repro``'s metrics (``ce``, ``aux``, ``loss``,
+    ``grad_norm``); the inputs are left as they are."""
+
+    def train_step(params, opt_state, batch):
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        it = iter(leaves)
+        p = tree_map(lambda _: next(it), params)
+        loss, metrics = lm.lm_loss(p, batch, cfg, remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter(torch.zeros_like(x) if g is None else g
+                  for x, g in zip(leaves, grads))
+        grads = tree_map(lambda _: next(it), params)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        params, opt_state = apply_updates(params, grads, opt_state,
+                                          kind=optimizer, lr=lr)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+        return params, opt_state, metrics
+
+    return train_step

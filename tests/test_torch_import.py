@@ -34,8 +34,16 @@ DATA_SLICE = ("data.dataset_io", "data.ingest", "data.stats", "data.smoke",
 FLEET_SLICE = ("launch.multihost", "pipeline.executor", "core.dist")
 # the dry-run slice's module and the port's examples
 DRYRUN_SLICE = ("launch.dryrun_gnn",)
+# the LM scaffold's modules (part 1)
+LM_SLICE = ("configs", "configs.minitron_4b", "configs.whisper_small",
+            "configs.qwen2_7b", "configs.mamba2_130m", "configs.zamba2_1p2b",
+            "configs.mixtral_8x22b", "configs.stablelm_1p6b",
+            "configs.h2o_danube3_4b", "configs.qwen2_vl_7b",
+            "configs.kimi_k2_1t_a32b", "models.layers", "models.attention",
+            "models.moe", "models.ssm", "models.lm", "data.tokens",
+            "launch.specs", "launch.serve_lm", "launch.serve", "launch.train")
 EXAMPLES = ("quickstart_torch.py", "distributed_hybrid_torch.py",
-            "train_gnn_e2e_torch.py")
+            "train_gnn_e2e_torch.py", "serve_lm_torch.py")
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
                        re.MULTILINE)
@@ -68,7 +76,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(names) >= 40
     assert {f"repro_torch.{m}"
             for m in TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
-            + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE} <= names
+            + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE + LM_SLICE} <= names
 
 
 def test_static_scan_finds_no_jax_or_repro_import():
@@ -76,7 +84,7 @@ def test_static_scan_finds_no_jax_or_repro_import():
         "/", ".").removesuffix(".__init__") for p in _port_sources()
         if PORT in p.parents}
     assert set(TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
-               + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE) <= scanned
+               + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE + LM_SLICE) <= scanned
     assert all(p.is_file() for p in _port_sources())
     offenders = []
     for path in _port_sources():
