@@ -159,13 +159,13 @@ Phases (any failure raises and the script exits non-zero):
      aggregate launched); ``metis``'s refusal without ``pymetis``.
  14. the fleet executors: phase 3's dataset, its ldg assignment and
      phase 8's initial parameters written under ``build/fleet``; the
-     parent's stacked runs of ``hybrid+fused`` and ``vanilla`` (5
+     parent's stacked runs of ``hybrid+fused`` and ``vanilla`` (3
      ``SyncDriver`` steps at 500 seeds a worker, ``exchange`` store, no
      cache) and a 128-seed stacked ``predict``; then one 4-rank
      ``torch.distributed`` launch (``repro_torch.launch.multihost``; this
      script re-run with ``--fleet-rank``) in which each rank loads those
      files (no second partitioning), builds its rank-local layout and
-     trains the paper's GraphSAGE for ``FLEET_STEPS`` (5) ``SyncDriver``
+     trains the paper's GraphSAGE for ``FLEET_STEPS`` (3) ``SyncDriver``
      steps (500 seeds a worker) in three fleets: ``shard_map`` 4 ranks x 1 worker
      ``hybrid+fused``; ``multiprocess`` 2 x 2 ``hybrid+fused`` (on ranks 0
      and 1); ``shard_map`` 4 x 1 ``vanilla``.  Gates: every rank's tensors on the card, every kernel
@@ -210,7 +210,7 @@ Phases (any failure raises and the script exits non-zero):
      ``remat=True`` whose loss equals the first step's bit for bit.  At
      full width in bf16, each a forward and the logits of every prompt
      position through decode steps within rel-L2 of the forward's
-     (``LM_SSM_REL_TOL`` for the SSM families): mamba2-130m (1 x 512, four
+     (``LM_SSM_REL_TOL`` for the SSM families): mamba2-130m (1 x 256, two
      SSD chunks), zamba2-1.2b (all 38 layers, 1 x 128, a KV cache per
      shared-block application), whisper-small (2 x 32 over 1500 encoder
      frames, cross K/V precomputed), qwen2-vl-7b (text only, and a forward
@@ -223,6 +223,23 @@ Phases (any failure raises and the script exits non-zero):
      after a prompt past the SWA window.  Last, ``train`` (5 steps) and
      ``serve_lm`` at ``--reduced`` and ``examples/serve_lm_torch.py``,
      through their ``main``.
+ 17. the LM scaffold, part 2 (the production mesh, the sharding rules,
+     DTensor; no hand-written kernel on its path): (a) the LM dry-run,
+     ``repro_torch.launch.dryrun`` as rank 0 of a 256- or 512-rank
+     fake-backend job on fake tensors on this card's torch, run in a
+     process of its own from the script's start (it needs the CPU only):
+     ``qwen2-7b`` x ``train_4k`` x ``pod``, ``mixtral-8x22b`` x
+     ``decode_32k`` x ``multipod`` and ``mamba2-130m`` x ``long_500k`` x
+     ``pod`` with their depth probes must end ``ok`` with finite roofline
+     terms and a dominant term, ``qwen2-7b`` x ``long_500k`` ``skipped``;
+     (b) one concrete rank 0 of a 256-rank fake-backend job on the card
+     (``DeviceMesh("cuda")``, seeded bf16 shards of ``qwen2-7b`` at
+     ``decode_32k`` on ``pod``, one serve step): every shard's shape and
+     placements as the specs give them, its collectives by kind equal to
+     the fake record's, ``max_memory_allocated`` within 10 % of the
+     record's ``peak_estimate_bytes``; (c) ``train --arch mixtral-8x22b
+     --reduced --devices 2 --steps 3`` (two gloo ranks on this card) with
+     finite losses equal to ``--devices 1``'s within ``LM_RANKS_TOL``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2908,9 +2925,9 @@ LAUNCHER_BATCH = 64
 # while ranks 2 and 3 wait)
 PAIR_EXECUTOR = "multiprocess_ranks01"
 LAUNCH_TIME_ENV = "CHIP_SMOKE_FLEET_LAUNCHED"   # the parent's time.time()
-# steps of each fleet and of its stacked reference (a depth cut for the
-# time bound: it was TRAIN_STEPS, 10)
-FLEET_STEPS = 5
+# steps of each fleet and of its stacked reference (depth cuts for the
+# time bound: TRAIN_STEPS, 10, then 5, now 3 to pay for phase 17)
+FLEET_STEPS = 3
 # fleet vs the stacked executor: both take the rule of
 # repro_torch.pipeline.prefetch (each worker's own backward, then the mean
 # in worker order), so the losses of all FLEET_STEPS steps and the
@@ -4093,7 +4110,7 @@ def lm_phase(card: str) -> dict:
     log("-- stablelm-1.6b: serving and training at full width and depth")
     out["stablelm"] = lm_main_path(card)
     log("-- the other families at full width (bf16): decode vs forward")
-    for name, B, S in (("mamba2-130m", 1, 512), ("zamba2-1.2b", 1, 128),
+    for name, B, S in (("mamba2-130m", 1, 256), ("zamba2-1.2b", 1, 128),
                        ("whisper-small", 2, 32), ("qwen2-vl-7b", 2, 32)):
         out[name] = lm_family(name, get_config(name), B, S, card,
                               vision=name == "qwen2-vl-7b")
@@ -4110,6 +4127,252 @@ def lm_phase(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: the LM scaffold, part 2
+# --------------------------------------------------------------------------
+
+LM_DRYRUN_OUT = os.path.join(HERE, "build", "dryrun_torch")
+# (arch, shape, mesh, the status it must end with), each with its probes
+LM_DRYRUN_COMBOS = (("qwen2-7b", "train_4k", "pod", "ok"),
+                    ("mixtral-8x22b", "decode_32k", "multipod", "ok"),
+                    ("mamba2-130m", "long_500k", "pod", "ok"),
+                    ("qwen2-7b", "long_500k", "pod", "skipped"))
+# the concrete rank's combo (its fake record is traced without probes)
+LM_CONCRETE = ("qwen2-7b", "decode_32k", "pod")
+LM_PEAK_TOL = 0.10               # concrete peak vs the estimate, relative
+# --devices 2 against --devices 1: tests/test_torch_lm_launch.py's bound
+LM_RANKS_TOL = dict(rtol=1e-5, atol=1e-5)
+LM_RANKS_ARGV = ("--arch", "mixtral-8x22b", "--reduced", "--steps", "3",
+                 "--log-every", "1")
+LM_DRYRUN_WAIT_S = 600
+
+
+def lm_dryrun_worker(out_dir: str) -> int:
+    """``--lm-dryrun OUT``: phase 17's dry-run records (``run_combo``,
+    one JSON file a combo under ``out_dir``), on one CPU thread."""
+    import torch
+    from repro_torch.launch.dryrun import run_combo
+
+    torch.set_num_threads(1)
+    for arch, shape, mesh, _ in LM_DRYRUN_COMBOS:
+        run_combo(arch, shape, mesh, out_dir=out_dir)
+    run_combo(*LM_CONCRETE, skip_probes=True, out_dir=out_dir)
+    return 0
+
+
+def start_lm_dryrun():
+    """Start phase 17's dry-run in a process of its own (fake tensors:
+    host work only), stopped at exit if the script ends first."""
+    import atexit
+    import shutil
+    shutil.rmtree(LM_DRYRUN_OUT, ignore_errors=True)
+    os.makedirs(LM_DRYRUN_OUT)
+    log_file = open(os.path.join(LM_DRYRUN_OUT, "worker.log"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lm-dryrun",
+         LM_DRYRUN_OUT], stdout=log_file, stderr=subprocess.STDOUT,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    log_file.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def lm_dryrun_records(proc) -> dict:
+    """Wait for the dry-run process; its records by (arch, shape, mesh)."""
+    t0 = time.perf_counter()
+    code = proc.wait(timeout=LM_DRYRUN_WAIT_S)
+    waited = time.perf_counter() - t0
+    if code:
+        with open(os.path.join(LM_DRYRUN_OUT, "worker.log")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"phase 17: the dry-run process exited "
+                             f"{code}:\n{tail}")
+    recs = {}
+    for arch, shape, mesh in [c[:3] for c in LM_DRYRUN_COMBOS] \
+            + [LM_CONCRETE]:
+        with open(os.path.join(LM_DRYRUN_OUT,
+                               f"{arch}__{shape}__{mesh}.json")) as f:
+            recs[(arch, shape, mesh)] = json.load(f)
+    log(f"  waited {waited:.1f} s for the dry-run process")
+    return recs
+
+
+def check_lm_dryrun(recs: dict) -> dict:
+    """Phase 17 (a)'s gates; returns the records' numbers."""
+    import math
+    out, failures = {}, []
+    for arch, shape, mesh, want in LM_DRYRUN_COMBOS:
+        rec = recs[(arch, shape, mesh)]
+        key = f"{arch}/{shape}/{mesh}"
+        if rec["status"] != want:
+            failures.append(f"{key}: {rec['status']} "
+                            f"({rec.get('error', rec.get('reason'))})")
+            continue
+        if want == "skipped":
+            log(f"  {key}: skipped ({rec['reason']})")
+            out[key] = {"status": "skipped"}
+            continue
+        roof = rec["roofline"]
+        terms = [roof[k] for k in ("flops_per_device",
+                                   "hbm_bytes_per_device",
+                                   "collective_bytes_per_device",
+                                   "t_compute_s", "t_memory_s",
+                                   "t_collective_s")]
+        if not all(math.isfinite(t) for t in terms) or roof["dominant"] \
+                not in ("compute", "memory", "collective"):
+            failures.append(f"{key}: roofline {roof}")
+        mem = rec["memory"]
+        log(f"  {key} ({rec['chips']} ranks, fake tensors): trace "
+            f"{rec['compile_s']} s, total {rec['total_s']} s; peak "
+            f"estimate {mem['peak_estimate_bytes'] / 1e9:.3f} GB a device "
+            f"(arguments {mem['argument_bytes'] / 1e9:.3f} GB); "
+            f"collectives {rec['collective_schedule_counts']}; counts "
+            f"over the H100 data sheet: compute {roof['t_compute_s']:.4g}"
+            f" s, memory {roof['t_memory_s']:.4g} s, collective "
+            f"{roof['t_collective_s']:.4g} s, dominant {roof['dominant']},"
+            f" useful FLOP ratio {roof['useful_flops_ratio']:.3f}")
+        out[key] = {"status": "ok", "memory": mem,
+                    "collective_schedule_counts":
+                        rec["collective_schedule_counts"],
+                    "roofline": roof, "trace_s": rec["compile_s"],
+                    "total_s": rec["total_s"]}
+    if failures:
+        raise AssertionError("phase 17 (a): " + "; ".join(failures))
+    return out
+
+
+def lm_concrete_rank(fake: dict) -> dict:
+    """Phase 17 (b): rank 0 of a 256-rank fake-backend job on the card,
+    seeded bf16 shards of ``LM_CONCRETE``'s combo, one serve step under a
+    ``CostCounter``.  Gates: every shard's shape and placements as the
+    specs give them, the collectives by kind equal to ``fake``'s (the
+    fake-tensor record of the same combo), the peak within
+    ``LM_PEAK_TOL`` of its estimate.  (The fake backend moves no data, so
+    no value is gated.)"""
+    import torch
+    from repro_torch import roofline
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.dryrun_gnn import fake_job
+    from repro_torch.sharding import (local_shape, placements,
+                                      tree_map_with_path)
+
+    arch, shape_name, mesh_name = LM_CONCRETE
+    cfg, shape = get_config(arch), get_shape(shape_name)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def make(s, dtype):
+        if dtype.is_floating_point:
+            return torch.randn(s, generator=gen, dtype=dtype, device="cuda")
+        return torch.zeros(s, dtype=dtype, device="cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bad, n_shards = [], 0
+    with fake_job(256):
+        mesh = D.mesh_for(mesh_name, "cuda")
+        inputs = D.rank_inputs(cfg, shape, mesh, make)
+        for name, (_, specs) in D.rank_specs(cfg, shape, mesh).items():
+            def check(path, t, spec, name=name):
+                nonlocal n_shards
+                n_shards += 1
+                if tuple(t.to_local().shape) != local_shape(
+                        t.shape, spec, mesh) or tuple(t.placements) != \
+                        placements(spec, mesh) or not t.to_local().is_cuda:
+                    bad.append(f"{name}/{path}")
+            tree_map_with_path(check, inputs[name], specs)
+        counter = roofline.CostCounter()
+        t0 = time.perf_counter()
+        with counter:
+            tokens, state = D.run_step(cfg, shape, inputs, remat=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        next_shape = tuple(tokens.shape)
+        del tokens, state, inputs
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    est = fake["memory"]["peak_estimate_bytes"]
+    failures = []
+    if bad:
+        failures.append(f"shards off their specs: {bad[:5]}")
+    if counter.coll_counts != fake["collective_schedule_counts"]:
+        failures.append(f"collectives {counter.coll_counts} vs the fake "
+                        f"record's {fake['collective_schedule_counts']}")
+    if abs(peak / est - 1) > LM_PEAK_TOL:
+        failures.append(f"peak {peak} B vs the estimate {est} B")
+    if next_shape != (shape.global_batch,):
+        failures.append(f"next tokens {next_shape}")
+    if failures:
+        raise AssertionError("phase 17 (b): " + "; ".join(failures))
+    log(f"  concrete rank 0 of 256 ({arch} {shape_name} on {mesh_name}, "
+        f"seeded bf16 shards on the card): {n_shards} shards as the specs "
+        f"give them; collectives {counter.coll_counts} == the fake "
+        f"record; step {wall * 1e3:.1f} ms; max_memory_allocated {peak} B "
+        f"against the estimate {est} B ({peak / est - 1:+.2%})")
+    return {"shards": n_shards, "collective_counts": counter.coll_counts,
+            "collective_bytes": counter.coll_bytes, "step_ms": wall * 1e3,
+            "peak_bytes": peak, "peak_estimate_bytes": est}
+
+
+def lm_part2_phase(proc) -> dict:
+    """Phase 17: (c)'s two ranks start first and train while (b) runs;
+    (a)'s records come from the process started with the script."""
+    import threading
+
+    import numpy as np
+    import repro_torch.kernels as K
+    from repro_torch.launch import train
+
+    K.reset_launch_counts()
+    ranks: dict = {}
+
+    def two_ranks():
+        try:
+            ranks["out"] = train.main(list(LM_RANKS_ARGV)
+                                      + ["--devices", "2"])
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            ranks["error"] = e
+    thread = threading.Thread(target=two_ranks)
+    t_ranks = time.perf_counter()
+    thread.start()
+    out = {}
+    try:
+        log("-- (a) the LM dry-run on this card's torch (fake tensors)")
+        recs = lm_dryrun_records(proc)
+        out["dryrun"] = check_lm_dryrun(recs)
+        log("-- (b) one concrete rank of the 256-rank job on the card")
+        out["concrete"] = lm_concrete_rank(recs[LM_CONCRETE])
+    finally:
+        thread.join()
+    ranks_s = time.perf_counter() - t_ranks
+    if "error" in ranks:
+        raise AssertionError(f"phase 17 (c): train --devices 2: "
+                             f"{ranks['error']!r}")
+    log("-- (c) train --devices 2 against --devices 1")
+    one = train.main(list(LM_RANKS_ARGV))
+    two = ranks["out"]["losses"]
+    if not (np.isfinite(two).all() and np.isfinite(one["losses"]).all()
+            and np.allclose(two, one["losses"], **LM_RANKS_TOL)):
+        raise AssertionError(f"phase 17 (c): --devices 2 losses {two} vs "
+                             f"--devices 1 {one['losses']}")
+    log(f"  --devices 2 losses {two} == --devices 1 {one['losses']} within "
+        f"{LM_RANKS_TOL} (2 ranks: {ranks_s:.1f} s with their start)")
+    out["ranks"] = {"devices_2": two, "devices_1": one["losses"],
+                    "ranks_s": ranks_s}
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"phase 17 launched hand-written kernels: "
+                             f"{launched}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4118,6 +4381,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    lm_dryrun = start_lm_dryrun()
 
     import repro_torch.kernels as K
     from repro_torch.configs.graphsage_paper import PRODUCTS, reduced
@@ -4349,6 +4613,14 @@ def main() -> int:
     lm_numbers = lm_phase(card)
     log(json.dumps({"lm": lm_numbers}))
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    log("== phase 17: the LM scaffold, part 2 (the dry-run on DTensor over "
+        "a fake 256/512-rank job; a concrete rank on the card; train "
+        "--devices 2)")
+    t0 = time.perf_counter()
+    lm2 = lm_part2_phase(lm_dryrun)
+    log(json.dumps({"lm_part2": lm2}))
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
@@ -4426,4 +4698,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-rank"]:
         sys.exit(fleet_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--lm-dryrun"]:
+        sys.exit(lm_dryrun_worker(sys.argv[2]))
     sys.exit(main())

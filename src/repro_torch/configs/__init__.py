@@ -45,16 +45,14 @@ class ModelConfig:
     encoder_layers: int = 0
     encoder_seq: int = 0              # stubbed frontend frame count
     # performance knobs beyond the published models (default = baseline
-    # semantics; repro's HLO dry-run flips them with its --opt flags)
-    # inert on one device: a sharding hint of the dispatch buffer, read by
-    # nothing until the port has a mesh
+    # semantics; the dry-runs flip them with their --opt flags)
+    # a sharding hint of the dispatch buffer (inert without DTensors)
     moe_shard_constraints: bool = False   # explicit dispatch shardings
     moe_num_groups: int = 0               # group-local dispatch (GShard-style)
     attn_chunk: int = 0                   # online-softmax KV chunking
     prefill_last_only: bool = False       # slice h before unembed
     ce_seq_chunk: int = 0                 # chunked logits+CE (no (B,S,V) f32)
-    # inert on one device: a sharding hint of the SSD carry, read by nothing
-    # until the port has a mesh
+    # a sharding hint of the SSD carry (inert without DTensors)
     ssm_state_constraints: bool = False   # pin SSD scan-carry sharding
     # numerics
     norm: str = "rmsnorm"             # rmsnorm | layernorm

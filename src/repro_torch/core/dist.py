@@ -169,6 +169,81 @@ def _collective(op: str, send: torch.Tensor, group: RankGroup,
     raise ValueError(f"unknown collective {op!r}")
 
 
+class TransportCollectives:
+    """A ``with`` block in which the functional collectives that DTensor
+    issues (``_c10d_functional``) go through ``_collective``'s transport:
+    gloo's ``all_gather`` and ``all_to_all_single``, which take CUDA
+    tensors, and reductions in rank order over an all_gather.  Gloo's own
+    ops for DTensor's collectives are not known to take CUDA tensors:
+    ``train --devices 2`` on the card lost a rank to a segfault through
+    them.  DTensor ops pass on to DTensor, whose local ops and
+    collectives then come back here."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return outer._dispatch(func, types, args, kwargs or {})
+        self._mode = _Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+    @staticmethod
+    def _group(name: str) -> RankGroup:
+        import torch.distributed as tdist
+        from torch.distributed.distributed_c10d import \
+            _resolve_process_group
+        pg = _resolve_process_group(name)
+        return rank_group(tdist.get_world_size(pg), pg)
+
+    def _reduce(self, t, op: str, group: RankGroup):
+        every = _collective("all_gather", t.unsqueeze(0), group)
+        if op in ("sum", "avg"):
+            out = every.sum(0)
+            return out / group.num_procs if op == "avg" else out
+        if op in ("max", "min"):
+            return every.amax(0) if op == "max" else every.amin(0)
+        raise NotImplementedError(f"reduce op {op!r} over the transport")
+
+    def _dispatch(self, func, types, args, kwargs):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if func.namespace not in ("_c10d_functional",
+                                  "_c10d_functional_autograd"):
+            return func(*args, **kwargs)
+        name = func._overloadpacket.__name__
+        if name == "wait_tensor":
+            return args[0]
+        if name == "all_gather_into_tensor":
+            return _collective("all_gather", args[0], self._group(args[2]))
+        if name in ("all_reduce", "all_reduce_"):
+            out = self._reduce(args[0], args[1], self._group(args[2]))
+            return args[0].copy_(out) if name == "all_reduce_" else out
+        if name == "reduce_scatter_tensor":
+            import torch.distributed as tdist
+            group = self._group(args[3])
+            out = self._reduce(args[0], args[1], group)
+            return out.chunk(group.num_procs)[tdist.get_rank(group.pg)
+                                              ].contiguous()
+        if name == "all_to_all_single" and not any(
+                args[i] and len(set(args[i])) > 1 for i in (1, 2)):
+            return _collective("all_to_all", args[0], self._group(args[3]))
+        if "gather" in name or "reduce" in name or "all_to_all" in name \
+                or "broadcast" in name:
+            raise NotImplementedError(f"{func} over the transport")
+        return func(*args, **kwargs)        # the namespace's other ops
+
+
 def exchange(buf: torch.Tensor, counter: RoundCounter | None,
              kind: str = "other", group: RankGroup | None = None
              ) -> torch.Tensor:

@@ -36,9 +36,8 @@ from typing import Callable
 
 import torch
 
-#: collective kinds under ``repro.roofline.collective_bytes``'s keys
-COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
-                    "all-to-all", "collective-permute")
+from repro_torch.roofline import COLLECTIVE_KINDS
+
 _KIND = {"all_to_all": "all-to-all", "all_gather": "all-gather"}
 AVG_DEGREE = 29          # papers100M-like topology stand-in, as repro's
 

@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models import spmd
 from repro_torch.models.layers import (apply_rope, dense_init, dtype_of,
                                        init_device)
 
@@ -46,31 +47,28 @@ def init_attention(generator, cfg: ModelConfig, *, cross: bool = False,
 
 
 def _project_q(p, x, cfg):
-    B, S, _ = x.shape
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
-    return q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    return spmd.split_dim(q, -1, (cfg.num_heads, cfg.resolved_head_dim))
 
 
 def _project_kv(p, x, cfg):
-    B, S, _ = x.shape
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    hd = cfg.resolved_head_dim
-    return (k.reshape(B, S, cfg.num_kv_heads, hd),
-            v.reshape(B, S, cfg.num_kv_heads, hd))
+    heads = (cfg.num_kv_heads, cfg.resolved_head_dim)
+    return spmd.split_dim(k, -1, heads), spmd.split_dim(v, -1, heads)
 
 
 def _gqa_scores(q, k):
     """q (B,Sq,H,Dh), k (B,Sk,Hkv,Dh) -> (B,Hkv,G,Sq,Sk) grouped scores."""
-    B, Sq, H, Dh = q.shape
+    H, Dh = q.shape[2:]
     Hkv = k.shape[2]
     G = H // Hkv
-    qg = q.reshape(B, Sq, Hkv, G, Dh)
+    qg = spmd.split_dim(q, 2, (Hkv, G))
     return torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / (Dh ** 0.5)
 
 
@@ -82,8 +80,7 @@ def _gqa_out(probs, v, B, Sq, H, Dh):
 def attend(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
            kv_x: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence attention (training / prefill / encoder / cross)."""
-    B, S, _ = x.shape
-    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    S = x.shape[1]
 
     q = _project_q(p, x, cfg)
     src = kv_x if kv_x is not None else x
@@ -96,23 +93,33 @@ def attend(p, x, positions, cfg: ModelConfig, *, causal: bool = True,
 
     if is_self and causal and cfg.attn_chunk and S % cfg.attn_chunk == 0 \
             and S > cfg.attn_chunk:
-        out = _chunked_causal_attention(q, k, v, cfg)
-        return out.reshape(B, S, H * Dh) @ p["wo"]
+        out = spmd.local_heads(
+            lambda q, k, v: _chunked_causal_attention(q, k, v, cfg), q, k, v)
+        return spmd.merge_dims(out, 2, 2) @ p["wo"]
 
+    out = spmd.local_heads(
+        lambda q, k, v: _attend_core(q, k, v, cfg,
+                                     causal=is_self and causal), q, k, v)
+    return out @ p["wo"]
+
+
+def _attend_core(q, k, v, cfg: ModelConfig, *, causal: bool):
+    """Scores, the causal (and window) mask, softmax, the PV product:
+    (B, S, H, Dh) queries over (B, Sk, Hkv, Dh) keys -> (B, S, H * Dh)."""
+    B, S, H, Dh = q.shape
     scores = _gqa_scores(q, k).to(torch.float32)
 
     Sk = k.shape[1]
-    if is_self and causal:
-        qi = torch.arange(S, device=x.device)[:, None]
-        ki = torch.arange(Sk, device=x.device)[None, :]
+    if causal:
+        qi = torch.arange(S, device=q.device)[:, None]
+        ki = torch.arange(Sk, device=q.device)[None, :]
         mask = ki <= qi
         if cfg.window:
             mask &= ki > qi - cfg.window
         scores = scores.masked_fill(~mask, MASKED)
 
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _gqa_out(probs, v, B, S, H, Dh)
-    return out @ p["wo"]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _gqa_out(probs, v, B, S, H, Dh)
 
 
 def _chunked_causal_attention(q, k, v, cfg: ModelConfig):
@@ -129,9 +136,9 @@ def _chunked_causal_attention(q, k, v, cfg: ModelConfig):
     G = H // Hkv
     C = cfg.attn_chunk
     n = S // C
-    qg = q.reshape(B, n, C, Hkv, G, Dh)
-    kc = k.reshape(B, n, C, Hkv, Dh)
-    vc = v.reshape(B, n, C, Hkv, Dh)
+    qg = spmd.split_dim(spmd.split_dim(q, 2, (Hkv, G)), 1, (n, C))
+    kc = spmd.split_dim(k, 1, (n, C))
+    vc = spmd.split_dim(v, 1, (n, C))
     ar = torch.arange(C, device=q.device)
 
     outs = []
@@ -202,7 +209,6 @@ def decode_attend(p, x, pos, cache: KVCache, cfg: ModelConfig):
     a sliding window), keys roped at their absolute position first.
     """
     B = x.shape[0]
-    H, Dh = cfg.num_heads, cfg.resolved_head_dim
     C = cache.cache_len
 
     q = _project_q(p, x, cfg)
@@ -213,27 +219,35 @@ def decode_attend(p, x, pos, cache: KVCache, cfg: ModelConfig):
     k_new = apply_rope(k_new, pos_b, cfg.rope_theta, cfg.mrope_sections)
 
     slot = torch.remainder(pos, C).reshape(1).to(torch.long)
-    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    spmd.write_slot(cache.k, 1, slot, k_new.to(cache.k.dtype))
+    spmd.write_slot(cache.v, 1, slot, v_new.to(cache.v.dtype))
 
-    scores = _gqa_scores(q, cache.k).to(torch.float32)   # (B,Hkv,G,1,C)
-    idx = torch.arange(C, device=x.device)
+    out = spmd.local_heads(
+        lambda q, k, v, pos: _decode_core(q, k, v, pos, cfg), q, cache.k,
+        cache.v, pos)
+    return out @ p["wo"], cache
+
+
+def _decode_core(q, k, v, pos, cfg: ModelConfig):
+    """One query position over the cache: q (B, 1, H, Dh), k / v
+    (B, C, Hkv, Dh), the slots past ``pos`` masked -> (B, 1, H * Dh)."""
+    B, _, H, Dh = q.shape
+    C = k.shape[1]
+    scores = _gqa_scores(q, k).to(torch.float32)   # (B,Hkv,G,1,C)
+    idx = torch.arange(C, device=q.device)
     if cfg.window and C < cfg.window + 1:
         # ring buffer: every live slot is within the window
         mask = (idx <= pos) | (pos >= C)             # pre-fill vs wrapped
     else:
         mask = idx <= pos
     scores = scores.masked_fill(~mask, MASKED)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _gqa_out(probs, cache.v, B, 1, H, Dh)
-    return out @ p["wo"], cache
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _gqa_out(probs, v, B, 1, H, Dh)
 
 
 def cross_attend_cached(p, x, k, v, cfg: ModelConfig):
     """Cross-attention against precomputed encoder K/V (whisper decode)."""
-    B, S, _ = x.shape
     q = _project_q(p, x, cfg)
-    scores = _gqa_scores(q, k).to(torch.float32)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _gqa_out(probs, v, B, S, cfg.num_heads, cfg.resolved_head_dim)
+    out = spmd.local_heads(
+        lambda q, k, v: _attend_core(q, k, v, cfg, causal=False), q, k, v)
     return out @ p["wo"]

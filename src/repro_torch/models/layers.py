@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models import spmd
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -106,7 +107,7 @@ def init_embedding(generator, cfg: ModelConfig, *, device=None):
 
 
 def embed(p, tokens, cfg: ModelConfig):
-    return p["tokens"][tokens]
+    return spmd.embed_rows(p["tokens"], tokens)
 
 
 def unembed(p, h, cfg: ModelConfig):
@@ -140,9 +141,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                              f"summing to {half}; got {positions.ndim}-d, "
                              f"{mrope_sections}")
         # pick which coordinate (t/h/w) drives each frequency slot
-        sect = torch.repeat_interleave(
-            torch.arange(len(mrope_sections), device=x.device),
-            torch.tensor(mrope_sections, device=x.device))    # (half,)
+        sect = torch.tensor([i for i, n in enumerate(mrope_sections)
+                             for _ in range(n)], device=x.device)  # (half,)
         pos = positions[sect]                                  # (half, B, S)
         ang = torch.einsum("hbs,h->bsh", pos.to(torch.float32), inv)
     else:

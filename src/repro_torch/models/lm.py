@@ -34,6 +34,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import spmd
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, dtype_of,
                                        embed, init_embedding, init_mlp,
@@ -141,34 +142,46 @@ def layers(blocks, n: int) -> list:
 def _dense_block_fwd(blk, h, positions, cfg, enc_out=None):
     a = attn.attend(blk["attn"], apply_norm(blk["ln1"], h, cfg), positions,
                     cfg, causal=True)
-    h = h + a
+    h = _add(h, a)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if "cross" in blk:
         c = attn.attend(blk["cross"], apply_norm(blk["ln_cross"], h, cfg),
                         positions, cfg, kv_x=enc_out)
-        h = h + c
+        h = _add(h, c)
     if "moe" in blk:
         m, aux = moe_mod.apply_moe(blk["moe"],
                                    apply_norm(blk["ln2"], h, cfg), cfg)
-        h = h + m
+        h = _add(h, m)
     elif "mlp" in blk:
-        h = h + apply_mlp(blk["mlp"], apply_norm(blk["ln2"], h, cfg), cfg)
+        h = _add(h, apply_mlp(blk["mlp"], apply_norm(blk["ln2"], h, cfg),
+                              cfg))
     return h, aux
 
 
 def _ssm_block_fwd(blk, h, cfg):
-    h = h + ssm_mod.apply_ssm(blk["ssm"], apply_norm(blk["ln1"], h, cfg), cfg)
+    h = _add(h, ssm_mod.apply_ssm(blk["ssm"], apply_norm(blk["ln1"], h, cfg),
+                                  cfg))
     if "mlp" in blk:
-        h = h + apply_mlp(blk["mlp"], apply_norm(blk["ln2"], h, cfg), cfg)
+        h = _add(h, apply_mlp(blk["mlp"], apply_norm(blk["ln2"], h, cfg),
+                              cfg))
     return h
 
 
 def _shared_block_fwd(shared, h, positions, cfg, causal=True):
     a = attn.attend(shared["attn"], apply_norm(shared["ln1"], h, cfg),
                     positions, cfg, causal=causal)
-    h = h + a
-    h = h + apply_mlp(shared["mlp"], apply_norm(shared["ln2"], h, cfg), cfg)
+    h = _add(h, a)
+    h = _add(h, apply_mlp(shared["mlp"], apply_norm(shared["ln2"], h, cfg),
+                          cfg))
     return h
+
+
+def _add(h, delta):
+    """The residual add.  On DTensors the branch's output (a Partial sum
+    after its last product) is first laid out as the stream is: the
+    all-reduce GSPMD places there, which keeps DTensor from carrying the
+    Partial into the next norm's products."""
+    return h + spmd.match(delta, h)
 
 
 def _run(fn, remat: bool, *args):
@@ -203,7 +216,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, remat: bool = True,
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed(params["embed"], tokens, cfg)
-    h = h.to(dtype_of(cfg.compute_dtype))
+    h = spmd.match(h.to(dtype_of(cfg.compute_dtype)), tokens)
 
     if cfg.family == "vlm":
         # stubbed vision frontend: patch embeddings occupy the prompt prefix
@@ -255,9 +268,25 @@ def _forward_ssm_stack(params, h, positions, cfg, remat):
 # ===========================================================================
 
 def _nll_sum(logits, labels):
+    if spmd.is_dtensor(logits):
+        return _nll_sum_sharded(logits, labels)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None].long()
                         )[..., 0]
+    return torch.where(labels >= 0, nll, 0.0).sum()
+
+
+def _nll_sum_sharded(logits, labels):
+    """``_nll_sum`` over DTensor logits, whose vocab may be sharded: the
+    log-sum-exp and the label's logit are reduced across the vocab's
+    shards (vocab-parallel cross-entropy, the reductions GSPMD places), so
+    no rank gathers the vocab."""
+    lf = spmd.grad_as_input(logits.to(torch.float32))
+    m = lf.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    ids = spmd.arange_like(lf, -1)
+    hit = ids == labels.clamp(min=0)[..., None].to(ids.dtype)
+    nll = lse - torch.where(hit, lf, 0.0).sum(-1)
     return torch.where(labels >= 0, nll, 0.0).sum()
 
 
@@ -358,6 +387,7 @@ def decode_step(params, state: DecodeState, batch: dict, cfg: ModelConfig):
     """
     tokens = batch["tokens"]
     h = embed(params["embed"], tokens, cfg).to(dtype_of(cfg.compute_dtype))
+    h = spmd.match(h, tokens)
     pos = state.pos
 
     if cfg.family in ("ssm", "hybrid"):
@@ -367,19 +397,19 @@ def decode_step(params, state: DecodeState, batch: dict, cfg: ModelConfig):
             a, _ = attn.decode_attend(
                 blk["attn"], apply_norm(blk["ln1"], h, cfg), pos,
                 state.kv[i], cfg)
-            h = h + a
+            h = _add(h, a)
             if "cross" in blk:
                 ck, cv = state.cross_kv
-                h = h + attn.cross_attend_cached(
+                h = _add(h, attn.cross_attend_cached(
                     blk["cross"], apply_norm(blk["ln_cross"], h, cfg),
-                    ck[i], cv[i], cfg)
+                    ck[i], cv[i], cfg))
             if "moe" in blk:
                 m, _ = moe_mod.apply_moe(blk["moe"],
                                          apply_norm(blk["ln2"], h, cfg), cfg)
-                h = h + m
+                h = _add(h, m)
             elif "mlp" in blk:
-                h = h + apply_mlp(blk["mlp"],
-                                  apply_norm(blk["ln2"], h, cfg), cfg)
+                h = _add(h, apply_mlp(blk["mlp"],
+                                      apply_norm(blk["ln2"], h, cfg), cfg))
 
     h = apply_norm(params["final_norm"], h, cfg)
     return (unembed(params["embed"], h, cfg),
@@ -396,15 +426,16 @@ def _decode_ssm_stack(params, h, state, cfg):
     for i, blk in enumerate(layers(params["blocks"], L)):
         out, _ = ssm_mod.decode_ssm(
             blk["ssm"], apply_norm(blk["ln1"], h, cfg), state.ssm[i], cfg)
-        h = h + out
+        h = _add(h, out)
         if "mlp" in blk:
-            h = h + apply_mlp(blk["mlp"], apply_norm(blk["ln2"], h, cfg), cfg)
+            h = _add(h, apply_mlp(blk["mlp"],
+                                  apply_norm(blk["ln2"], h, cfg), cfg))
         if hybrid and ((i + 1) % every == 0 or i == L - 1):
             a, _ = attn.decode_attend(
                 shared["attn"], apply_norm(shared["ln1"], h, cfg), pos,
                 state.shared_kv[app], cfg)
-            h = h + a
-            h = h + apply_mlp(shared["mlp"],
-                              apply_norm(shared["ln2"], h, cfg), cfg)
+            h = _add(h, a)
+            h = _add(h, apply_mlp(shared["mlp"],
+                                  apply_norm(shared["ln2"], h, cfg), cfg))
             app += 1
     return h

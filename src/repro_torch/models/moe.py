@@ -7,8 +7,13 @@ over the (E, C, d) buffer.  Static capacity C = ``moe_capacity``; overflow
 tokens are dropped (their gate contribution is zero), the standard
 GShard/Switch discipline, with the same drops as ``repro``'s.
 
-``repro``'s sharding constraints have no meaning on one device and are
-left out; ``moe_shard_constraints`` is read by nothing here.
+On DTensors (``repro_torch.models.spmd``) the dispatch is data-dependent
+(argsort, searchsorted, a scatter), and DTensor has no sharding strategy
+for those ops: the routing and the tokens are replicated and each rank
+runs the dispatch and the combine whole, as GSPMD lowers ``repro``'s
+dispatch, while the expert FFNs run on the experts' shards.
+``moe_shard_constraints`` pins the dispatch buffer and the expert output
+to the experts' layout, as ``repro``'s ``with_sharding_constraint`` does.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models import spmd
 from repro_torch.models.layers import (dense_init, dtype_of, gelu,
                                        init_device)
 
@@ -110,12 +116,31 @@ def apply_moe(p, x, cfg: ModelConfig):
     logits = xf.to(torch.float32) @ p["router"]                 # (T, E)
     top_g, top_e, aux = _route(logits, E, k)
 
+    # on DTensors: the dispatch and the combine run replicated, as plain
+    # tensors (no sharding strategy for argsort / searchsorted / index_put)
+    top_e, mesh = spmd.to_plain(top_e)
+    top_g, _ = spmd.to_plain(top_g)
+    xp, _ = spmd.to_plain(xf)
     se, st, slot, keep, order = dispatch(top_e, E, C)
     sg = top_g.reshape(-1)[order]
-    buf = _scatter(xf, se, st, slot, keep, E, C)                # (E, C, d)
+    buf = spmd.from_plain(_scatter(xp, se, st, slot, keep, E, C), mesh)
+    buf = _pin_experts(buf, cfg)                                # (E, C, d)
     out = _experts(p, buf, cfg, "ecd,edf->ecf", "ecf,efd->ecd")
+    out, _ = spmd.to_plain(_pin_experts(out, cfg))
     y = _combine(out, se, st, sg, slot, keep, T, x.dtype)
-    return y.reshape(B, S, d), aux
+    return spmd.from_plain(y, mesh, like=xf).reshape(B, S, d), aux
+
+
+def _pin_experts(t, cfg: ModelConfig):
+    """``moe_shard_constraints``: pin a DTensor (..., E, C, d) to the
+    experts' layout (experts -> 'data' when E divides 16, else d_model ->
+    'data'), ``repro``'s constraint; the identity otherwise."""
+    if not cfg.moe_shard_constraints or not spmd.is_dtensor(t):
+        return t
+    e_axis = "data" if cfg.num_experts % 16 == 0 else None
+    d_axis = None if e_axis else "data"
+    lead = (None,) * (t.ndim - 3)
+    return spmd.constrain(t, (*lead, e_axis, None, d_axis))
 
 
 def apply_moe_grouped(p, x, cfg: ModelConfig):
@@ -136,13 +161,19 @@ def apply_moe_grouped(p, x, cfg: ModelConfig):
     logits = xg.to(torch.float32) @ p["router"]                 # (G, Tg, E)
     top_g, top_e, aux = _route(logits, E, k)
 
+    # on DTensors: replicated plain dispatch and combine, as in apply_moe
+    top_e, mesh = spmd.to_plain(top_e)
+    top_g, _ = spmd.to_plain(top_g)
+    xp, _ = spmd.to_plain(xg)
     metas, bufs = [], []
     for g in range(G):
         se, st, slot, keep, order = dispatch(top_e[g], E, Cg)
         metas.append((se, st, top_g[g].reshape(-1)[order], slot, keep))
-        bufs.append(_scatter(xg[g], se, st, slot, keep, E, Cg))
-    buf = torch.stack(bufs)                                     # (G,E,Cg,d)
+        bufs.append(_scatter(xp[g], se, st, slot, keep, E, Cg))
+    buf = _pin_experts(spmd.from_plain(torch.stack(bufs), mesh), cfg)
     out = _experts(p, buf, cfg, "gecd,edf->gecf", "gecf,efd->gecd")
+    out, _ = spmd.to_plain(_pin_experts(out, cfg))              # (G,E,Cg,d)
     y = torch.stack([_combine(out[g], *metas[g], Tg, out.dtype)
                      for g in range(G)])
+    y = spmd.from_plain(y, mesh, like=xg)
     return y.reshape(B, S, d).to(x.dtype), aux

@@ -9,7 +9,10 @@ O(1)-per-token, O(1)-memory path that makes long_500k tractable.
 
 Layout: d_in = expand * d_model; heads H = d_in / head_dim (P = head_dim);
 B/C projections are shared across heads (ngroups = 1), A is scalar per head.
-``ssm_state_constraints`` (a sharding hint) is read by nothing here.
+On DTensors the SSD scan runs on each rank's batch rows and heads
+(``repro_torch.models.spmd.local_heads``); ``ssm_state_constraints`` pins
+the scan's chunk carry to the batch-only sharding (heads whole on every
+rank), ``repro``'s constraint.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.models import spmd
 from repro_torch.models.layers import (dense_init, dtype_of, init_device,
                                        normal)
 
@@ -143,20 +147,27 @@ def _gated_rmsnorm(y, z, scale):
 def apply_ssm(p, x, cfg: ModelConfig, chunk=CHUNK):
     """Full-sequence Mamba2 block: x (B, S, d) -> (B, S, d)."""
     d_in, H, N, P = ssm_dims(cfg)
-    B_, S, _ = x.shape
-    z, xBC, dt = _split_proj(x @ p["in_proj"], cfg)
-    xBC = _causal_depthwise_conv(xBC, p["conv_w"], p["conv_b"])
-    xs = xBC[..., :d_in].reshape(B_, S, H, P)
+    # on DTensors the projection's gradient is kept in its layout: sharded
+    # along the sequence, it would make in_proj's gradient a strided shard
+    z, xBC, dt = _split_proj(spmd.grad_as_input(x @ p["in_proj"]), cfg)
+    xBC = spmd.local_rows(_causal_depthwise_conv, xBC, p["conv_w"],
+                          p["conv_b"])
+    xs = spmd.split_dim(xBC[..., :d_in], -1, (H, P))
     Bm = xBC[..., d_in:d_in + N]
     Cm = xBC[..., d_in + N:]
 
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])      # (B,S,H)
     A = -torch.exp(p["A_log"])                                # (H,)
-    y, _ = ssd_chunked((xs * dt[..., None]).to(torch.float32), dt * A,
-                       Bm.to(torch.float32), Cm.to(torch.float32),
-                       chunk=chunk)
+    # on DTensors each rank scans its own batch rows and heads;
+    # ssm_state_constraints keeps the chunk carry batch-only (heads whole)
+    y, _ = spmd.local_heads(
+        lambda x, A, Bm, Cm: ssd_chunked(x, A, Bm, Cm, chunk=chunk),
+        (xs * dt[..., None]).to(torch.float32), dt * A,
+        Bm.to(torch.float32), Cm.to(torch.float32),
+        heads=not cfg.ssm_state_constraints, head_args=(True, False, False),
+        out_head_dims=(2, 1))
     y = y + xs.to(torch.float32) * p["D"][None, None, :, None]
-    y = _gated_rmsnorm(y.reshape(B_, S, d_in), z, p["norm_scale"])
+    y = _gated_rmsnorm(spmd.merge_dims(y, 2, 2), z, p["norm_scale"])
     return y.to(x.dtype) @ p["out_proj"]
 
 
@@ -210,7 +221,15 @@ def decode_ssm(p, x, cache: SSMCache, cfg: ModelConfig):
     upd = (dt[..., None] * xs.to(torch.float32))[..., None] \
         * Bm.to(torch.float32)[:, None, None, :]                   # (B,H,P,N)
     cache.state.copy_(cache.state * dA[..., None, None] + upd)
-    y = torch.einsum("bhpn,bn->bhp", cache.state, Cm.to(torch.float32))
+    if spmd.is_dtensor(cache.state):
+        # the state may be sharded on P; the einsum's (H*P) merge would read
+        # a strided shard, which DTensor's bmm has no strategy for: the
+        # same product as a batched
+        # (P, N) @ (N, 1); then P unsharded, for the (H*P) merge below
+        y = (cache.state @ Cm.to(torch.float32)[:, None, :, None])[..., 0]
+        y = spmd.replicate_dims(y, 2)
+    else:
+        y = torch.einsum("bhpn,bn->bhp", cache.state, Cm.to(torch.float32))
     y = y + xs.to(torch.float32) * p["D"][None, :, None]
     y = _gated_rmsnorm(y.reshape(B_, d_in), z, p["norm_scale"])
     out = (y.to(x.dtype) @ p["out_proj"])[:, None, :]

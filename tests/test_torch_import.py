@@ -42,6 +42,10 @@ LM_SLICE = ("configs", "configs.minitron_4b", "configs.whisper_small",
             "configs.kimi_k2_1t_a32b", "models.layers", "models.attention",
             "models.moe", "models.ssm", "models.lm", "data.tokens",
             "launch.specs", "launch.serve_lm", "launch.serve", "launch.train")
+# the LM scaffold's modules (part 2: the mesh, the sharding rules, the
+# roofline, the dry-run, the models' DTensor hooks)
+LM2_SLICE = ("launch.mesh", "sharding", "roofline", "launch.dryrun",
+             "models.spmd")
 EXAMPLES = ("quickstart_torch.py", "distributed_hybrid_torch.py",
             "train_gnn_e2e_torch.py", "serve_lm_torch.py")
 PORT = ROOT / "src" / "repro_torch"
@@ -76,7 +80,8 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(names) >= 40
     assert {f"repro_torch.{m}"
             for m in TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
-            + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE + LM_SLICE} <= names
+            + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE + LM_SLICE
+            + LM2_SLICE} <= names
 
 
 def test_static_scan_finds_no_jax_or_repro_import():
@@ -84,7 +89,8 @@ def test_static_scan_finds_no_jax_or_repro_import():
         "/", ".").removesuffix(".__init__") for p in _port_sources()
         if PORT in p.parents}
     assert set(TRAINING_SLICE + OVERLAP_SLICE + OBS_SLICE
-               + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE + LM_SLICE) <= scanned
+               + DATA_SLICE + FLEET_SLICE + DRYRUN_SLICE + LM_SLICE
+               + LM2_SLICE) <= scanned
     assert all(p.is_file() for p in _port_sources())
     offenders = []
     for path in _port_sources():

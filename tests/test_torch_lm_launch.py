@@ -229,13 +229,23 @@ def test_train_launcher(tmp_path, arch, seq):
         assert torch.equal(a, b)
 
 
+# --devices 2 against --devices 1: the MoE experts split over the ranks,
+# the global-norm clip summed across them (chip_smoke.py's phase 17 too)
+RANKS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
 def test_train_launcher_refuses_more_devices(capsys):
+    """``--devices N > 1`` is no longer refused: two gloo ranks with the
+    parameters as DTensors on their (2, 1) mesh (mixtral's 4 reduced
+    experts split over ``data``) give ``--devices 1``'s losses."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit) as exc:
-        train.main(["--arch", "qwen2-7b", "--reduced", "--device", "cpu",
-                    "--devices", "2"])
-    assert exc.value.code == 2
-    assert "part 2" in capsys.readouterr().err
+    argv = ["--arch", "mixtral-8x22b", "--reduced", "--device", "cpu",
+            "--steps", "3", "--batch", "4", "--seq", "64"]
+    two = train.main(argv + ["--devices", "2", "--mh-timeout", "120"])
+    assert "2 ranks" in capsys.readouterr().out
+    one = train.main(argv)
+    assert two["finite"] and len(two["losses"]) == 3
+    np.testing.assert_allclose(two["losses"], one["losses"], **RANKS_TOL)
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "zamba2-1.2b"])
