@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, exact-inference, fleet,
-dry-run and LM paths on one CUDA card and check them.
+dry-run, LM and seed-API paths on one CUDA card and check them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -66,16 +66,16 @@ Phases (any failure raises and the script exits non-zero):
      time and idle share, and peak device memory; and the sampling /
      feature / compute split of a step (``repro_torch.obs.profile.
      profile_stages``, arm ``hybrid+fused``).
-  9. overlap, on phase 8's layout and model: 6 steps each of the sync
+  9. overlap, on phase 8's layout and model: 4 steps each of the sync
      driver without and with seed staging, ``double_buffer`` at depth 1
      and 2, depth 1 with staging, and a ``staged``-store pipeline at depth
      1 (same cache, device combine), each from phase 8's initial
      parameters.  Each run: losses and final parameters equal phase 8's
-     synchronous run's after 6 steps bit for bit, 2 feature rounds per
+     synchronous run's after 4 steps bit for bit, 2 feature rounds per
      step (0 for
      ``staged``), the fused sampler's window overflow nonzero in some
      step (the stager's host replay applies the window), every kernel of
-     the path launched, a restart at step 3 replays steps 3-5 (the
+     the path launched, a restart at step 2 replays steps 2-3 (the
      ``staged`` store, whose steps take a second of host work each: 3
      steps, their losses and the parameters after them equal to phase
      8's after its first 3, a restart at step 1, no span timing); its step
@@ -165,13 +165,13 @@ Phases (any failure raises and the script exits non-zero):
      ``torch.distributed`` launch (``repro_torch.launch.multihost``; this
      script re-run with ``--fleet-rank``) in which each rank loads those
      files (no second partitioning), builds its rank-local layout and
-     trains the paper's GraphSAGE for ``FLEET_STEPS`` (3) ``SyncDriver``
+     trains the paper's GraphSAGE for ``FLEET_STEPS`` (2) ``SyncDriver``
      steps (500 seeds a worker) in three fleets: ``shard_map`` 4 ranks x 1 worker
      ``hybrid+fused``; ``multiprocess`` 2 x 2 ``hybrid+fused`` (on ranks 0
      and 1); ``shard_map`` 4 x 1 ``vanilla``.  Gates: every rank's tensors on the card, every kernel
      of the path launched in every rank (the wrappers' counts), 2 / 2 / 6
-     rounds a step, finite losses equal on every rank, the 5 losses and
-     the parameters after step 1 and after step 5 equal to the stacked
+     rounds a step, finite losses equal on every rank, the losses and
+     the parameters after step 1 and after the last equal to the stacked
      run's bit for bit (every executor takes ``repro``'s gradient rule),
      fleets 1 and 2 equal bit for bit, fleet 1's ``predict`` equal to the
      stacked one bit for bit.  Prints per fleet the step walls, each rank's peak
@@ -240,6 +240,26 @@ Phases (any failure raises and the script exits non-zero):
      record's ``peak_estimate_bytes``; (c) ``train --arch mixtral-8x22b
      --reduced --devices 2 --steps 3`` (two gloo ranks on this card) with
      finite losses equal to ``--devices 1``'s within ``LM_RANKS_TOL``.
+ 18. ``repro``'s seed API, on phase 8's layout and initial parameters
+     (GraphSAGE at ``PRODUCTS`` widths, 1000 seeds a worker), each route
+     driven for ``SEED_API_STEPS`` (2) steps with every launch count set to
+     0 first and read after: (a) ``dist.make_worker_step(scheme="hybrid",
+     level_fn=resolve_backend("fused_cuda"))`` through ``run_stacked``,
+     its losses and every gradient leaf equal to the ``Pipeline``'s
+     ``hybrid+fused`` step (``exchange`` store, no cache) bit for bit;
+     (b) ``build_degree_caches`` (65 536 rows a worker) with
+     ``make_cached_worker_step`` and ``run_stacked_cached``, equal to (a)
+     bit for bit, its hit rate above 0; (c) the shim under ``vanilla``
+     (``plan_from_legacy``; shards from ``build_vanilla``'s
+     ``VanillaPlan``) equal to the ``Pipeline``'s ``vanilla`` step bit for
+     bit; rounds 2 / 2 / 6 a step; three ``DeprecationWarning``s; (d) the
+     MFG-level ``kernels.ops`` (``fused_sample`` per level,
+     ``sage_aggregate`` per MFG, ``feature_gather`` of the fetch) at the
+     step's shapes against their plain versions; (e) ``fused_sample``
+     (not under vanilla), ``feature_gather`` and the ``sage_aggregate``
+     forward, backward and transpose launched on each route.  Paid for by
+     depth cuts: phase 9's runs 4 steps restarted at 2 (were 6 at 3),
+     phase 14's fleets 2 steps (were 3).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1572,11 +1592,12 @@ OVERLAP_RUNS = (       # (label, prefetch depth, staging, feature store)
     ("double_buffer depth 1 + staging", 1, True, "pinned_hot"),
     ("staged store, depth 1", 1, False, "staged"),
 )
-# phase 9's runs: 6 steps held to phase 8's first 6 losses and its
-# parameters after them, restarted at step 3 (a depth cut for the time
-# bound; they were 10 steps restarted at 5)
-OVERLAP_STEPS = 6
-RESTART = 3
+# phase 9's runs: 4 steps held to phase 8's first 4 losses and its
+# parameters after them, restarted at step 2 (depth cuts for the time
+# bound: 10 steps restarted at 5, then 6 at 3, now 4 at 2 to pay for
+# phase 18)
+OVERLAP_STEPS = 4
+RESTART = 2
 # the staged store's run: its steps take about a second of host work each,
 # so it runs 3 steps held to phase 8's first 3 losses and its parameters
 # after them, restarts at step 1 and times no spans
@@ -2926,8 +2947,9 @@ LAUNCHER_BATCH = 64
 PAIR_EXECUTOR = "multiprocess_ranks01"
 LAUNCH_TIME_ENV = "CHIP_SMOKE_FLEET_LAUNCHED"   # the parent's time.time()
 # steps of each fleet and of its stacked reference (depth cuts for the
-# time bound: TRAIN_STEPS, 10, then 5, now 3 to pay for phase 17)
-FLEET_STEPS = 3
+# time bound: TRAIN_STEPS, 10, then 5, then 3 to pay for phase 17, now 2
+# to pay for phase 18)
+FLEET_STEPS = 2
 # fleet vs the stacked executor: both take the rule of
 # repro_torch.pipeline.prefetch (each worker's own backward, then the mean
 # in worker order), so the losses of all FLEET_STEPS steps and the
@@ -4373,6 +4395,238 @@ def lm_part2_phase(proc) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 18: repro's seed API (the deprecated step shims) at phase 8's width
+# --------------------------------------------------------------------------
+
+SEED_API_STEPS = 2
+SEED_API_CACHE_K = CACHE_K       # degree-cache rows a worker, as phase 8's
+
+
+def same_step(a, b) -> bool:
+    """Two (loss, grads) results equal bit for bit."""
+    import torch
+    from repro_torch.optim import tree_leaves
+    return torch.equal(a[0], b[0]) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a[1]),
+                                          tree_leaves(b[1])))
+
+
+def check_seed_ops(layout, batch, salt: int, cfg) -> dict:
+    """Phase 18 (d): the MFG-level ``kernels.ops`` wrappers on one step's
+    shapes against their plain versions: ``fused_sample`` per level and
+    ``feature_gather`` exactly, ``sage_aggregate`` per MFG equal to the
+    f-ordered loop bit for bit and within SAGE_TOL of the plain version."""
+    import torch
+    from repro_torch.core.dist import (exchange, owner_local_ids, owner_of,
+                                       pack_by_owner)
+    from repro_torch.core.sampler import level_salt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.feature_gather import feature_gather_plain
+    from repro_torch.kernels.fused_sample import fused_sample_plain
+    from repro_torch.kernels.sage_aggregate import sage_aggregate_plain
+
+    graph = layout.graph
+    for depth, (m, fanout) in enumerate(zip(batch.mfgs, cfg.fanouts)):
+        salt_d = level_salt(salt, depth)
+        got = ops.fused_sample(graph, m.dst_nodes, fanout, salt_d)
+        want = fused_sample_plain(graph.indptr, graph.indices, m.dst_nodes,
+                                  salt_d, fanout=fanout)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) \
+                or not torch.equal(got[1], m.indptr):
+            raise AssertionError(f"phase 18 (d): ops.fused_sample level "
+                                 f"{depth} differs from its plain version "
+                                 f"or from the step's MFG")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errs = []
+    L = len(batch.mfgs)
+    for i, m in enumerate(batch.mfgs):
+        h = batch.h_src if i == L - 1 else torch.randn(
+            m.src_nodes.shape[0], m.src_nodes.shape[1], cfg.hidden_dim,
+            device="cuda", generator=gen)
+        got = ops.sage_aggregate(m, h)
+        plain = sage_aggregate_plain(m.edges, h)
+        err = float((got - plain).abs().max())
+        if not torch.equal(got, f_ordered_mean(m.edges, h)) \
+                or not torch.allclose(got, plain, rtol=SAGE_TOL,
+                                      atol=SAGE_TOL):
+            raise AssertionError(f"phase 18 (d): ops.sage_aggregate on MFG "
+                                 f"{i} {tuple(m.edges.shape)}: max abs err "
+                                 f"{err} against the plain version, or not "
+                                 f"the f-ordered loop's bits")
+        errs.append(err)
+    src = batch.mfgs[-1].src_nodes
+    buf, _, _ = pack_by_owner(src, owner_of(layout.offsets, src), NUM_PARTS)
+    ids = owner_local_ids(exchange(buf, None), layout.offsets, layout.n_max)
+    if not torch.equal(ops.feature_gather(ids, layout.features),
+                       feature_gather_plain(ids, layout.features)):
+        raise AssertionError("phase 18 (d): ops.feature_gather differs from "
+                             "its plain version")
+    log(f"  (d) kernels.ops at the step's shapes: fused_sample, 3 levels, "
+        f"== fused_sample_plain and the step's row pointers; sage_aggregate "
+        f"on MFGs " + ", ".join(str(tuple(m.edges.shape))
+                                for m in batch.mfgs)
+        + f" == the f-ordered loop bit for bit, max abs err "
+        + ", ".join(f"{e:.3g}" for e in errs)
+        + f" against the plain version (tol {SAGE_TOL}); feature_gather "
+        f"ids {tuple(ids.shape)} == feature_gather_plain")
+    return {"sage_aggregate_max_abs_err": errs}
+
+
+def seed_api_phase(layout, data, cfg, params0) -> tuple[dict, dict]:
+    """Phase 18: ``repro``'s seed API on phase 8's layout and initial
+    parameters, 1000 seeds a worker.  (a) ``dist.make_worker_step``
+    (hybrid, the ``fused_cuda`` level backend) through ``run_stacked`` ==
+    the ``Pipeline``'s ``hybrid+fused`` step bit for bit; (b)
+    ``build_degree_caches`` + ``make_cached_worker_step`` +
+    ``run_stacked_cached`` == (a) bit for bit, hit rate above 0; (c) the
+    shim under ``vanilla`` (``plan_from_legacy``, ``build_vanilla``'s
+    shards) == the ``Pipeline``'s ``vanilla`` step bit for bit; (d) the
+    MFG-level ``kernels.ops``.  Returns ({path: launch counts}, numbers)."""
+    import warnings
+
+    import torch
+    import repro_torch.kernels as K
+    from repro_torch.core import cache as C
+    from repro_torch.core import dist
+    from repro_torch.core.partition import build_vanilla
+    from repro_torch.core.sampler import resolve_backend
+    from repro_torch.models.gnn import gnn_loss
+    from repro_torch.pipeline import Pipeline, PipelineSpec
+
+    def loss_fn(p, mfgs, h, lab, v):
+        return gnn_loss(p, mfgs, h, lab, v, cfg)
+
+    t0 = time.perf_counter()
+    pipes = {s: Pipeline.from_layout(layout, PipelineSpec.from_scheme(
+        s, num_parts=NUM_PARTS, fanouts=cfg.fanouts, data=data))
+        for s in ("hybrid+fused", "vanilla")}
+    salts = [TRAIN_SALT + k for k in range(SEED_API_STEPS)]
+    seeds = [pipes["hybrid+fused"].seeds(TRAIN_BATCH, s) for s in salts]
+    vplan = build_vanilla(layout)
+    shards = dist.WorkerShard(features=layout.features, labels=layout.labels)
+    vshards = dist.WorkerShard(features=layout.features, labels=layout.labels,
+                               local_indptr=vplan.local_indptr,
+                               local_indices=vplan.local_indices)
+    counters = {k: dist.RoundCounter() for k in ("a", "b", "c")}
+    legacy = dict(offsets=layout.offsets, num_parts=NUM_PARTS,
+                  fanouts=cfg.fanouts, loss_fn=loss_fn)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", DeprecationWarning)
+        shim = dist.make_worker_step(
+            graph_replicated=layout.graph, scheme="hybrid",
+            level_fn=resolve_backend("fused_cuda"), counter=counters["a"],
+            **legacy)
+        vshim = dist.make_worker_step(graph_replicated=None,
+                                      scheme="vanilla",
+                                      counter=counters["c"], **legacy)
+        cache = C.build_degree_caches(layout, SEED_API_CACHE_K)
+    warned = [w for w in caught if issubclass(w.category,
+                                              DeprecationWarning)]
+    if len(warned) != 3:
+        raise AssertionError(f"phase 18: {len(warned)} DeprecationWarnings "
+                             f"from the three deprecated builders")
+    cstep = C.make_cached_worker_step(
+        graph_replicated=layout.graph, level_fn=resolve_backend("fused_cuda"),
+        counter=counters["b"], **legacy)
+    log(f"  set-up: hybrid+fused and vanilla pipelines over phase 3's "
+        f"layout, vanilla shards {tuple(vplan.local_indices.shape)}, degree "
+        f"caches {tuple(cache.rows.shape)}, 3 DeprecationWarnings: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def drive(label, fn):
+        """The seed API's route for SEED_API_STEPS steps, with every launch
+        count set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        outs, walls = [], []
+        for k in range(SEED_API_STEPS):
+            t1 = time.perf_counter()
+            outs.append(fn(seeds[k], salts[k]))
+            float(outs[-1][0])                          # synchronizes
+            walls.append((time.perf_counter() - t1) * 1e3)
+        counts = K.launch_counts()
+        log(f"  {label}: losses "
+            + ", ".join(f"{float(o[0]):.6f}" for o in outs)
+            + ", step walls " + ", ".join(f"{w:.3f}" for w in walls)
+            + f" ms; launches {counts}")
+        return outs, counts, walls
+
+    def pipeline_steps(scheme):
+        step = pipes[scheme].step_fn(loss_fn)
+        return [step(params0, seeds[k], salts[k])[:2]
+                for k in range(SEED_API_STEPS)]
+
+    paths, numbers = {}, {}
+    log("-- (a) dist.make_worker_step(scheme='hybrid', fused_cuda) + "
+        "run_stacked against Pipeline(hybrid+fused).step_fn")
+    a, paths["seed api hybrid+fused"], walls_a = drive(
+        "shim", lambda s, salt: dist.run_stacked(shim, params0, shards, s,
+                                                 salt))
+    ref = pipeline_steps("hybrid+fused")
+    if not all(same_step(x, y) for x, y in zip(a, ref)):
+        raise AssertionError("phase 18 (a): the shim's loss or gradients "
+                             "differ from the pipeline's hybrid+fused step")
+    log(f"  (a) the shim's {SEED_API_STEPS} losses and every gradient leaf "
+        f"== the pipeline's bit for bit; {counters['a'].rounds} rounds over "
+        f"the steps")
+
+    log(f"-- (b) build_degree_caches({SEED_API_CACHE_K}) + "
+        f"make_cached_worker_step + run_stacked_cached against (a)")
+    b, paths["seed api cached"], walls_b = drive(
+        "cached step", lambda s, salt: C.run_stacked_cached(
+            cstep, params0, shards, s, salt, cache))
+    if not all(same_step(x, y) for x, y in zip(b, a)):
+        raise AssertionError("phase 18 (b): the cached step's loss or "
+                             "gradients differ from the shim's")
+    hit_rates = [float(x[2]) for x in b]
+    if not min(hit_rates) > 0.0:
+        raise AssertionError(f"phase 18 (b): hit rates {hit_rates}")
+    log(f"  (b) cached == (a) bit for bit (loss and every gradient leaf); "
+        f"hit rate " + ", ".join(f"{h:.4f}" for h in hit_rates)
+        + f" (mean over the workers, capacity {SEED_API_CACHE_K} a worker)")
+
+    log("-- (c) the shim under vanilla (plan_from_legacy, build_vanilla's "
+        "shards) against Pipeline(vanilla).step_fn")
+    c, paths["seed api vanilla"], walls_c = drive(
+        "vanilla shim", lambda s, salt: dist.run_stacked(
+            vshim, params0, vshards, s, salt))
+    if not all(same_step(x, y) for x, y in zip(c, pipeline_steps("vanilla"))):
+        raise AssertionError("phase 18 (c): the vanilla shim's loss or "
+                             "gradients differ from the pipeline's vanilla "
+                             "step")
+    log(f"  (c) == the pipeline's vanilla step bit for bit; "
+        f"{counters['c'].rounds} rounds over the steps")
+    rounds = {k: v.rounds / SEED_API_STEPS for k, v in counters.items()}
+    if rounds != {"a": 2, "b": 2, "c": 6}:
+        raise AssertionError(f"phase 18: rounds a step {rounds}, expected "
+                             f"2 / 2 / 6")
+
+    log("-- (e) launches of the seed API's runs")
+    for path, counts in paths.items():
+        want = [k for k in TRAIN_PATH_KERNELS
+                if not (k == "fused_sample" and "vanilla" in path)]
+        missing = [k for k in want if counts[k] == 0]
+        if missing or counts["gather_rows"] or (
+                "vanilla" in path and counts["fused_sample"]):
+            raise AssertionError(f"phase 18 {path}: launches {counts}")
+    log("  every kernel of each path launched (fused_sample, feature_gather, "
+        "sage_aggregate forward, backward and transpose; vanilla draws "
+        "windowless, no fused_sample); gather_rows none")
+
+    log("-- (d) the MFG-level kernels.ops against their plain versions")
+    with torch.no_grad():
+        prep, _ = pipes["hybrid+fused"].make_prepare_consume(
+            loss_fn, counted=False)
+        batch = prep(pipes["hybrid+fused"].shards, seeds[0], salts[0])
+    numbers["ops"] = check_seed_ops(layout, batch, salts[0], cfg)
+    numbers.update(losses=[float(x[0]) for x in a], hit_rates=hit_rates,
+                   rounds=rounds, step_walls_ms={
+                       "shim": walls_a, "cached": walls_b,
+                       "vanilla": walls_c})
+    return paths, numbers
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4621,6 +4875,14 @@ def main() -> int:
     lm2 = lm_part2_phase(lm_dryrun)
     log(json.dumps({"lm_part2": lm2}))
     log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    log("== phase 18: repro's seed API (the deprecated step shims, the "
+        "cached step, the legacy plans, kernels.ops) at phase 8's width")
+    t0 = time.perf_counter()
+    seed_counts, seed_api = seed_api_phase(pipe.layout, data, cfg_train,
+                                           reference["params0"])
+    log(json.dumps({"seed_api": seed_api}))
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     backward_of = ("src/repro/core/mfg.py:59 (gradient of the jnp mean; the "
@@ -4652,6 +4914,7 @@ def main() -> int:
                         for path, c in fleet_counts.items()})
         by_path.update({path: c[name]
                         for path, c in dryrun_counts.items()})
+        by_path.update({path: c[name] for path, c in seed_counts.items()})
         at_step = train.get(name)
         res = serving or at_step
         entry = {

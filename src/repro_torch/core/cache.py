@@ -13,14 +13,24 @@ caches and their feature rows, stacked on the worker axis.  Cache
 construction is a registry of policies selected by
 ``PlanSpec(cache_policy=...)``; the feature fetch serves hits locally and
 sends only misses through the exchange (``repro_torch.core.dist``).
+
+``repro``'s seed API is kept beside it: the deprecated aliases
+``degree_hot_ids`` and ``build_degree_caches``, and the cached train step
+(``make_cached_worker_step``, ``run_stacked_cached``).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
+
+from repro_torch.core import dist
+# the cache-aware fetch lives in dist, a stage of the feature fetch;
+# re-exported here, as repro's module does
+from repro_torch.core.dist import fetch_features_cached  # noqa: F401
 
 SENTINEL = 2 ** 31 - 1
 
@@ -207,6 +217,18 @@ register_hot_scorer("frequency", _frequency_factory)
 register_hot_scorer("blend", lambda *p: BlendScorer(*p))
 
 
+def degree_hot_ids(graph, k: int | None = None) -> np.ndarray:
+    """Deprecated alias of the ``"degree"`` hot-set scorer: prefer
+    ``resolve_hot_scorer("degree").top_ids(graph, k)`` (the same
+    ranking)."""
+    warnings.warn(
+        "repro_torch.core.cache.degree_hot_ids is deprecated; use "
+        "resolve_hot_scorer('degree').top_ids(graph, k) from the hot-set "
+        "scorer registry",
+        DeprecationWarning, stacklevel=2)
+    return resolve_hot_scorer("degree").top_ids(graph, k)
+
+
 # --------------------------------------------------------------------------
 # feature caches
 # --------------------------------------------------------------------------
@@ -342,3 +364,57 @@ def resolve_cache_policy(name: str) -> Callable:
 
 register_cache_policy("degree", degree_caches)
 register_cache_policy("frequency", frequency_caches)
+
+
+# --------------------------------------------------------------------------
+# the seed API's cached train step (deprecated names; see the pipeline)
+# --------------------------------------------------------------------------
+
+def build_degree_caches(layout, capacity: int) -> FeatureCache:
+    """Deprecated alias of ``degree_caches``: prefer the pipeline API
+    (``repro_torch.pipeline.PlanSpec(cache_capacity=...)``)."""
+    warnings.warn(
+        "repro_torch.core.cache.build_degree_caches is deprecated; use "
+        "repro_torch.pipeline.PlanSpec(cache_capacity=...) with "
+        "Pipeline.build, or repro_torch.core.cache.degree_caches",
+        DeprecationWarning, stacklevel=2)
+    return degree_caches(layout, capacity)
+
+
+def make_cached_worker_step(*, graph_replicated, offsets, num_parts,
+                            fanouts, loss_fn, level_fn=None,
+                            counter: dist.RoundCounter | None = None):
+    """The hybrid train step with the feature cache in the fetch (the
+    exchange store's ``fetch_features_cached``).
+
+    ``step(params, shards, seeds, salt, cache) -> (loss, grads, hit_rate
+    (P,))``: the loss and gradients are the uncached step's program,
+    reduced in worker order, so they equal its bit for bit (the cache's
+    rows are the owners'); ``hit_rate`` is each worker's share of valid
+    frontier ids served from its cache.
+    """
+    from repro_torch.core.sampler import sample_level
+    from repro_torch.pipeline.prefetch import make_prepare_consume
+
+    prepare, consume = make_prepare_consume(
+        offsets=offsets, num_parts=num_parts, fanouts=fanouts,
+        loss_fn=loss_fn, scheme="hybrid", graph_replicated=graph_replicated,
+        level_fn=level_fn or sample_level, counter=counter)
+
+    def step(params, shards: dist.WorkerShard, seeds, salt,
+             cache: FeatureCache):
+        batch = prepare(shards, seeds, salt, cache)
+        loss, grads, _metrics = consume(params, batch)
+        valid = (batch.mfgs[-1].src_nodes >= 0).sum(dim=-1).clamp(min=1)
+        return loss, grads, (batch.hits / valid).to(torch.float32)
+
+    return step
+
+
+def run_stacked_cached(step, params, shards, seeds, salt,
+                       cache: FeatureCache):
+    """Run the cached step over all P stacked workers (cf.
+    ``dist.run_stacked``): the mean loss and gradients, and the hit rate
+    averaged over the workers."""
+    loss, grads, hit_rate = step(params, shards, seeds, salt, cache)
+    return loss, grads, torch.mean(hit_rate)

@@ -37,7 +37,8 @@ records per step:
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import warnings
+from typing import Callable, Sequence
 
 import torch
 
@@ -632,3 +633,81 @@ def fetch_features_cached(src_nodes: torch.Tensor, offsets: torch.Tensor,
                             group)
     h = torch.where(is_hit[..., None], hit_rows.to(h_miss.dtype), h_miss)
     return h, is_hit.sum(dim=-1)
+
+
+# --------------------------------------------------------------------------
+# the seed API's train step (deprecated shim; see repro_torch.pipeline)
+# --------------------------------------------------------------------------
+
+def make_worker_step(*, graph_replicated: CSCGraph | None,
+                     offsets: torch.Tensor, num_parts: int,
+                     fanouts: Sequence[int], scheme: str,
+                     loss_fn: Callable, level_fn=sample_level,
+                     counter: RoundCounter | None = None,
+                     vanilla_fused: bool = False,
+                     group: RankGroup | None = None):
+    """Deprecated: the train step of ``repro``'s seed API.
+
+    Use ``repro_torch.pipeline.Pipeline`` (or, for the raw step program,
+    ``repro_torch.pipeline.worker.make_worker_step``), to which this
+    delegates.  Returns ``step(params, shards, seeds, salt) -> (loss,
+    grads)``: the mean over the workers, the metrics dropped.  ``group``
+    builds a fleet rank's step, for ``make_shard_map_step``.
+    """
+    warnings.warn(
+        "repro_torch.core.dist.make_worker_step is deprecated; use "
+        "repro_torch.pipeline.Pipeline.from_layout(...).step_fn(...) or "
+        "repro_torch.pipeline.worker.make_worker_step",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.pipeline.worker import make_worker_step as _make
+
+    inner = _make(graph_replicated=graph_replicated, offsets=offsets,
+                  num_parts=num_parts, fanouts=fanouts, scheme=scheme,
+                  loss_fn=loss_fn, level_fn=level_fn, counter=counter,
+                  vanilla_fused=vanilla_fused, group=group)
+
+    def step(params, shards: WorkerShard, seeds, salt):
+        loss, grads, _metrics = inner(params, shards, seeds, salt)
+        return loss, grads
+
+    step.group = group
+    return step
+
+
+def run_stacked(step, params, shards: WorkerShard, seeds, salt):
+    """Run the seed API's step over all P stacked workers; returns the
+    mean loss and gradients.  ``repro`` maps its per-worker step with
+    ``vmap`` and takes worker 0's copy of the replicated mean; the port's
+    step is already the stacked program under ``repro``'s gradient rule
+    (each worker's own backward, then the mean in worker order), with the
+    one replicated value as its result, so this is a call."""
+    return step(params, shards, seeds, salt)
+
+
+def make_shard_map_step(step, group: RankGroup):
+    """A fleet rank's run of the seed API's step, ``repro``'s
+    ``shard_map`` wrapper: ``run(params, shards, seeds, salt) -> (loss,
+    grads)`` takes the (P, ...) stacked shards and seeds of all workers,
+    keeps the rank's block (rows ``group.lo .. group.hi - 1``, where
+    ``repro`` keeps a device's ``a[0]``) and runs ``step`` on it; the loss
+    and gradients are reduced over all P workers, the same on every rank.
+
+    ``repro``'s mesh becomes the rank's ``group`` (``dist.rank_group``),
+    and ``step`` must be built with it (``make_worker_step(group=...)``).
+    Its three partition specs have no counterpart: the parameters are
+    replicated on every rank and the stacked arguments split on axis 0.
+    """
+    if getattr(step, "group", None) != group:
+        raise ValueError(
+            f"the step was built for group {getattr(step, 'group', None)!r}"
+            f", not {group!r}; build it with make_worker_step(group=...)")
+    rows = slice(group.lo, group.hi)
+
+    def run(params, shards: WorkerShard, seeds, salt):
+        mine = WorkerShard(**{
+            f.name: None if getattr(shards, f.name) is None
+            else getattr(shards, f.name)[rows]
+            for f in dataclasses.fields(shards)})
+        return step(params, mine, seeds[rows], salt)
+
+    return run

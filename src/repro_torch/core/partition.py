@@ -689,15 +689,37 @@ def build_layout(graph: CSCGraph, features: np.ndarray, labels: np.ndarray,
     )
 
 
-def build_vanilla(layout: PartitionLayout
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The paper's baseline topology: each worker stores only its
-    partition's in-edge lists.  Slices them out of the global CSC, on the
-    host, and returns ``(local_indptr (P, n_max+1), local_indices (P,
-    nnz_max))`` int32 (global source ids) on the layout's device.  Row p of
+@dataclasses.dataclass(frozen=True)
+class VanillaPlan:
+    """The paper's baseline: each worker stores only its partition's
+    in-edge lists, ``local_indptr`` (P, n_max + 1) and ``local_indices``
+    (P, nnz_max) int32 on the layout's device.
+
+    Legacy container, as in ``repro``; the registry's counterpart is
+    ``repro_torch.core.placement.resolve_scheme("vanilla").build(layout)``.
+    """
+    layout: PartitionLayout
+    local_indptr: torch.Tensor
+    local_indices: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridPlan:
+    """The paper's contribution: topology replicated, features
+    partitioned.
+
+    Legacy container, as in ``repro``; the registry's counterpart is
+    ``repro_torch.core.placement.resolve_scheme("hybrid").build(layout)``.
+    """
+    layout: PartitionLayout
+
+
+def build_vanilla(layout: PartitionLayout) -> VanillaPlan:
+    """Slice each partition's in-edge lists out of the global CSC, on the
+    host, into a ``VanillaPlan`` on the layout's device.  Row p of
     ``local_indptr`` is worker p's row pointer from 0, its tail repeating
-    the last entry; ``local_indices`` is padded with -1 to the largest
-    slice (at least 1 wide), as ``repro`` pads it."""
+    the last entry; ``local_indices`` holds global source ids padded with
+    -1 to the largest slice (at least 1 wide), as ``repro`` pads it."""
     indptr, indices = layout.graph.numpy()
     offsets = layout.host_offsets_labels()[0]
     P = layout.num_parts
@@ -713,8 +735,14 @@ def build_vanilla(layout: PartitionLayout
         li[p, :rows.size] = rows
         li[p, rows.size:] = rows[-1]
         lx[p, :nnz[p]] = indices[indptr[lo]:indptr[hi]]
-    return (torch.from_numpy(li).to(layout.device),
-            torch.from_numpy(lx).to(layout.device))
+    return VanillaPlan(layout=layout,
+                       local_indptr=torch.from_numpy(li).to(layout.device),
+                       local_indices=torch.from_numpy(lx).to(layout.device))
+
+
+def build_hybrid(layout: PartitionLayout) -> HybridPlan:
+    """The hybrid placement's legacy container: the layout itself."""
+    return HybridPlan(layout=layout)
 
 
 # --------------------------------------------------------------------------

@@ -78,7 +78,13 @@ class PlacementPlan:
     def shard_topology(self):
         """(local_indptr, local_indices) for the ``WorkerShard``: both
         ``None`` for schemes whose workers read no local topology (the
-        port's shard is no pytree, so it needs no placeholder)."""
+        port's shard is no pytree, so it needs no placeholder).  Raises
+        for a plan built without a layout (``plan_from_legacy``) of a
+        scheme whose workers read one."""
+        if self.local_indptr is None and self.scheme.local_topology:
+            raise ValueError(
+                f"plan for scheme {self.scheme.name!r} was built without a "
+                f"layout; shard topology is unavailable")
         return self.local_indptr, self.local_indices
 
     def trace_rounds(self, num_layers: int) -> int:
@@ -178,6 +184,9 @@ class PlacementScheme:
 
     name: str = "?"
     uses_level_backend: bool = False
+    # whether the workers sample their own partition's in-edges
+    # (``WorkerShard.local_indptr`` / ``local_indices``)
+    local_topology: bool = True
 
     def build(self, layout) -> PlacementPlan:
         raise NotImplementedError
@@ -201,12 +210,12 @@ class VanillaScheme(PlacementScheme):
 
     def build(self, layout) -> PlacementPlan:
         from repro_torch.core.partition import build_vanilla
-        local_indptr, local_indices = build_vanilla(layout)
+        local = build_vanilla(layout)
         remote = _remote_edges(layout, *layout.graph.numpy())
         return PlacementPlan(scheme=self, offsets=layout.offsets,
                              num_parts=layout.num_parts,
-                             local_indptr=local_indptr,
-                             local_indices=local_indices,
+                             local_indptr=local.local_indptr,
+                             local_indices=local.local_indices,
                              remote_source_fraction=_edge_share(remote))
 
     def sample(self, plan, shard, seeds, fanouts, salt, *, level_fn=None,
@@ -234,6 +243,7 @@ class HybridScheme(PlacementScheme):
 
     name = "hybrid"
     uses_level_backend = True
+    local_topology = False
 
     def build(self, layout) -> HybridPlacementPlan:
         return HybridPlacementPlan(scheme=self, offsets=layout.offsets,
@@ -307,12 +317,12 @@ class HybridPartialScheme(PlacementScheme):
         replicated = int(hot_deg.sum())
 
         # workers keep their vanilla slice to serve cold requests
-        local_indptr, local_indices = build_vanilla(layout)
+        local = build_vanilla(layout)
         return PartialPlacementPlan(
             scheme=self, offsets=layout.offsets,
             num_parts=layout.num_parts,
-            local_indptr=local_indptr,
-            local_indices=local_indices,
+            local_indptr=local.local_indptr,
+            local_indices=local.local_indices,
             remote_source_fraction=_edge_share(remote),
             hot_graph=hot_graph,
             hot_mask=torch.from_numpy(hot_mask).to(dev),
@@ -422,3 +432,29 @@ register_scheme("hybrid", _unparameterized(HybridScheme))
 register_scheme("hybrid_partial",
                 lambda frac=None: HybridPartialScheme(frac))
 
+
+def plan_from_legacy(scheme: str, *, graph_replicated=None, offsets=None,
+                     num_parts: int = 0) -> PlacementPlan:
+    """A layout-free plan from the legacy ``(scheme, graph_replicated)``
+    calling convention of the step builders, as ``repro``'s.  It holds no
+    shard topology: a vanilla worker's in-edges come from the caller's
+    ``WorkerShard`` (``partition.build_vanilla``), and a hybrid worker
+    reads none.  Parameterized schemes need a layout-built plan:
+    ``resolve_scheme(name).build(layout)``, passed as ``plan=``."""
+    base, frac = parse_scheme_name(scheme)
+    if base == "vanilla":
+        return PlacementPlan(scheme=resolve_scheme("vanilla"),
+                             offsets=offsets, num_parts=num_parts)
+    if base == "hybrid":
+        if graph_replicated is None:
+            raise ValueError("hybrid scheme needs the replicated topology")
+        return HybridPlacementPlan(scheme=resolve_scheme("hybrid"),
+                                   offsets=offsets, num_parts=num_parts,
+                                   graph=graph_replicated)
+    if frac is not None or base in _SCHEMES:
+        raise ValueError(
+            f"scheme {scheme!r} needs a layout-built plan; construct it "
+            f"with resolve_scheme({scheme!r}).build(layout) and pass "
+            f"plan=... (or use repro_torch.pipeline.Pipeline)")
+    raise ValueError(f"unknown scheme {scheme!r}; "
+                     f"available: {available_schemes()}")

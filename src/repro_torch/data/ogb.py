@@ -14,10 +14,15 @@ under ``--root``, downloads) OGB's files.
 """
 from __future__ import annotations
 
+import importlib.util
+
 import numpy as np
 
 from repro_torch.core.graph import csc_from_numpy_edges
 from repro_torch.data.synthetic_graph import GraphDataset
+
+# whether the optional package is installed (found, not imported)
+HAVE_OGB = importlib.util.find_spec("ogb") is not None
 
 
 def _node_prop_dataset():

@@ -92,3 +92,17 @@ def papers_like(scale: int = 1, seed: int = 0) -> GraphDataset:
     return make_power_law_graph(40_000 * scale, 14, num_features=128,
                                 num_classes=172, labeled_fraction=0.01,
                                 seed=seed)
+
+
+# the paper's Table 1 (full-scale sizes), for the storage analytics beside
+# the synthetic stand-ins' own statistics
+PAPER_TABLE1 = {
+    "ogbn-products": dict(nodes=2_500_000, edges=124_000_000,
+                          features=100, classes=47),
+    "ogbn-papers100M": dict(nodes=111_000_000, edges=3_200_000_000,
+                            features=128, classes=172),
+    "MAG240M": dict(nodes=244_160_499, edges=1_728_364_232, features=768,
+                    classes=153),
+    "IGBH-full": dict(nodes=269_364_174, edges=3_995_777_033, features=1024,
+                      classes=2983),
+}

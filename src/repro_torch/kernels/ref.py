@@ -1,8 +1,10 @@
-"""Oracles for the fused sampling kernel, built from the sampler alone.
+"""Oracles for the kernels (counterpart of ``repro.kernels.ref``).
 
-Counterpart of ``repro.kernels.ref``'s sampling oracles.  They share no
-code path with ``fused_sample_plain`` beyond the column draw: the windowed
+The sampling oracles are built from the sampler alone: they share no code
+path with ``fused_sample_plain`` beyond the column draw, and the windowed
 oracle truncates the graph itself and reruns the unwindowed sampler.
+``ref_feature_gather`` and ``ref_mean_aggregate`` are ``repro``'s names
+of the gather's and the aggregate's plain versions.
 """
 from __future__ import annotations
 
@@ -11,6 +13,11 @@ import torch
 
 from repro_torch.core.graph import CSCGraph
 from repro_torch.core.sampler import build_indptr, sample_neighbors
+from repro_torch.kernels.feature_gather import feature_gather_plain
+from repro_torch.kernels.sage_aggregate import sage_aggregate_plain
+
+ref_feature_gather = feature_gather_plain
+ref_mean_aggregate = sage_aggregate_plain
 
 
 def ref_fused_sample(graph: CSCGraph, seeds: torch.Tensor, fanout: int,

@@ -210,6 +210,11 @@ class ShardMapExecutor(FleetExecutor):
         return group
 
 
+# repro's class names: VmapExecutor is its single-device simulation,
+# MultiprocessExecutor its process-per-rank fleet
+VmapExecutor = StackedExecutor
+MultiprocessExecutor = FleetExecutor
+
 register_executor("vmap", StackedExecutor)
 register_executor("stacked", StackedExecutor)
 register_executor("multiprocess", FleetExecutor)

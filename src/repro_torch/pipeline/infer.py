@@ -27,20 +27,26 @@ from repro_torch.pipeline.prefetch import PreparedBatch, make_prepare
 
 def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
                                fanouts: Sequence[int],
-                               forward_fn: Callable, plan,
+                               forward_fn: Callable, plan=None,
                                backend: str | None = None,
                                level_fn: Callable | None = None,
                                counter: dist.RoundCounter | None = None,
-                               group: dist.RankGroup | None = None):
+                               group: dist.RankGroup | None = None,
+                               scheme: str = "hybrid",
+                               graph_replicated=None,
+                               vanilla_fused: bool | None = None):
     """Build the *prepare* / *consume* halves of the inference step.
 
     ``forward_fn(params, mfgs, h_src) -> (P, batch, C) logits``; the other
-    arguments are as in ``repro_torch.pipeline.prefetch.make_prepare``,
-    so serving runs every placement scheme.
+    arguments, ``repro``'s legacy keywords among them, are as in
+    ``repro_torch.pipeline.prefetch.make_prepare``, so serving runs every
+    placement scheme.
     """
     prepare = make_prepare(offsets=offsets, num_parts=num_parts,
                            fanouts=fanouts, plan=plan, backend=backend,
-                           level_fn=level_fn, counter=counter, group=group)
+                           level_fn=level_fn, counter=counter, group=group,
+                           scheme=scheme, graph_replicated=graph_replicated,
+                           vanilla_fused=vanilla_fused)
 
     def consume(params, batch: PreparedBatch):
         logits = dist.all_workers(
@@ -59,17 +65,20 @@ def make_infer_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
     return prepare, consume
 
 
-def make_infer_step(*, offsets, num_parts, fanouts, forward_fn, plan,
+def make_infer_step(*, offsets, num_parts, fanouts, forward_fn, plan=None,
                     backend: str | None = None,
                     level_fn: Callable | None = None,
                     counter: dist.RoundCounter | None = None,
-                    group: dist.RankGroup | None = None):
+                    group: dist.RankGroup | None = None,
+                    scheme: str = "hybrid", graph_replicated=None,
+                    vanilla_fused: bool | None = None):
     """The composed inference program: ``step(params, shard, seeds, salt,
     cache=None) -> (logits, metrics)`` over the stacked worker axis."""
     prepare, consume = make_infer_prepare_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         forward_fn=forward_fn, plan=plan, backend=backend,
-        level_fn=level_fn, counter=counter, group=group)
+        level_fn=level_fn, counter=counter, group=group, scheme=scheme,
+        graph_replicated=graph_replicated, vanilla_fused=vanilla_fused)
 
     def step(params, shard, seeds, salt, cache=None):
         return consume(params, prepare(shard, seeds, salt, cache))

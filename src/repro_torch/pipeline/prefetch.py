@@ -87,11 +87,14 @@ def worker_rows(mfg, rows: slice):
 
 def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                                fanouts: Sequence[int], loss_fn: Callable,
-                               plan, backend: str | None = None,
+                               plan=None, backend: str | None = None,
                                level_fn: Callable | None = None,
                                counter: dist.RoundCounter | None = None,
                                store=None, features: bool = True,
-                               group: dist.RankGroup | None = None):
+                               group: dist.RankGroup | None = None,
+                               scheme: str = "hybrid",
+                               graph_replicated=None,
+                               vanilla_fused: bool | None = None):
     """Build ``(prepare, fetch, consume)``, the training step's halves with
     the feature stage exposed.
 
@@ -120,15 +123,25 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
     stacked argument and result holds the rank's workers only, and the
     loss, gradients and metrics are reduced over all P workers (the
     module's docstring says how).
+
+    ``repro``'s legacy keywords: without a ``plan`` one is built from
+    ``scheme`` and ``graph_replicated`` (``placement.plan_from_legacy``);
+    ``vanilla_fused`` overrides how the partitioned protocols build a
+    level's row pointer (``None`` keeps the default above).
     """
     from repro_torch.core.feature_store import ExchangeStore
+    from repro_torch.core.placement import plan_from_legacy
 
+    if plan is None:
+        plan = plan_from_legacy(scheme, graph_replicated=graph_replicated,
+                                offsets=offsets, num_parts=num_parts)
     if backend is not None and level_fn is not None:
         raise ValueError("pass either backend or level_fn, not both")
     if level_fn is None:
         backend = backend or "reference"
         level_fn = resolve_backend(backend)
-    fused = backend is not None and backend != "unfused"
+    fused = vanilla_fused if vanilla_fused is not None else (
+        backend is not None and backend != "unfused")
     if store is None:
         store = ExchangeStore()
     if store.external_rows and not features:
@@ -238,34 +251,41 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
 
 
 def make_prepare(*, offsets: torch.Tensor, num_parts: int,
-                 fanouts: Sequence[int], plan,
+                 fanouts: Sequence[int], plan=None,
                  backend: str | None = None,
                  level_fn: Callable | None = None,
                  counter: dist.RoundCounter | None = None,
-                 store=None, group: dist.RankGroup | None = None):
+                 store=None, group: dist.RankGroup | None = None,
+                 scheme: str = "hybrid", graph_replicated=None,
+                 vanilla_fused: bool | None = None):
     """The prepare half alone (``make_prepare_fetch_consume``'s first
     callable, features fetched): ``prepare(shard, seeds, salt, cache=None,
     staged=None) -> PreparedBatch``."""
     prepare, _, _ = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts, loss_fn=None,
         plan=plan, backend=backend, level_fn=level_fn, counter=counter,
-        store=store, group=group)
+        store=store, group=group, scheme=scheme,
+        graph_replicated=graph_replicated, vanilla_fused=vanilla_fused)
     return prepare
 
 
 def make_prepare_consume(*, offsets: torch.Tensor, num_parts: int,
-                         fanouts: Sequence[int], loss_fn: Callable, plan,
-                         backend: str | None = None,
+                         fanouts: Sequence[int], loss_fn: Callable,
+                         plan=None, backend: str | None = None,
                          level_fn: Callable | None = None,
                          counter: dist.RoundCounter | None = None,
                          store=None, features: bool = True,
-                         group: dist.RankGroup | None = None):
+                         group: dist.RankGroup | None = None,
+                         scheme: str = "hybrid", graph_replicated=None,
+                         vanilla_fused: bool | None = None):
     """The *prepare* / *consume* halves of the training step
     (``make_prepare_fetch_consume`` without the standalone fetch)."""
     prepare, _, consume = make_prepare_fetch_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         loss_fn=loss_fn, plan=plan, backend=backend, level_fn=level_fn,
-        counter=counter, store=store, features=features, group=group)
+        counter=counter, store=store, features=features, group=group,
+        scheme=scheme, graph_replicated=graph_replicated,
+        vanilla_fused=vanilla_fused)
     return prepare, consume
 
 

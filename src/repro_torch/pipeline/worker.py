@@ -19,12 +19,14 @@ from repro_torch.pipeline.prefetch import make_prepare_consume
 
 
 def make_worker_step(*, offsets: torch.Tensor, num_parts: int,
-                     fanouts: Sequence[int], loss_fn: Callable, plan,
+                     fanouts: Sequence[int], loss_fn: Callable, plan=None,
                      backend: str | None = None,
                      level_fn: Callable | None = None,
                      counter: dist.RoundCounter | None = None,
                      use_cache: bool = False, store=None,
-                     group: dist.RankGroup | None = None):
+                     group: dist.RankGroup | None = None,
+                     scheme: str = "hybrid", graph_replicated=None,
+                     vanilla_fused: bool | None = None):
     """Build the step for the placement plan ``plan`` (any registered
     scheme).
 
@@ -33,12 +35,16 @@ def make_worker_step(*, offsets: torch.Tensor, num_parts: int,
     (mutually exclusive); ``store`` serves the frontier's rows (``None``
     = the exchange store).  With ``use_cache`` the step takes a trailing
     ``FeatureCache`` argument.  ``group`` builds a fleet rank's step
-    (``repro_torch.pipeline.prefetch``).
+    (``repro_torch.pipeline.prefetch``).  ``scheme``, ``graph_replicated``
+    and ``vanilla_fused`` are ``repro``'s legacy keywords: ``plan`` takes
+    precedence, and without one they resolve through
+    ``placement.plan_from_legacy``.
     """
     prepare, consume = make_prepare_consume(
         offsets=offsets, num_parts=num_parts, fanouts=fanouts,
         loss_fn=loss_fn, plan=plan, backend=backend, level_fn=level_fn,
-        counter=counter, store=store, group=group)
+        counter=counter, store=store, group=group, scheme=scheme,
+        graph_replicated=graph_replicated, vanilla_fused=vanilla_fused)
 
     if use_cache:
         def step(params, shard, seeds, salt, cache):

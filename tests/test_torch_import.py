@@ -6,7 +6,13 @@ JAX package ``repro``.
     module of ``repro_torch`` imports.
   * A static scan of the port's sources finds no such import statement, so
     a later change cannot add one in a code path the subprocess misses.
+
+And the port does all that ``repro`` does: a static scan of every module
+pair finds each public name of a ``repro`` module in its ``repro_torch``
+counterpart, apart from the names ``NO_COUNTERPART`` lists with the
+reason each has none.
 """
+import ast
 import os
 import pathlib
 import re
@@ -49,6 +55,40 @@ LM2_SLICE = ("launch.mesh", "sharding", "roofline", "launch.dryrun",
 EXAMPLES = ("quickstart_torch.py", "distributed_hybrid_torch.py",
             "train_gnn_e2e_torch.py", "serve_lm_torch.py")
 PORT = ROOT / "src" / "repro_torch"
+REPRO = ROOT / "src" / "repro"
+# public names of repro without a counterpart in repro_torch, by module
+# ("*": the whole module), each with its reason
+NO_COUNTERPART = {
+    ("compat", "*"): "shims for JAX 0.4.x's shard_map and mesh APIs",
+    ("core.dist", "AXIS"): "the named vmap / shard_map axis; the port's "
+                           "workers are stacked on axis 0",
+    ("roofline", "collective_bytes"): "parses HLO text; the port counts "
+                                      "collectives with CostCounter",
+    ("roofline", "fusable_bytes"): "parses HLO text; the port counts "
+                                   "bytes with CostCounter",
+    ("launch.dryrun", "lower_combo"): "lowers a combo to HLO; the port "
+                                      "runs it on fake tensors",
+    ("launch.mesh", "ICI_BW"): "a TPU interconnect rate; the port's is "
+                               "LINK_BW (NVLink)",
+    ("launch.multihost", "ENV_COORDINATOR"): "jax.distributed's "
+                                             "coordinator variable; the "
+                                             "port's rendezvous is "
+                                             "ENV_ADDRESS",
+    ("launch.multihost", "ENV_LOCAL_DEVICES"): "jax.distributed's "
+                                               "placeholder devices a "
+                                               "process; a port rank "
+                                               "holds its workers",
+    ("kernels.feature_gather", "TILE_I"): "a Pallas tile",
+    ("kernels.feature_gather", "TILE_T"): "a Pallas tile",
+    ("kernels.sage_aggregate", "TILE_S"): "a Pallas tile",
+    ("kernels.sage_aggregate", "TILE_N"): "a Pallas tile",
+    ("kernels.gather", "BLOCK_ROWS"): "a Pallas grid step's rows",
+    ("kernels.ops", "INTERPRET"): "Pallas interpret mode; a CPU tensor "
+                                  "takes the plain version",
+    ("models.attention", "PROBE_UNROLL"): "unrolls lax.scan for an HLO "
+                                          "probe; the port counts in "
+                                          "eager mode",
+}
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
                        re.MULTILINE)
 
@@ -106,3 +146,92 @@ def test_scan_pattern_tells_repro_from_repro_torch():
     assert FORBIDDEN.search("import repro")
     assert not FORBIDDEN.search("import repro_torch")
     assert not FORBIDDEN.search("from repro_torch.core import dist")
+
+
+def _module_name(path: pathlib.Path, root: pathlib.Path) -> str:
+    return path.relative_to(root).with_suffix("").as_posix().replace(
+        "/", ".").removesuffix(".__init__").removesuffix("__init__")
+
+
+def _repro_public_names(path: pathlib.Path) -> set:
+    """What a module of repro offers: the names it defines or assigns at
+    top level, lists in ``__all__`` or re-exports with ``noqa: F401``."""
+    text = path.read_text()
+    lines = text.splitlines()
+    names = set()
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                names.update(n.id for n in ast.walk(t)
+                             if isinstance(n, ast.Name))
+                if isinstance(t, ast.Name) and t.id == "__all__":
+                    names.update(ast.literal_eval(node.value))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            if "noqa: F401" in "\n".join(
+                    lines[node.lineno - 1:node.end_lineno]):
+                names.update(a.asname or a.name.split(".")[0]
+                             for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _port_names(path: pathlib.Path) -> set:
+    """Every name a module of the port binds at top level."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                names.update(n.id for n in ast.walk(t)
+                             if isinstance(n, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update(a.asname or a.name.split(".")[0]
+                         for a in node.names)
+    return names
+
+
+def test_port_has_every_public_name_of_repro():
+    missing, absent = [], set()
+    for path in sorted(REPRO.rglob("*.py")):
+        mod = _module_name(path, REPRO)
+        twin = PORT / path.relative_to(REPRO)
+        if not twin.is_file():
+            absent.add((mod, "*"))
+            continue
+        have = _port_names(twin)
+        for name in sorted(_repro_public_names(path) - have):
+            if (mod, name) not in NO_COUNTERPART:
+                missing.append(f"{mod}.{name}")
+            absent.add((mod, name))
+    assert not missing, f"public names of repro the port lacks: {missing}"
+    # the allow-list names only what is absent, each with its reason
+    assert set(NO_COUNTERPART) == absent, \
+        set(NO_COUNTERPART) ^ absent
+    assert all(reason.strip() for reason in NO_COUNTERPART.values())
+
+
+def test_name_scan_reads_defs_assigns_all_and_reexports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(textwrap.dedent("""
+        import os
+        from a import b  # noqa: F401
+        from c import (d,
+                       e)  # noqa: F401
+        X, (Y, Z) = 1, (2, 3)
+        T: int = 4
+        __all__ = ["W"]
+        def f(): pass
+        class K: pass
+        _hidden = 5
+    """))
+    assert _repro_public_names(src) == {"b", "d", "e", "X", "Y", "Z", "T",
+                                        "W", "f", "K"}
+    assert {"os", "b", "d", "e", "f", "K", "_hidden"} <= _port_names(src)

@@ -182,7 +182,9 @@ def test_from_scheme_mapping_and_expected_rounds_match_repro(name):
 def test_build_vanilla_bit_identical(world):
     P, _, jlayout, tlayout = world
     jv = jpart.build_vanilla(jlayout)
-    local_indptr, local_indices = tpart.build_vanilla(tlayout)
+    tv = tpart.build_vanilla(tlayout)
+    assert isinstance(tv, tpart.VanillaPlan) and tv.layout is tlayout
+    local_indptr, local_indices = tv.local_indptr, tv.local_indices
     assert local_indptr.dtype == local_indices.dtype == torch.int32
     _eq(local_indptr, jv.local_indptr)
     _eq(local_indices, jv.local_indices)
