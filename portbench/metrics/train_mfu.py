@@ -1,0 +1,20 @@
+"""The model's GEMM operations in the measured window's steps
+(``counts.gemm_flops``: forward on the valid destination rows, weight
+gradients, input gradients past the first layer) over the window's wall
+time and the H100's float32 peak outside the tensor cores, in percent."""
+from portbench import counts, h100
+
+NAME = "train_mfu"
+UNIT = "%"
+LAYER = "whole step"
+SOURCE = "host_clock"
+RUN = "traced"
+MOVES = "train_seeds_per_device_s"
+
+
+def read(run):
+    if run.window_counts is None:
+        return None
+    flops = sum(counts.gemm_flops(run.model, s)["total"]
+                for s in run.window_counts)
+    return 100.0 * flops / run.window_s / h100.FP32_FLOP_PER_S
