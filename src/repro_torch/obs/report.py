@@ -9,11 +9,13 @@ CLI reproduces that table from a recorded trace file:
 
 It aggregates the fenced stage spans ``repro_torch.obs.profile`` emits (Chrome
 cats ``sampling`` / ``feature`` / ``compute``), grouped by their ``arm``
-tag — one row per placement scheme / feature store the profile covered.
-``--summary`` additionally prints a per-span-name aggregation of every
-"X" event in the trace (count / total / mean), which is useful on traces
-recorded by ``--trace`` training runs that carry driver and stager spans
-but no fenced stage spans.
+tag — one row per placement scheme / feature store the profile covered;
+``step (ms)`` is the stage total of one profiled step.  ``--summary``
+additionally prints a per-span-name aggregation of every "X" event in the
+trace (count / total / self / mean; self time is a span's duration less
+what its child spans cover, found through their ``parent``), which is
+useful on traces recorded by ``--trace`` training runs that carry driver,
+step and stager spans but no fenced stage spans.
 """
 from __future__ import annotations
 
@@ -44,8 +46,10 @@ def stage_shares(trace) -> dict:
     -------
     dict
         ``{arm: {"sampling_us", "feature_us", "compute_us", "step_us",
-        "spans", "share": {stage: fraction}}}`` — spans with no ``arm``
-        tag land under ``"run"``.
+        "spans", "steps", "share": {stage: fraction}}}`` — the stage sums
+        over all profiled steps, ``step_us`` their total over ``steps``
+        (the arm's ``sampling`` spans, one a profiled step); spans with no
+        ``arm`` tag land under ``"run"``.
 
     Examples
     --------
@@ -56,6 +60,8 @@ def stage_shares(trace) -> dict:
     ...      "pid": 0, "tid": 0, "cat": "compute"}]})
     >>> round(shares["run"]["share"]["sampling"], 2)
     0.3
+    >>> shares["run"]["step_us"]
+    100.0
     """
     trace = _load(trace)
     groups: dict = {}
@@ -64,12 +70,13 @@ def stage_shares(trace) -> dict:
             continue
         arm = (ev.get("args") or {}).get("arm", "run")
         g = groups.setdefault(
-            arm, {f"{s}_us": 0.0 for s in STAGES} | {"spans": 0})
+            arm, {f"{s}_us": 0.0 for s in STAGES} | {"spans": 0, "steps": 0})
         g[f"{ev['cat']}_us"] += float(ev["dur"])
         g["spans"] += 1
+        g["steps"] += ev["cat"] == "sampling"
     for g in groups.values():
         total = sum(g[f"{s}_us"] for s in STAGES)
-        g["step_us"] = total
+        g["step_us"] = total / max(g["steps"], 1)
         g["share"] = {s: (g[f"{s}_us"] / total if total > 0 else 0.0)
                       for s in STAGES}
     return groups
@@ -92,15 +99,40 @@ def render_share_table(groups: dict) -> str:
 
 def span_summary(trace) -> dict:
     """Per-span-name aggregation of every "X" event:
-    ``{name: {"count", "total_us", "mean_us"}}``."""
+    ``{name: {"count", "total_us", "self_us", "mean_us"}}``.  A span's
+    self time is its duration less the durations of the spans whose
+    ``args.parent`` is its ``args.id`` (in the same process); a span
+    without an id has no known children.
+
+    Examples
+    --------
+    >>> agg = span_summary({"traceEvents": [
+    ...     {"name": "outer", "ph": "X", "ts": 0, "dur": 100, "pid": 0,
+    ...      "tid": 0, "args": {"id": 1}},
+    ...     {"name": "inner", "ph": "X", "ts": 20, "dur": 60, "pid": 0,
+    ...      "tid": 0, "args": {"id": 2, "parent": 1}}]})
+    >>> agg["outer"]["self_us"], agg["inner"]["self_us"]
+    (40.0, 60.0)
+    """
     trace = _load(trace)
+    spans = [ev for ev in trace["traceEvents"] if ev.get("ph") == "X"]
+    children: dict = {}
+    for ev in spans:
+        parent = (ev.get("args") or {}).get("parent")
+        if parent is not None:
+            key = (ev.get("pid"), parent)
+            children[key] = children.get(key, 0.0) + float(ev["dur"])
     agg: dict = {}
-    for ev in trace["traceEvents"]:
-        if ev.get("ph") != "X":
-            continue
-        a = agg.setdefault(ev["name"], {"count": 0, "total_us": 0.0})
+    for ev in spans:
+        a = agg.setdefault(ev["name"], {"count": 0, "total_us": 0.0,
+                                        "self_us": 0.0})
+        dur = float(ev["dur"])
+        span_id = (ev.get("args") or {}).get("id")
+        kids = 0.0 if span_id is None \
+            else children.get((ev.get("pid"), span_id), 0.0)
         a["count"] += 1
-        a["total_us"] += float(ev["dur"])
+        a["total_us"] += dur
+        a["self_us"] += max(0.0, dur - kids)
     for a in agg.values():
         a["mean_us"] = a["total_us"] / a["count"]
     return agg
@@ -108,12 +140,13 @@ def span_summary(trace) -> dict:
 
 def render_summary_table(agg: dict) -> str:
     """Markdown table of the span summary, heaviest spans first."""
-    lines = ["| span | count | total (ms) | mean (us) |",
-             "|---|---|---|---|"]
+    lines = ["| span | count | total (ms) | self (ms) | mean (us) |",
+             "|---|---|---|---|---|"]
     for name in sorted(agg, key=lambda n: -agg[n]["total_us"]):
         a = agg[name]
         lines.append(f"| {name} | {a['count']} "
                      f"| {a['total_us'] / 1e3:.2f} "
+                     f"| {a['self_us'] / 1e3:.2f} "
                      f"| {a['mean_us']:.1f} |")
     return "\n".join(lines)
 
@@ -144,6 +177,10 @@ def main(argv=None) -> int:
         if agg:
             print("\n## Span summary\n")
             print(render_summary_table(agg))
+        step = agg.get("driver/step")
+        if step:
+            print(f"\n{step['count']} driver steps: step (ms) "
+                  f"{step['mean_us'] / 1e3:.2f} a step")
     return 0
 
 

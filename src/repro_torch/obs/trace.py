@@ -1,29 +1,46 @@
 """Low-overhead span tracing with Chrome trace-event JSON export
-(counterpart of ``repro.obs.trace``; the same schema, span names and
-cats).
+(counterpart of ``repro.obs.trace``; the same schema, and a superset of
+its span names and cats).
 
 Design constraints, in order:
 
 1. **Cheap when off.**  Every instrumentation point in the pipeline
-   (driver steps, stager produces, serve flushes) calls ``span(...)``
-   unconditionally; with no tracer installed that is one global load and
-   the shared no-op context manager: no allocation, no sync, no branching
-   in callers.
+   (driver steps, the step's layer boundaries, stager produces, serve
+   flushes) calls ``span(...)`` unconditionally; with no tracer installed
+   and no ``torch.profiler`` recording that is one global load, one flag
+   load and the shared no-op context manager: no allocation, no sync, no
+   branching in callers.
 2. **Cheap when on.**  A recording span is two ``perf_counter_ns`` reads
    and one tuple stored into a **preallocated ring** under a lock (spans
-   are emitted a handful of times per training step, never per edge).
+   are emitted a few dozen times per training step, never per edge).
    When the ring wraps, the oldest spans are dropped and counted: a trace
    never grows without bound and never reallocates on the hot path.
 3. **Threads own their timelines.**  The span *stack* is thread-local,
    so the ``SeedStager``/``FeatureStager`` worker threads and the prefetch
    drivers nest spans independently; each thread becomes its own track
    (``tid``) in the exported trace, named after ``threading.Thread.name``.
+4. **One clock with the device trace.**  While ``torch.profiler`` is
+   recording, every span also opens a profiler range of the same name
+   (``torch.profiler.record_function``), with or without a tracer, so the
+   program's spans lie on the profiler's timeline beside the device's
+   kernels: an idle stretch of the card can be put down to the span the
+   host was in.  The range opens before the span's clock is read.  A
+   tracer also reads the epoch clock (``time.time_ns``, the profiler's)
+   beside its origin and exports it as ``clock_origin`` metadata, so its
+   own trace can be laid over a profiler trace.
+
+Every recorded span gets an ``id``; its exported ``args`` hold ``parent``,
+the id of the span enclosing it on its thread, and ``step``: its own, else
+the one it inherits from its parent (``driver/step`` stamps the step
+index, so every span of a driver step carries it).  ``obs.report``
+computes self time from ``parent``.
 
 Export is the Chrome trace-event format (the JSON flavour Perfetto and
 ``chrome://tracing`` load): complete events (``"ph": "X"``) with
 microsecond timestamps relative to the tracer's start, plus
-``process_name``/``thread_name`` metadata.  ``merge_traces`` combines
-per-rank trace files into one fleet trace by mapping rank -> ``pid``.
+``process_name``/``thread_name``/``clock_origin`` metadata.
+``merge_traces`` combines per-rank trace files into one fleet trace by
+mapping rank -> ``pid``.
 
 Fencing: spans around the step's halves measure the host's *dispatch* by
 default, since CUDA kernels run asynchronously; this keeps the overlap the
@@ -37,11 +54,13 @@ nothing.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import threading
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 _NS_PER_US = 1000.0
 
@@ -57,14 +76,40 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def add_args(self, **args) -> None:
+        """No-op: nothing records the span."""
+
 
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    """One recording span: times itself between __enter__ and __exit__."""
+class _RangeSpan:
+    """A ``torch.profiler`` range alone: the span when the profiler
+    records and no tracer is installed."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_range",)
+
+    def __init__(self, name):
+        self._range = _profiler.record_function(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+    def add_args(self, **args) -> None:
+        """No-op: a profiler range keeps its name only."""
+
+
+class _Span:
+    """One recording span: times itself between __enter__ and __exit__,
+    inside a profiler range of its name while the profiler records."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_range",
+                 "_id", "_parent", "_step")
 
     def __init__(self, tracer, name, cat, args):
         self._tracer = tracer
@@ -73,7 +118,18 @@ class _Span:
         self._args = args
 
     def __enter__(self):
-        self._tracer._stack().append(self)
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self._name)
+            self._range.__enter__()
+        stack = self._tracer._stack()
+        parent = stack[-1] if stack else None
+        self._id = next(self._tracer._ids)
+        self._parent = None if parent is None else parent._id
+        args = self._args
+        self._step = args["step"] if args and "step" in args else (
+            None if parent is None else parent._step)
+        stack.append(self)
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -83,8 +139,30 @@ class _Span:
         if stack and stack[-1] is self:
             stack.pop()
         self._tracer._record(self._name, self._cat, self._t0, dur,
-                             self._args)
+                             self._args, self._id, self._parent, self._step)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
+
+    def add_args(self, **args) -> None:
+        """Add host values known only inside the span to its ``args``."""
+        self._args = dict(self._args or (), **args)
+
+
+def _clock_origin(tries: int = 3) -> tuple[int, int]:
+    """(monotonic ns, epoch ns) of one instant: spans are stamped on the
+    monotonic clock, the profiler's events on the epoch one.  The epoch
+    clock is read between two monotonic reads and the tightest of
+    ``tries`` brackets kept, so that a preemption between the reads does
+    not shift the pair."""
+    best = None
+    for _ in range(tries):
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) // 2, unix)
+    return best[1], best[2]
 
 
 class Tracer:
@@ -123,7 +201,8 @@ class Tracer:
         self.fenced = bool(fenced)
         self.pid = int(pid)
         self.process_name = process_name
-        self.t_origin_ns = time.perf_counter_ns()
+        self.t_origin_ns, self.t_origin_unix_ns = _clock_origin()
+        self._ids = itertools.count(1)
         self._ring: list = [None] * self.capacity
         self._count = 0                      # total ever recorded
         self._lock = threading.Lock()
@@ -146,23 +225,21 @@ class Tracer:
     def span(self, name: str, cat: str | None = None, **args) -> _Span:
         """A context manager recording ``name`` over its ``with`` body.
 
-        ``cat`` is the Chrome trace category (the report CLI aggregates
-        by it: ``sampling`` / ``feature`` / ``compute`` / ``host`` /
-        ``serve``); ``args`` become the event's ``args`` dict.
+        ``cat`` is the Chrome trace category (the report CLI's share
+        table adds up the fenced stage cats ``sampling`` / ``feature`` /
+        ``compute``; the live spans use others: ``driver``, ``step``,
+        ``stager``, ``serve``, ``comm``); ``args`` become the event's
+        ``args`` dict, with its ``id``, ``parent`` and ``step``.
         """
         return _Span(self, name, cat, args or None)
 
-    def _record(self, name, cat, t0_ns, dur_ns, args) -> None:
+    def _record(self, name, cat, t0_ns, dur_ns, args, span_id, parent,
+                step) -> None:
         tid = threading.current_thread().ident
         with self._lock:
             self._ring[self._count % self.capacity] = (
-                name, cat, tid, t0_ns, dur_ns, args)
+                name, cat, tid, t0_ns, dur_ns, args, span_id, parent, step)
             self._count += 1
-
-    def instant(self, name: str, cat: str | None = None, **args) -> None:
-        """Record a zero-duration marker at the current time."""
-        t = time.perf_counter_ns()
-        self._record(name, cat, t, 0, args or None)
 
     def event(self, name: str, ts_s: float, dur_s: float, *,
               tid: int = 0, pid: int | None = None,
@@ -219,6 +296,8 @@ class Tracer:
         pname = self.process_name or f"pid{self.pid}"
         out.append({"name": "process_name", "ph": "M", "pid": self.pid,
                     "tid": 0, "args": {"name": pname}})
+        out.append({"name": "clock_origin", "ph": "M", "pid": self.pid,
+                    "tid": 0, "args": {"unix_ns": self.t_origin_unix_ns}})
         for pid, name in sorted(procs.items()):
             out.append({"name": "process_name", "ph": "M", "pid": pid,
                         "tid": 0, "args": {"name": name}})
@@ -229,15 +308,19 @@ class Tracer:
             out.append({"name": "trace_ring_dropped", "ph": "M",
                         "pid": self.pid, "tid": 0,
                         "args": {"dropped": dropped}})
-        for name, cat, tid, t0_ns, dur_ns, args in recs:
+        for name, cat, tid, t0_ns, dur_ns, args, span_id, parent, step \
+                in recs:
             ev = {"name": name, "ph": "X",
                   "ts": (t0_ns - self.t_origin_ns) / _NS_PER_US,
                   "dur": dur_ns / _NS_PER_US,
                   "pid": self.pid, "tid": tid}
             if cat:
                 ev["cat"] = cat
-            if args:
-                ev["args"] = args
+            ev["args"] = dict(args or (), id=span_id)
+            if parent is not None:
+                ev["args"]["parent"] = parent
+            if step is not None:
+                ev["args"]["step"] = step
             out.append(ev)
         out.extend(extra)
         return out
@@ -295,23 +378,24 @@ def active_tracer() -> Tracer | None:
 
 
 def span(name: str, cat: str | None = None, **args):
-    """Span on the installed tracer; the shared no-op when tracing is
-    off.  This is the form instrumentation points use:
+    """Span on the installed tracer, inside a profiler range of the same
+    name while ``torch.profiler`` records; a profiler range alone when no
+    tracer is installed; the shared no-op when neither is on.  This is
+    the form instrumentation points use:
 
     >>> with span("driver/step", cat="driver", step=3):
     ...     pass
+
+    ``args`` hold host values only: reading a device tensor here would
+    synchronize the step.  ``add_args`` on the span adds values known
+    only at its end.
     """
     t = _ACTIVE
     if t is None:
-        return _NULL_SPAN
+        if not _profiler._is_profiler_enabled:
+            return _NULL_SPAN
+        return _RangeSpan(name)
     return t.span(name, cat, **args)
-
-
-def instant(name: str, cat: str | None = None, **args) -> None:
-    """Instant marker on the installed tracer (no-op when off)."""
-    t = _ACTIVE
-    if t is not None:
-        t.instant(name, cat, **args)
 
 
 def fenced() -> bool:

@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import dist
 from repro_torch.core.graph import CSCGraph
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as _trace
 from repro_torch.pipeline.executor import resolve_executor
 from repro_torch.pipeline.specs import PipelineSpec
 
@@ -387,15 +388,22 @@ class Pipeline:
     def seeds_host(self, batch: int, epoch_salt: int) -> np.ndarray:
         """(P, batch) per-worker minibatch seeds as a host int32 array,
         drawn from each worker's own labeled nodes (deterministic in
-        ``epoch_salt``); a fleet rank's rows of the same draw."""
+        ``epoch_salt``); a fleet rank's rows of the same draw.  Traced as
+        ``seeds/draw`` with the keys it hashes and sorts and the seeds it
+        draws, over all P workers."""
         from repro_torch.core.partition import seeds_per_worker_host
-        return self.local_rows(seeds_per_worker_host(
-            self.layout, batch, epoch_salt=epoch_salt))
+        P = self.layout.num_parts
+        with _trace.span("seeds/draw", cat="step",
+                         keys=P * self.layout.n_max, seeds=P * batch):
+            return self.local_rows(seeds_per_worker_host(
+                self.layout, batch, epoch_salt=epoch_salt))
 
     def seeds(self, batch: int, epoch_salt: int) -> torch.Tensor:
-        """``seeds_host`` on the pipeline's device."""
-        return torch.from_numpy(self.seeds_host(batch, epoch_salt)).to(
-            self.device)
+        """``seeds_host`` on the pipeline's device (the copy traced as
+        ``seeds/h2d``)."""
+        host = self.seeds_host(batch, epoch_salt)
+        with _trace.span("seeds/h2d", cat="step"):
+            return torch.from_numpy(host).to(self.device)
 
     @property
     def device(self) -> torch.device:

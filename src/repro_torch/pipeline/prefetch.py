@@ -20,6 +20,12 @@ of the gradients over all P workers in worker order.  Built with
 rank's own workers and reduce across the ranks.  So the stacked
 executor and fleets of any split of the workers give the same bits.
 
+Every driver, executor and the stage profiler share these sites, which
+are traced at the step's layer boundaries (cat ``step``,
+``repro_torch.obs.trace``): ``step/sample`` and ``step/fetch`` (with the
+rounds they ran, when counted), ``model/forward`` and ``model/backward``
+for each worker, ``step/grad_mean`` and ``step/update``.
+
 ``SeedStream`` derives step k's seeds and salt from k alone, so every
 driver replays the same minibatches.  Drivers resolve by registry name
 from ``PrefetchSpec.mode``:
@@ -150,23 +156,40 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
             f"staged rows; it cannot run with features=False")
     sink_backend = getattr(level_fn, "supports_overflow_sink", False)
     L = len(fanouts)
+    first_worker = 0 if group is None else group.lo
+
+    def rounds():
+        return None if counter is None else counter.rounds
 
     def fetch(shard: dist.WorkerShard, batch: PreparedBatch, cache=None,
               staged=None):
         if batch.h_src is not None:
             return batch
-        src = batch.mfgs[-1].src_nodes
-        h_src, hits = store.fetch(src, shard, cache, offsets=offsets,
-                                  num_parts=num_parts, counter=counter,
-                                  staged_rows=staged, group=group)
-        row_bytes = 4.0 + shard.features.shape[2] \
-            * shard.features.element_size()
-        comm = dict(batch.comm, feature_utilized_bytes=store.utilized_bytes(
-            src, hits, row_bytes))
+        with _trace.span("step/fetch", cat="step") as sp:
+            r0 = rounds()
+            src = batch.mfgs[-1].src_nodes
+            h_src, hits = store.fetch(src, shard, cache, offsets=offsets,
+                                      num_parts=num_parts, counter=counter,
+                                      staged_rows=staged, group=group)
+            row_bytes = 4.0 + shard.features.shape[2] \
+                * shard.features.element_size()
+            comm = dict(batch.comm,
+                        feature_utilized_bytes=store.utilized_bytes(
+                            src, hits, row_bytes))
+            if r0 is not None:
+                sp.add_args(rounds=rounds() - r0)
         return dataclasses.replace(batch, h_src=h_src, hits=hits, comm=comm)
 
     def prepare(shard: dist.WorkerShard, seeds: torch.Tensor, salt,
                 cache=None, staged=None):
+        with _trace.span("step/sample", cat="step") as sp:
+            r0 = rounds()
+            batch = sample(shard, seeds, salt)
+            if r0 is not None:
+                sp.add_args(rounds=rounds() - r0)
+        return fetch(shard, batch, cache, staged) if features else batch
+
+    def sample(shard, seeds, salt):
         sink: list = []
         lf = level_fn
         if sink_backend:
@@ -190,13 +213,12 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
                 "feature_utilized_bytes": zeros,
                 "sampler_window_overflow": per_level.sum(dim=-1),
                 "sampler_window_overflow_per_level": per_level}
-        batch = PreparedBatch(mfgs=tuple(mfgs), h_src=None,
-                              seed_labels=seed_labels,
-                              seed_valid=seeds >= 0,
-                              hits=torch.zeros(P, dtype=torch.int64,
-                                               device=seeds.device),
-                              comm=comm)
-        return fetch(shard, batch, cache, staged) if features else batch
+        return PreparedBatch(mfgs=tuple(mfgs), h_src=None,
+                             seed_labels=seed_labels,
+                             seed_valid=seeds >= 0,
+                             hits=torch.zeros(P, dtype=torch.int64,
+                                              device=seeds.device),
+                             comm=comm)
 
     def grads_fn(params, batch: PreparedBatch):
         # repro's rule: each worker's own backward on its own slice, then
@@ -207,20 +229,28 @@ def make_prepare_fetch_consume(*, offsets: torch.Tensor, num_parts: int,
             with torch.enable_grad():
                 leaves = tree_map(
                     lambda p: p.detach().requires_grad_(True), params)
-                loss_i = loss_fn(leaves, [worker_rows(m, one)
-                                          for m in batch.mfgs],
-                                 batch.h_src[one], batch.seed_labels[one],
-                                 batch.seed_valid[one])
-                # a conv may leave a parameter unused (gcn's w_self):
-                # its gradient is zeros, as jax.grad gives it
-                g = torch.autograd.grad(loss_i.sum(), tree_leaves(leaves),
-                                        materialize_grads=True)
+                with _trace.span("model/forward", cat="step",
+                                 worker=first_worker + i):
+                    loss_i = loss_fn(leaves, [worker_rows(m, one)
+                                              for m in batch.mfgs],
+                                     batch.h_src[one],
+                                     batch.seed_labels[one],
+                                     batch.seed_valid[one])
+                with _trace.span("model/backward", cat="step",
+                                 worker=first_worker + i):
+                    # a conv may leave a parameter unused (gcn's w_self):
+                    # its gradient is zeros, as jax.grad gives it
+                    g = torch.autograd.grad(loss_i.sum(),
+                                            tree_leaves(leaves),
+                                            materialize_grads=True)
+                    flats.append(torch.cat([x.reshape(-1) for x in g]))
             losses.append(loss_i.detach())
-            flats.append(torch.cat([x.reshape(-1) for x in g]))
-        loss = dist.pmean_ordered(torch.cat(losses), group, "loss")
-        mean = dist.pmean_ordered(torch.stack(flats), group, "grads")
-        it = iter(mean.split([p.numel() for p in tree_leaves(params)]))
-        return loss, tree_map(lambda p: next(it).view(p.shape), params)
+        with _trace.span("step/grad_mean", cat="step"):
+            loss = dist.pmean_ordered(torch.cat(losses), group, "loss")
+            mean = dist.pmean_ordered(torch.stack(flats), group, "grads")
+            it = iter(mean.split([p.numel() for p in tree_leaves(params)]))
+            grads = tree_map(lambda p: next(it).view(p.shape), params)
+        return loss, grads
 
     def consume(params, batch: PreparedBatch, shard=None, cache=None):
         if batch.h_src is None:
@@ -297,11 +327,12 @@ def make_update_fn(*, lr: float = 1e-3, optimizer: str = "adamw",
     from repro_torch.optim import apply_updates, clip_by_global_norm
 
     def update(params, opt_state, grads, metrics):
-        if grad_clip is not None:
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
-            metrics = dict(metrics, grad_norm=gnorm)
-        params, opt_state = apply_updates(params, grads, opt_state,
-                                          kind=optimizer, lr=lr)
+        with _trace.span("step/update", cat="step"):
+            if grad_clip is not None:
+                grads, gnorm = clip_by_global_norm(grads, grad_clip)
+                metrics = dict(metrics, grad_norm=gnorm)
+            params, opt_state = apply_updates(params, grads, opt_state,
+                                              kind=optimizer, lr=lr)
         return params, opt_state, metrics
 
     return update

@@ -88,6 +88,8 @@ NO_COUNTERPART = {
     ("models.attention", "PROBE_UNROLL"): "unrolls lax.scan for an HLO "
                                           "probe; the port counts in "
                                           "eager mode",
+    ("obs.trace", "instant"): "no caller in the port: its markers are "
+                              "spans, which carry their step and parent",
 }
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
                        re.MULTILINE)

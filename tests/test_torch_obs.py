@@ -4,13 +4,19 @@ export schema, no-op spans, thread tracks, stager span order, the metrics
 registry and its warn-once overflow watch, driver spans at depth 0 and 1,
 fenced losses equal to unfenced ones, the stage profile and the report
 round trip, the serving loop's virtual-clock lanes, rank-trace merging),
-plus cross-checks against ``repro``:
+the port's own layer spans (every layer boundary of a ``SyncDriver`` step,
+their parents and steps, the same names as ``torch.profiler`` ranges with
+no tracer, one clock with the profiler, nothing opened with both off) and
+its report's per-step ``step (ms)`` and self time, plus cross-checks
+against ``repro``:
 
   * a trace the port exports passes ``repro.obs.trace.validate_trace``;
-  * ``repro.obs.report`` and ``repro_torch.obs.report`` give the same share
-    and summary tables for the same trace file;
+  * ``repro.obs.report`` and ``repro_torch.obs.report`` give the same
+    shares and span totals for the same trace file, and the port's
+    ``step (ms)`` is ``repro``'s over the profiled steps;
   * the port's driver, executor and serving spans carry ``repro``'s names
-    and cats for the same runs.
+    and cats for the same runs, besides the port's own layer spans
+    (cat ``step``).
 
 The two-rank fleet trace waits for the multi-rank executor.
 """
@@ -110,9 +116,11 @@ def test_tracer_records_spans_with_cat_and_args():
     evs = _xs(t)
     # inner closes first: ring order is completion order
     assert [e["name"] for e in evs] == ["inner", "outer"]
-    outer = evs[1]
-    assert outer["cat"] == "driver" and outer["args"] == {"step": 3}
-    assert outer["dur"] >= evs[0]["dur"]
+    inner, outer = evs
+    assert outer["cat"] == "driver" and outer["args"] == {"step": 3, "id": 1}
+    # the inner span names its parent and inherits its step
+    assert inner["args"] == {"id": 2, "parent": 1, "step": 3}
+    assert outer["dur"] >= inner["dur"]
 
 
 def test_tracer_ring_wraps_and_counts_drops(tmp_path):
@@ -130,10 +138,38 @@ def test_tracer_ring_wraps_and_counts_drops(tmp_path):
     assert j_trace.validate_trace(str(path)) == n
 
 
-def test_module_level_span_is_noop_when_off():
+class _RangeCount:
+    """Stands in for ``torch.profiler.record_function``: counts the ranges
+    opened."""
+
+    opened: list = []
+
+    def __init__(self, name):
+        self.opened.append(name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.fixture
+def range_count(monkeypatch):
+    _RangeCount.opened = []
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        _RangeCount)
+    return _RangeCount.opened
+
+
+def test_module_level_span_is_noop_when_off(range_count):
     assert obs_trace.active_tracer() is None
-    with obs_trace.span("ignored", cat="driver"):
-        pass                                     # must not raise
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert obs_trace.span("ignored", cat="driver", step=1) \
+        is obs_trace._NULL_SPAN
+    with obs_trace.span("ignored", cat="driver") as sp:
+        sp.add_args(rounds=2)                    # must not raise
+    assert range_count == []                     # no profiler range
     x = torch.ones(3)
     assert obs_trace.fence(42) == 42             # unfenced: identity
     assert obs_trace.fence(x) is x
@@ -146,6 +182,13 @@ def test_module_level_span_is_noop_when_off():
     assert obs_trace.stop(export=False) is t
     assert t.num_recorded == 1
     assert not obs_trace.fenced()
+    assert range_count == []
+    # the control: while the profiler records, the same call opens one
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with obs_trace.span("ranged", cat="driver"):
+            pass
+    assert range_count == ["ranged"]
 
 
 def test_threads_get_their_own_tracks():
@@ -167,6 +210,117 @@ def test_threads_get_their_own_tracks():
     tnames = {e["args"]["name"] for e in t.events()
               if e["name"] == "thread_name"}
     assert "stager-test" in tnames
+
+
+# --------------------------------------------------------------------------
+# the step's layer spans, the profiler's ranges and its clock
+# --------------------------------------------------------------------------
+
+#: a SyncDriver step's spans at P = 4, with their counts
+SYNC_STEP_SPANS = {"driver/step": 1, "driver/seeds": 1, "seeds/draw": 1,
+                   "seeds/h2d": 1, "driver/train_step": 1, "step/sample": 1,
+                   "step/fetch": 1, "model/forward": P_,
+                   "model/backward": P_, "step/grad_mean": 1,
+                   "step/update": 1}
+
+
+def _sync_steps(world, steps=2):
+    _, cfg, params, _ = world
+    with _pipe(world).train_driver(_loss_fn(cfg), batch=8, lr=0.01,
+                                   device="cpu") as d:
+        p, opt = params, init_opt_state(params)
+        for k in range(steps):
+            p, opt, _, _ = d.step(p, opt, k)
+
+
+def _profiled(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return [(e.name(), e.start_ns())
+            for e in prof.profiler.kineto_results.events()]
+
+
+def test_sync_driver_spans_every_layer_boundary(world):
+    tracer = obs_trace.start(None)
+    _sync_steps(world)
+    obs_trace.stop(export=False)
+    evs = _xs(tracer)
+    assert len(evs) == 2 * sum(SYNC_STEP_SPANS.values())
+    by_id = {e["args"]["id"]: e for e in evs}
+    for k in (0, 1):
+        mine = [e for e in evs if e["args"]["step"] == k]
+        names = [e["name"] for e in mine]
+        assert {n: names.count(n) for n in set(names)} == SYNC_STEP_SPANS
+        (root,) = [e for e in mine if e["name"] == "driver/step"]
+        assert "parent" not in root["args"]
+        for e in mine:
+            # every span nests under its step's driver/step, on one thread
+            chain = e
+            while "parent" in chain["args"]:
+                up = by_id[chain["args"]["parent"]]
+                assert up["tid"] == chain["tid"]
+                assert up["ts"] <= chain["ts"] and \
+                    chain["ts"] + chain["dur"] <= up["ts"] + up["dur"] + 1e-3
+                chain = up
+            assert chain is root
+        cats = {e["name"]: e["cat"] for e in mine}
+        assert {n for n, c in cats.items() if c == "step"} == \
+            set(SYNC_STEP_SPANS) - {"driver/step", "driver/seeds",
+                                    "driver/train_step"}
+        # the layer spans' parents: the driver spans that run them
+        parent = {e["name"]: by_id[e["args"]["parent"]]["name"]
+                  for e in mine if "parent" in e["args"]}
+        assert parent["seeds/draw"] == parent["seeds/h2d"] == "driver/seeds"
+        for name in ("step/sample", "step/fetch", "model/forward",
+                     "model/backward", "step/grad_mean", "step/update"):
+            assert parent[name] == "driver/train_step"
+        workers = [e["args"]["worker"] for e in mine
+                   if e["name"] == "model/forward"]
+        assert workers == list(range(P_))
+        sample = next(e for e in mine if e["name"] == "step/sample")
+        fetch = next(e for e in mine if e["name"] == "step/fetch")
+        # hybrid: no sampling round, the two feature rounds
+        assert (sample["args"]["rounds"], fetch["args"]["rounds"]) == (0, 2)
+        assert sample["ts"] + sample["dur"] <= fetch["ts"]
+        draw = next(e for e in mine if e["name"] == "seeds/draw")
+        assert draw["args"]["seeds"] == P_ * 8
+        assert draw["args"]["keys"] == P_ * world[0].layout.n_max
+
+
+def test_sync_driver_spans_are_profiler_ranges_without_a_tracer(world):
+    assert obs_trace.active_tracer() is None
+    names = [n for n, _ in _profiled(lambda: _sync_steps(world))]
+    assert obs_trace.active_tracer() is None
+    for name, count in SYNC_STEP_SPANS.items():
+        assert names.count(name) == 2 * count, name
+
+
+def test_tracer_and_profiler_share_one_clock():
+    tracer = Tracer()
+
+    def spans():
+        with tracer.span("warmup"):
+            pass
+        for i in range(3):
+            with tracer.span(f"probe{i}"):
+                sum(range(1000))
+    host = dict(_profiled(spans))
+    evs = tracer.events()
+    (origin,) = [e["args"]["unix_ns"] for e in evs
+                 if e["name"] == "clock_origin"]
+    probes = [e for e in evs if e["ph"] == "X"
+              and e["name"].startswith("probe")]
+    assert len(probes) == 3
+    for e in probes:
+        assert abs(origin + e["ts"] * 1e3 - host[e["name"]]) < 1e5
+
+
+def test_sync_driver_step_with_both_off_opens_and_records_nothing(
+        world, range_count):
+    assert obs_trace.active_tracer() is None
+    _sync_steps(world, steps=1)
+    assert range_count == []
 
 
 # --------------------------------------------------------------------------
@@ -206,7 +360,15 @@ def test_stager_thread_spans_land_in_order(world, store):
     if store == "staged":
         want |= {"stager/frontier_replay", "stager/gather_rows"}
     assert want <= kids
-    assert all(e["cat"] == "stager" for e in evs)
+    # the stager's draw is the program's own seed draw, traced as such
+    # under the stager's span, on its track
+    by_id = {e["args"]["id"]: e for e in evs}
+    draws = [e for e in evs if e["name"] == "seeds/draw"]
+    assert len(draws) == len(produces)
+    for e in draws:
+        assert e["cat"] == "step" and e["tid"] == produces[0]["tid"]
+        assert by_id[e["args"]["parent"]]["name"] == "stager/seeds_host"
+    assert all(e["cat"] == "stager" for e in evs if e not in draws)
 
 
 # --------------------------------------------------------------------------
@@ -393,6 +555,43 @@ def test_profile_stages_rejects_external_row_stores(world):
         profile_stages(pipe, _loss_fn(cfg), params, batch=8)
 
 
+def _x(name, ts, dur, cat=None, **args):
+    ev = {"name": name, "ph": "X", "ts": ts, "dur": dur, "pid": 0,
+          "tid": 0, "args": args}
+    if cat:
+        ev["cat"] = cat
+    return ev
+
+
+def test_report_step_ms_is_one_profiled_step():
+    trace = {"traceEvents": [
+        _x("profile/sampling", 100 * k, 30, "sampling", arm="a")
+        for k in range(2)] + [
+        _x("profile/compute", 100 * k + 30, 70, "compute", arm="a")
+        for k in range(2)]}
+    g = stage_shares(trace)["a"]
+    assert (g["steps"], g["spans"]) == (2, 4)
+    assert g["step_us"] == pytest.approx(100.0)
+    assert g["share"]["sampling"] == pytest.approx(0.3)
+    row = render_share_table(stage_shares(trace)).splitlines()[-1]
+    assert row == "| a | 30.0% | 0.0% | 70.0% | 0.10 | 4 |"
+
+
+def test_report_self_time_leaves_out_the_children():
+    trace = {"traceEvents": [
+        _x("parent", 0, 100, id=1), _x("child", 20, 60, id=2, parent=1),
+        _x("parent", 0, 100, pid_other=True, id=1),
+        _x("plain", 0, 50)]}
+    trace["traceEvents"][2]["pid"] = 1        # another process's id 1
+    agg = span_summary(trace)
+    assert agg["parent"]["self_us"] == pytest.approx(40.0 + 100.0)
+    assert agg["child"]["self_us"] == pytest.approx(60.0)
+    assert agg["plain"]["self_us"] == pytest.approx(50.0)
+    table = t_report.render_summary_table(agg)
+    assert "| span | count | total (ms) | self (ms) | mean (us) |" in table
+    assert "| parent | 2 | 0.20 | 0.14 | 100.0 |" in table
+
+
 def test_trainer_context_manager_feeds_the_registry(world):
     from repro_torch.train.loop import GNNTrainer
     base, cfg, _, _ = world
@@ -543,20 +742,34 @@ def test_port_trace_passes_repro_validate_trace(traced_profile):
 
 
 def test_reports_agree_with_repro_on_one_trace(traced_profile, capsys):
+    """The same shares and span totals; the port's ``step (ms)`` is one
+    profiled step, ``repro``'s the sum over them, and the port's summary
+    adds self time."""
     ours, theirs = (t_report.stage_shares(traced_profile),
                     j_report.stage_shares(traced_profile))
-    assert sorted(ours) == ["hybrid", "vanilla"] and ours == theirs
-    assert t_report.render_share_table(ours) \
-        == j_report.render_share_table(theirs)
-    agg = t_report.span_summary(traced_profile)
-    assert agg == j_report.span_summary(traced_profile)
-    assert t_report.render_summary_table(agg) \
-        == j_report.render_summary_table(agg)
+    assert sorted(ours) == sorted(theirs) == ["hybrid", "vanilla"]
+    for arm, g in ours.items():
+        assert g["steps"] == 2
+        for key, value in theirs[arm].items():
+            if key == "step_us":
+                assert g[key] == pytest.approx(value / g["steps"])
+            else:
+                assert g[key] == value, key
+    agg, jagg = (t_report.span_summary(traced_profile),
+                 j_report.span_summary(traced_profile))
+    assert sorted(agg) == sorted(jagg)
+    for name, a in jagg.items():
+        assert {k: agg[name][k] for k in a} == a, name
+        assert 0 <= agg[name]["self_us"] <= a["total_us"] + 1e-6
+    # a fenced driver step's self time is what its spans leave uncovered
+    assert agg["driver/step"]["self_us"] < agg["driver/step"]["total_us"]
     outs = []
     for mod in (t_report, j_report):
         assert mod.main([traced_profile, "--summary"]) == 0
         outs.append(capsys.readouterr().out)
-    assert outs[0] == outs[1] and "| hybrid |" in outs[0]
+    for out in outs:
+        assert "| hybrid |" in out and "## Span summary" in out
+    assert "| self (ms) |" in outs[0] and "| self (ms) |" not in outs[1]
 
 
 def _names_cats(tracer):
@@ -564,11 +777,20 @@ def _names_cats(tracer):
                    if e["ph"] == "X"})
 
 
+def _without_own_spans(pairs):
+    """The (name, cat) pairs less the port's own layer spans: cat
+    ``step`` (``seeds/*``, ``step/*``, ``model/*``), which ``repro`` does
+    not record."""
+    assert all(cat == "step" for name, cat in pairs
+               if name.split("/")[0] in ("seeds", "step", "model"))
+    return [(name, cat) for name, cat in pairs if cat != "step"]
+
+
 @pytest.mark.parametrize("depth,staging", [(0, False), (1, True)],
                          ids=["sync", "double_buffer-staging"])
 def test_driver_span_names_and_cats_match_repro(world, depth, staging):
     """The same 2-step driver run in both packages records the same set of
-    (span name, cat) pairs."""
+    (span name, cat) pairs, besides the port's own layer spans."""
     base, cfg, params, jparams = world
     tpipe = Pipeline.from_layout(base.layout, _spec(depth=depth,
                                                     staging=staging),
@@ -596,12 +818,14 @@ def test_driver_span_names_and_cats_match_repro(world, depth, staging):
         finally:
             mod.stop(export=False)
         runs[name] = _names_cats(tracer)
-    assert runs["port"] == runs["repro"]
+    assert ("step/update", "step") in runs["port"]
+    assert _without_own_spans(runs["port"]) == runs["repro"]
 
 
 def test_serve_span_names_and_cats_match_repro(world):
     """The same arrivals through both packages' ``GNNServer`` record the
-    same set of (span name, cat) pairs, lanes and predict spans alike."""
+    same set of (span name, cat) pairs, lanes and predict spans alike,
+    besides the port's own layer spans (the prepare half's)."""
     from repro.serve import GNNServer as JServer
     from repro.serve import Predictor as JPredictor
     from repro_torch.serve import GNNServer, Predictor
@@ -624,5 +848,6 @@ def test_serve_span_names_and_cats_match_repro(world):
         finally:
             mod.stop(export=False)
         runs[name] = _names_cats(tracer)
-    assert runs["port"] == runs["repro"]
+    assert ("step/sample", "step") in runs["port"]
+    assert _without_own_spans(runs["port"]) == runs["repro"]
     assert ("serve/predict", "serve") in runs["port"]
