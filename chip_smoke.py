@@ -30,7 +30,14 @@ Phases (any failure raises and the script exits non-zero):
      tile of padding, S = 0, a window most seeds exceed; F = 1 and 33;
      D = 1, 33, 100, 130, 256 and an unaligned table; source rows with
      thousands of slots), the backward's transpose equal to
-     ``backward_index`` bit for bit.  Last, the widths of
+     ``backward_index`` bit for bit.  The sage hidden layer's tail
+     (``check_sage_epilogue``): ``sage_hidden_tail`` at the benchmark's
+     layer-1 shape (1, 176 000, 256), dropout 0.5, equal to the chain of
+     PyTorch ops it replaces bit for bit, its gradients within tolerance;
+     the ``sage_epilogue`` kernels there and on ragged shapes (H = 33, an
+     unaligned input, H = 4096 and 16 384, p = 0.3, no dropout) equal to
+     their plain versions (the backward's bias gradient within 1e-5 of
+     its column sums), one launch a call, timed.  Last, the widths of
      ``examples/train_gnn_e2e_torch.py`` (its pipeline and initial
      weights, one step's MFGs): each layer's forward (D = 1024, 4096,
      4096) equal to the f-ordered loop bit for bit and within tolerance
@@ -62,7 +69,7 @@ Phases (any failure raises and the script exits non-zero):
      ``exchange``-with-cache step bit-identical in ``h_src``, loss and
      gradients.  Then, with every launch count set to 0 first, 10 steps
      through ``SyncDriver``: finite losses, 2 rounds per step, every one
-     of the six kernel wrappers launched; the step's wall time, device busy
+     of the eight kernel wrappers launched; the step's wall time, device busy
      time and idle share, and peak device memory; and the sampling /
      feature / compute split of a step (``repro_torch.obs.profile.
      profile_stages``, arm ``hybrid+fused``).
@@ -134,7 +141,8 @@ Phases (any failure raises and the script exits non-zero):
      and cache.  Each: one step with the kernels against the same step
      with plain versions (loss within 1e-5, each gradient leaf within
      tolerance); 3 ``SyncDriver`` steps (finite losses, 2 rounds a step,
-     all six kernel wrappers launched; step wall, device busy over 2
+     every kernel wrapper but ``sage_epilogue``'s two
+     launched; step wall, device busy over 2
      more profiled steps, peak memory).  With the 3
      steps' weights: a ``Predictor`` at buckets (1, 8, 32, 128) over
      phase 3's pipeline, its 128-seed ``predict`` within 1e-4 of a
@@ -296,7 +304,8 @@ HAND_WRITTEN = ("fused_sample_kernel", "sage_aggregate_kernel",
                 "sage_aggregate_wide_kernel",
                 "backward_prep_kernel", "rowptr_scan_kernel",
                 "sage_aggregate_backward_kernel", "feature_gather_kernel",
-                "gather_rows_kernel")
+                "gather_rows_kernel", "sage_epilogue_kernel",
+                "sage_epilogue_backward_kernel")
 TRAIN_BATCH = 1000               # seeds per worker (paper §4)
 CACHE_K = 65_536                 # pinned cache rows per worker
 TRAIN_STEPS = 10
@@ -1219,6 +1228,150 @@ def check_edge_shapes(graph) -> None:
             f"{D}), at most {most} slots per source row: transpose == "
             f"backward_index, same bits on two calls, max abs err "
             f"{err:.3g} (rtol {BWD_RTOL} of max |grad|)")
+
+
+EPILOGUE_ROWS = 176_000         # the benchmark's layer-1 destinations a
+                                # worker (1000 -> 16 000 -> 176 000 rows)
+
+
+def check_sage_epilogue() -> dict:
+    """The ``sage_epilogue`` kernels against their plain versions (the
+    chain of PyTorch ops they replace, run on the card) and the whole
+    ``sage_hidden_tail`` op against the chain it replaces.
+
+    At the benchmark's layer-1 shape (1, 176 000, 256) from 100 input
+    features, dropout 0.5 from a CUDA generator: the op's forward equals
+    ``rowwise_matmul(h_dst, w_self) + rowwise_matmul(agg, w_neigh) + b``,
+    relu and ``out * (rand >= p) / (1 - p)`` bit for bit, its gradients
+    within ``GRAD_RTOL`` of autograd through the chain.  Then the kernels
+    alone on that shape and on ragged ones (rows off a block, H = 33 on the
+    scalar path, an unaligned input, H = 4096, p = 0.3 and no dropout):
+    the forward equal to the plain version (``torch.equal``), the backward's
+    pre-activation gradient equal for a finite upstream gradient, its padded
+    rows zero, the bias gradient within 1e-5 of the column sums of |dx|
+    (float64 reference), and each wrapper's launch count one a call.  Both
+    kernels timed at the big shape beside their plain versions and their
+    least times (bytes: 4 (rows, H) arrays forward, 3 backward), each
+    with its max abs error there (the backward's: the larger of dx's and
+    the bias gradient's against its float64 column sums)."""
+    import torch
+    from repro_torch.kernels.sage_epilogue import (
+        sage_epilogue, sage_epilogue_backward, sage_epilogue_backward_plain,
+        sage_epilogue_plain)
+    from repro_torch.models.gnn import rowwise_matmul, sage_hidden_tail
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    # the whole op against the chain at the benchmark's layer-1 shape
+    rows, K, H, p = EPILOGUE_ROWS, 100, 256, 0.5
+    h_dst, agg = randn(1, rows, K), randn(1, rows, K)
+    layer = {"w_self": randn(K, H) * 0.1, "w_neigh": randn(K, H) * 0.1,
+             "b": randn(H) * 0.1}
+    u = torch.rand((1, rows, H), generator=gen, device="cuda")
+    leaves = {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+    got = sage_hidden_tail(h_dst, agg, leaves, u, p)
+    chain = {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+    want = torch.relu(rowwise_matmul(h_dst, chain["w_self"])
+                      + rowwise_matmul(agg, chain["w_neigh"]) + chain["b"])
+    want = want * (u >= p) / (1 - p)
+    if not torch.equal(got, want):
+        raise AssertionError(f"sage_hidden_tail at (1, {rows}, {H}) differs "
+                             f"from the chain in "
+                             f"{int((got != want).sum())} elements")
+    g = randn(1, rows, H)
+    names = ("w_self", "w_neigh", "b")
+    for name, a, b in zip(names, torch.autograd.grad(
+            got, [leaves[k] for k in names], g), torch.autograd.grad(
+            want, [chain[k] for k in names], g)):
+        rel = float((a - b).abs().max() / b.abs().max())
+        if rel > GRAD_RTOL:
+            raise AssertionError(f"sage_hidden_tail's {name} gradient: "
+                                 f"rel err {rel:.3g} > {GRAD_RTOL}")
+    log(f"  sage_hidden_tail (1, {rows}, {K} -> {H}), dropout {p}: forward "
+        f"== the chain bit for bit, gradients within {GRAD_RTOL}")
+
+    def one(rows, H, p, offset=0, rows_pad=None):
+        s = randn(rows * H + offset).view(-1)[offset:].view(rows, H)
+        n, b = randn(rows, H), randn(H)
+        u = None if p is None else torch.rand((rows, H), generator=gen,
+                                              device="cuda")
+        q = 0.0 if p is None else p
+        out = sage_epilogue(s, n, b, u, q)
+        want = sage_epilogue_plain(s, n, b, u, q)
+        if not torch.equal(out, want):
+            raise AssertionError(f"sage_epilogue ({rows}, {H}), p {p}, "
+                                 f"offset {offset}: differs from the plain "
+                                 f"version")
+        g = randn(rows, H)
+        dx, db = sage_epilogue_backward(g, out, q, rows_pad)
+        px, _ = sage_epilogue_backward_plain(g, out, q, rows_pad)
+        if not torch.equal(dx, px):
+            raise AssertionError(f"sage_epilogue_backward ({rows}, {H}), p "
+                                 f"{p}: dx differs from the plain version")
+        ref = dx.double().sum(0)
+        rel = float(((db.double() - ref).abs()
+                     / dx.double().abs().sum(0).clamp(min=1e-30)).max())
+        if rel > 1e-5:
+            raise AssertionError(f"sage_epilogue_backward ({rows}, {H}): "
+                                 f"bias gradient rel err {rel:.3g}")
+        # max abs errors: the forward's and the backward's (dx's or the
+        # bias gradient's, whichever is larger) against their references
+        err = {"sage_epilogue": float((out - want).abs().max()),
+               "sage_epilogue_backward": max(
+                   float((dx - px).abs().max()),
+                   float((db.double() - ref).abs().max()))}
+        return s, n, b, u, q, out, g, rel, err
+
+    for rows, H, p, offset, pad in ((EPILOGUE_ROWS, 256, 0.5, 0, 176_128),
+                                    (777, 36, 0.5, 0, 4096),
+                                    (1001, 33, 0.3, 0, None),
+                                    (1000, 256, 0.3, 1, 1024),
+                                    (5, 4096, None, 0, 9),
+                                    (3, 16_384, 0.5, 0, None),
+                                    (16_000, 256, None, 0, 16_384),
+                                    (1, 4, 0.5, 0, None)):
+        sage_epilogue.launches = sage_epilogue_backward.launches = 0
+        *_, rel, _ = one(rows, H, p, offset, pad)
+        launches = (sage_epilogue.launches, sage_epilogue_backward.launches)
+        if launches != (1, 1):
+            raise AssertionError(f"sage_epilogue launches {launches}, "
+                                 f"expected 1 each")
+        log(f"  sage_epilogue ({rows}, {H}), dropout {p}, offset {offset}, "
+            f"rows_pad {pad}: forward and dx == plain, bias grad rel err "
+            f"{rel:.3g}, 1 launch each")
+
+    s, n, b, u, q, out, g, _, err = one(EPILOGUE_ROWS, 256, 0.5, 0,
+                                        176_128)
+    A = EPILOGUE_ROWS * 256 * 4
+    res = {}
+    for name, fn, plain, kernel, nbytes in (
+            ("sage_epilogue", lambda: sage_epilogue(s, n, b, u, q),
+             lambda: sage_epilogue_plain(s, n, b, u, q),
+             "sage_epilogue_kernel", 4 * A + 256 * 4),
+            ("sage_epilogue_backward",
+             lambda: sage_epilogue_backward(g, out, q, 176_128),
+             lambda: sage_epilogue_backward_plain(g, out, q, 176_128),
+             "sage_epilogue_backward_kernel", 3 * A + 256 * 4)):
+        wrapper = (sage_epilogue if name == "sage_epilogue"
+                   else sage_epilogue_backward)
+        ms, call_ms, by_name = time_ms(fn, wrapper=wrapper, kernel=kernel)
+        plain_ms, _, _ = time_ms(plain)
+        tot = {}
+        add_bound(tot, nbytes, 0.0)
+        res[name] = {"err": err[name], "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "bound_ms": tot["bound_ms"],
+                     "bound_by": tot["bound_by"], "library_ms": None,
+                     "kernel_ms": by_name.get(kernel)}
+        log(f"  {name} (1, {EPILOGUE_ROWS}, 256), dropout 0.5: device "
+            f"{ms:.4f} ms ({kernel} {by_name.get(kernel, 0.0):.4f}), call "
+            f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}; "
+            f"{100 * tot['bound_ms'] / by_name.get(kernel, ms):.1f} % of "
+            f"the kernel)")
+    return res
 
 
 def feature_rows(layout, src):
@@ -2302,6 +2455,7 @@ def exact_inference_phase(ds, data, cfg, params, pipe):
                              f"finite {bool(torch.isfinite(logits).all())}")
     want = {k: 0 for k in counts}
     want["sage_aggregate"] = cfg.num_layers * batches
+    want["sage_epilogue"] = (cfg.num_layers - 1) * batches
     if counts != want:
         raise AssertionError(f"exact inference launches {counts}, expected "
                              f"{want}")
@@ -2662,7 +2816,9 @@ def conv_phase(train_pipe, serving_pipe, ds, data, serving):
         if not np.isfinite(losses).all() or rounds != 2:
             raise AssertionError(f"{conv}: losses {losses}, {rounds} rounds "
                                  f"per step (expected finite, 2)")
-        missing = [k for k, v in counts.items() if v == 0]
+        # these convs keep their own tails: no sage_epilogue
+        missing = [k for k, v in counts.items()
+                   if v == 0 and not k.startswith("sage_epilogue")]
         if missing:
             raise AssertionError(f"{conv}: kernels never launched on the "
                                  f"training path: {missing}")
@@ -2956,7 +3112,8 @@ FLEET_STEPS = 2
 # parameters after step 1 and after the last are held equal to the stacked
 # run's bit for bit
 ALL_KERNELS = ("fused_sample", "sage_aggregate", "sage_backward_index",
-               "sage_aggregate_backward", "feature_gather", "gather_rows")
+               "sage_aggregate_backward", "feature_gather", "gather_rows",
+               "sage_epilogue", "sage_epilogue_backward")
 
 
 def fleet_kernels(scheme: str) -> tuple:
@@ -4733,6 +4890,9 @@ def main() -> int:
     # outside inference mode: the backward's plain version runs autograd
     log("-- edge shapes of the redesigned kernels")
     check_edge_shapes(pipe.layout.graph)
+    log("-- the sage hidden layer's tail (sage_epilogue, forward and "
+        "backward)")
+    epilogue = check_sage_epilogue()
     log("-- the e2e example's widths (D = 1024 and 4096)")
     e2e_widths = check_e2e_widths()
 
@@ -4899,7 +5059,11 @@ def main() -> int:
             ("feature_gather", fg,
              "src/repro/kernels/feature_gather.py:26", "feature_gather"),
             ("gather_rows", None, "src/repro/kernels/gather.py:49",
-             "gather_rows")):
+             "gather_rows"),
+            ("sage_epilogue", None, "none (port-only: the tail XLA fuses "
+             "into src/repro/models/gnn.py's products)", "sage_epilogue"),
+            ("sage_epilogue_backward", None, "none (port-only: its "
+             "gradient)", "sage_epilogue")):
         by_path = {"serving": counts.get(name, 0),
                    "training": train_counts[name],
                    "overlap": overlap_counts[name],
@@ -4916,7 +5080,7 @@ def main() -> int:
                         for path, c in dryrun_counts.items()})
         by_path.update({path: c[name] for path, c in seed_counts.items()})
         at_step = train.get(name)
-        res = serving or at_step
+        res = serving or at_step or epilogue[name]
         entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu",

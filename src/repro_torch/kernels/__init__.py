@@ -10,6 +10,10 @@
   feature_gather           owner-side feature-row gather
                            (``csrc/feature_gather.cu``)
   gather_rows              pinned hot-row gather (``csrc/gather_rows.cu``)
+  sage_epilogue            a sage hidden layer's tail: sum, bias, relu,
+                           dropout (``csrc/sage_epilogue.cu``)
+  sage_epilogue_backward   its gradient and the bias's
+                           (``csrc/sage_epilogue.cu``)
 
 Each wrapper counts its launches in a ``launches`` attribute.  The
 single-pass scan that ``fused_sample`` and ``sage_backward_index`` share is
@@ -21,15 +25,18 @@ modules, and the fused sampler's plain version imports the core sampler.
 
 
 def kernel_wrappers() -> tuple:
-    """The six kernel wrappers, in path order."""
+    """The eight kernel wrappers, in path order."""
     from repro_torch.kernels.feature_gather import feature_gather
     from repro_torch.kernels.fused_sample import fused_sample
     from repro_torch.kernels.gather import gather_rows
     from repro_torch.kernels.sage_aggregate import (sage_aggregate,
                                                     sage_aggregate_backward,
                                                     sage_backward_index)
+    from repro_torch.kernels.sage_epilogue import (sage_epilogue,
+                                                   sage_epilogue_backward)
     return (fused_sample, gather_rows, feature_gather, sage_aggregate,
-            sage_backward_index, sage_aggregate_backward)
+            sage_epilogue, sage_epilogue_backward, sage_backward_index,
+            sage_aggregate_backward)
 
 
 def reset_launch_counts() -> None:

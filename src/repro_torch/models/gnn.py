@@ -21,6 +21,13 @@ gat's per-head scores included, is ``rowwise_matmul``: fixed-shape
 the reduction order, from the shape, so one product over all rows would
 give a seed's logits bits that depend on how many seeds share the batch.
 
+A sage hidden layer's tail (the two products' sum, the bias, relu and
+dropout) is one ``torch.autograd.Function``, ``sage_hidden_tail``: the
+products go block by block into two buffers (no cat), the rest through
+the ``sage_epilogue`` kernels (forward and backward) on CUDA tensors, with
+the chain's bits forward.  The last layer and the other convs keep their
+tails in plain PyTorch.
+
 Dropout masks come from an explicit ``torch.Generator`` (``repro`` draws
 them with ``jax.random``, whose bits torch cannot reproduce); without a
 generator, or with ``dropout == 0``, no dropout is applied.
@@ -36,6 +43,8 @@ import torch
 
 from repro_torch.core.mfg import MFG
 from repro_torch.kernels.sage_aggregate import sage_aggregate
+from repro_torch.kernels.sage_epilogue import (sage_epilogue,
+                                               sage_epilogue_backward)
 
 ROW_CHUNK = 4096
 
@@ -105,6 +114,19 @@ def params_to_numpy(params) -> list[dict]:
             for layer in params]
 
 
+def _row_blocks(x2: torch.Tensor) -> list[torch.Tensor]:
+    """x2 (M, K) -> its (ROW_CHUNK, K) row blocks, the last zero-padded."""
+    if x2.shape[0] == 0:
+        return []
+    # one split, not a slice a block: the gradient of a split is one cat,
+    # that of a slice a zero-filled tensor of all M rows
+    *pieces, last = x2.split(ROW_CHUNK)
+    tail = last.shape[0]
+    if tail < ROW_CHUNK:
+        last = torch.nn.functional.pad(last, (0, 0, 0, ROW_CHUNK - tail))
+    return [*pieces, last]
+
+
 def rowwise_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for x (..., K), w (K, N), as ``torch.matmul`` over
     (ROW_CHUNK, K) row blocks, the last one zero-padded: every row goes
@@ -117,16 +139,82 @@ def rowwise_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     M = x2.shape[0]
     if M == 0:
         return x2.new_zeros((*lead, w.shape[1]))
-    # one split, not a slice a block: the gradient of a split is one cat,
-    # that of a slice a zero-filled tensor of all M rows
-    *pieces, last = x2.split(ROW_CHUNK)
-    blocks = [torch.matmul(piece, w) for piece in pieces]
-    tail = last.shape[0]
-    if tail < ROW_CHUNK:
-        last = torch.nn.functional.pad(last, (0, 0, 0, ROW_CHUNK - tail))
-    blocks.append(torch.matmul(last, w)[:tail])
+    blocks = [torch.matmul(blk, w) for blk in _row_blocks(x2)]
+    blocks[-1] = blocks[-1][:M - (len(blocks) - 1) * ROW_CHUNK]
     out = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
     return out.reshape(*lead, w.shape[1])
+
+
+def _block_products(blocks: list[torch.Tensor],
+                    w: torch.Tensor) -> torch.Tensor:
+    """Each block's ``torch.matmul(block, w)``, written in place into its
+    rows of one (len(blocks) * ROW_CHUNK, N) buffer: the products of
+    ``rowwise_matmul`` with no cat (``out=`` takes no autograd)."""
+    out = w.new_empty((len(blocks) * ROW_CHUNK, w.shape[1]))
+    for i, x in enumerate(blocks):
+        torch.matmul(x, w, out=out[i * ROW_CHUNK:(i + 1) * ROW_CHUNK])
+    return out
+
+
+class _SageHiddenTail(torch.autograd.Function):
+    """``dropout(relu(rowwise_matmul(h_dst, w_self) + rowwise_matmul(agg,
+    w_neigh) + b))``: the products block by block into two buffers, the
+    rest one ``sage_epilogue`` pass; the backward one
+    ``sage_epilogue_backward`` pass (the pre-activation gradient and the
+    bias's), then per-block products for the weights (summed in block
+    order) and, where asked for, the inputs."""
+
+    @staticmethod
+    def forward(ctx, h_dst, agg, w_self, w_neigh, b, u, p):
+        x_self = _row_blocks(h_dst.reshape(-1, h_dst.shape[-1]))
+        x_neigh = _row_blocks(agg.reshape(-1, agg.shape[-1]))
+        rows = math.prod(h_dst.shape[:-1])
+        ctx.p = p if u is not None else 0.0
+        out = sage_epilogue(
+            _block_products(x_self, w_self)[:rows],
+            _block_products(x_neigh, w_neigh)[:rows], b,
+            None if u is None else u.reshape(rows, w_self.shape[1]), ctx.p)
+        out = out.reshape(*h_dst.shape[:-1], w_self.shape[1])
+        # the padded last blocks, so that the backward need not pad again
+        ctx.save_for_backward(h_dst, agg, w_self, w_neigh, out,
+                              *x_self[-1:], *x_neigh[-1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        h_dst, agg, w_self, w_neigh, out, *last = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        H = out.shape[-1]
+        rows = out.numel() // H
+        blocks = -(-rows // ROW_CHUNK)
+        dx, db = sage_epilogue_backward(
+            grad.reshape(rows, H), out.reshape(rows, H), ctx.p,
+            rows_pad=blocks * ROW_CHUNK)
+        g = list(dx.split(ROW_CHUNK)) if blocks else []
+        g_in, g_w = [None, None], [None, None]
+        for k, (x, w) in enumerate(((h_dst, w_self), (agg, w_neigh))):
+            if need[k]:
+                g_in[k] = _block_products(g, w.t())[:rows].reshape(x.shape)
+            if need[2 + k]:
+                xb = list(x.reshape(-1, x.shape[-1]).split(ROW_CHUNK))
+                g_w[k] = torch.zeros_like(w)
+                for xi, gi in zip(xb[:-1] + last[k:k + 1], g):
+                    g_w[k].addmm_(xi.t(), gi)
+        return (*g_in, *g_w, db if need[4] else None, None, None)
+
+
+def sage_hidden_tail(h_dst: torch.Tensor, agg: torch.Tensor, layer: dict,
+                     u: torch.Tensor | None = None,
+                     p: float = 0.0) -> torch.Tensor:
+    """A sage hidden layer's output from its destination rows ``h_dst``
+    and their neighbour means ``agg`` (..., S, D_in): ``relu(h_dst @
+    w_self + agg @ w_neigh + b)`` with ``rowwise_matmul``'s row blocks
+    (the same bits), then dropout where ``u`` (..., S, D_out) holds the
+    uniforms (kept where ``u >= p``, scaled by ``1 / (1 - p)``).  Its
+    gradients: the pre-activation's through ``sage_epilogue_backward``,
+    the weights' as per-block products summed in block order."""
+    return _SageHiddenTail.apply(h_dst, agg, layer["w_self"],
+                                 layer["w_neigh"], layer["b"], u, p)
 
 
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -216,6 +304,17 @@ def _gat_aggregate(layer, mfg: MFG, h_src: torch.Tensor,
     return out.reshape(*out.shape[:-2], -1)
 
 
+def _dropout_uniforms(shape, cfg: GNNConfig,
+                      generator: torch.Generator | None,
+                      device) -> torch.Tensor | None:
+    """A hidden layer's dropout uniforms for an output of ``shape`` (an
+    element is kept where its uniform is >= ``cfg.dropout``), or None
+    where no dropout applies: no generator, or ``cfg.dropout == 0``."""
+    if generator is None or cfg.dropout <= 0:
+        return None
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def apply_layer(layer, mfg: MFG, h_src: torch.Tensor, cfg: GNNConfig, *,
                 is_last: bool, generator: torch.Generator | None = None,
                 aggregate: Callable = sage_aggregate,
@@ -234,6 +333,10 @@ def apply_layer(layer, mfg: MFG, h_src: torch.Tensor, cfg: GNNConfig, *,
         h_dst = h_src[..., : mfg.num_dst, :]      # prefix convention
     if cfg.conv == "sage":
         agg = aggregate(mfg.edges, h_src)
+        if not is_last:
+            u = _dropout_uniforms((*h_dst.shape[:-1], layer["b"].shape[0]),
+                                  cfg, generator, h_dst.device)
+            return sage_hidden_tail(h_dst, agg, layer, u, cfg.dropout)
         out = (rowwise_matmul(h_dst, layer["w_self"])
                + rowwise_matmul(agg, layer["w_neigh"]) + layer["b"])
     elif cfg.conv == "gcn":                        # aggregate incl. self
@@ -258,10 +361,9 @@ def apply_layer(layer, mfg: MFG, h_src: torch.Tensor, cfg: GNNConfig, *,
             + layer["b_mlp"]
     if not is_last:
         out = torch.relu(out)
-        if generator is not None and cfg.dropout > 0:
-            keep = torch.rand(out.shape, generator=generator,
-                              device=out.device) >= cfg.dropout
-            out = out * keep / (1 - cfg.dropout)
+        u = _dropout_uniforms(out.shape, cfg, generator, out.device)
+        if u is not None:
+            out = out * (u >= cfg.dropout) / (1 - cfg.dropout)
     return out
 
 

@@ -58,6 +58,8 @@ from repro_torch.kernels.feature_gather import (feature_gather,
                                                 feature_gather_plain)
 from repro_torch.kernels.fused_sample import fused_sample
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
+from repro_torch.kernels.sage_epilogue import (sage_epilogue,
+                                               sage_epilogue_backward)
 from repro_torch.kernels.sage_aggregate import (MAX_STAGED_IDS,
                                                 WIDE_CHUNK_IDS, WIDE_THREADS,
                                                 backward_index,
@@ -607,8 +609,13 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     sage_backward_index(torch.zeros((2, 2), dtype=torch.int32), 3)
     feature_gather(torch.zeros(2, dtype=torch.int32), torch.ones(3, 4))
     gather_rows(torch.ones(3, 4), torch.zeros(2, dtype=torch.int32))
+    out = sage_epilogue(torch.ones(2, 4), torch.ones(2, 4), torch.ones(4),
+                        torch.rand(2, 4), 0.5)
+    sage_epilogue_backward(torch.ones(2, 4), out, 0.5, rows_pad=3)
     assert launch_counts() == {"fused_sample": 0, "gather_rows": 0,
                                "feature_gather": 0, "sage_aggregate": 0,
+                               "sage_epilogue": 0,
+                               "sage_epilogue_backward": 0,
                                "sage_backward_index": 0,
                                "sage_aggregate_backward": 0}
 
@@ -616,7 +623,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 @pytest.mark.parametrize("which", ["fused_sample", "sage_aggregate",
                                    "sage_aggregate_backward",
                                    "sage_backward_index",
-                                   "feature_gather", "gather_rows"])
+                                   "feature_gather", "gather_rows",
+                                   "sage_epilogue",
+                                   "sage_epilogue_backward"])
 def test_non_cpu_tensors_never_fall_back(which):
     """A tensor off the CPU launches the kernel or raises; one on a device
     the kernels do not serve raises."""
@@ -639,6 +648,12 @@ def test_non_cpu_tensors_never_fall_back(which):
         elif which == "gather_rows":
             gather_rows(torch.ones((3, 4), device=meta),
                         torch.zeros(2, dtype=torch.int32, device=meta))
+        elif which == "sage_epilogue":
+            x = torch.ones((2, 4), device=meta)
+            sage_epilogue(x, x, torch.ones(4, device=meta), x, 0.5)
+        elif which == "sage_epilogue_backward":
+            x = torch.ones((2, 4), device=meta)
+            sage_epilogue_backward(x, x, 0.5)
         else:
             feature_gather(torch.zeros(2, dtype=torch.int32, device=meta),
                            torch.ones((3, 4), device=meta))
