@@ -52,8 +52,10 @@ def main(argv=None) -> int:
                                     mix["num_parts"], mix["partitioner"],
                                     log=lambda *a: print(*a, file=sys.stderr))
     seeds = [int(s) for s in args.seeds.split(",")]
+    net = reference.load_model(harness.bench_dir(ROOT, bench) / "models",
+                               cfg["model"]["conv"])
     prog = harness.Program(data, cfg, mix, harness.seed_streams(seeds[0]),
-                           "cuda")
+                           "cuda", net, harness.gnn_config(cfg["model"]))
     layout = reference.make_layout(data, mix["num_parts"], "cuda")
     for i, seed in enumerate(seeds):
         s = harness.seed_streams(seed)
@@ -61,8 +63,8 @@ def main(argv=None) -> int:
         first_prog, first_ref = [], []
         got = prog.checked_steps(after_first=first_prog)
         torch.cuda.synchronize()
-        ref_args = (data, cfg["model"], cfg["optimizer"], mix, s["weights"],
-                    s["base_salt"], s["dropout"])
+        ref_args = (data, net, cfg["model"], cfg["optimizer"], mix,
+                    s["weights"], s["base_salt"], s["dropout"])
         t0 = time.perf_counter()
         ref = reference.train(*ref_args, device="cuda", layout=layout,
                               after_first=first_ref)

@@ -1,6 +1,6 @@
 """Fixtures of the benchmark's CPU tests: a copy of the benchmark with a
-tiny configuration and its two cells added as files and entries, as a
-later change would add them.  Runs stay on the CPU (the port's kernels
+tiny configuration and its cells added as files and entries, as a later
+change would add them.  Runs stay on the CPU (the port's kernels
 run their plain versions there) and skip the harness's look for a chip."""
 import json
 import shutil
@@ -13,14 +13,15 @@ TINY = {"num_nodes": 3000, "avg_degree": 8, "num_features": 16,
         "num_classes": 5, "labeled_fraction": 0.3}
 TINY_MODEL = {"in_dim": 16, "hidden_dim": 32, "num_classes": 5,
               "fanouts": [4, 3, 2]}
-TINY_CELLS = ("tiny.fastsample", "tiny.vanilla")
+TINY_TRAFFIC = ("fastsample", "vanilla", "cached")
+TINY_CACHE = 256                   # a cache short of the remote rows
 
 
 def make_tiny_root(dest: Path) -> Path:
     """``dest`` holding ``BENCHMARK.json`` and ``portbench/`` plus the
-    configuration ``tiny``, the mixes ``tiny-fastsample`` and
-    ``tiny-vanilla`` (32 seeds a worker), the cells ``tiny.fastsample``
-    and ``tiny.vanilla`` (checked against ``sage-products``' limits) and
+    configuration ``tiny``, the mixes ``tiny-<traffic>`` (32 seeds a
+    worker, the cache as the mix has it), the cells
+    ``tiny.<traffic>`` (checked against ``sage-products``' limits) and
     every metric entry extended to them."""
     dest = Path(dest)
     shutil.copytree(ROOT / "portbench", dest / "portbench",
@@ -33,7 +34,7 @@ def make_tiny_root(dest: Path) -> Path:
     (dest / "portbench/configs/tiny.json").write_text(json.dumps(cfg))
     bench["configs"].append(dict(bench["configs"][0], name="tiny",
                                  file="portbench/configs/tiny.json"))
-    for traffic in ("fastsample", "vanilla"):
+    for traffic in TINY_TRAFFIC:
         mix = json.loads((ROOT / f"portbench/mixes/{traffic}.json")
                          .read_text())
         mix.update(batch=32, warmup_steps=4, trace_steps=2, label_steps=2,
@@ -48,7 +49,9 @@ def make_tiny_root(dest: Path) -> Path:
                     dest / f"portbench/checks/{cell}.json")
     for entry in bench["per_layer"] + bench["end_to_end"]:
         if "workloads" in entry:
-            entry["workloads"] = entry["workloads"] + list(TINY_CELLS)
+            entry["workloads"] = entry["workloads"] + [
+                f"tiny.{c.split('.')[1]}" for c in entry["workloads"]
+                if c.startswith("sage-products.")]
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
     return dest
 

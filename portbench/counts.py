@@ -5,9 +5,11 @@ never read from the program.
 Rooflines follow the rule that each input byte is read once and each output
 byte written once, counted for what these inputs need.  The kernels' byte
 counts are frozen copies of ``chip_smoke.py``'s (phase 4:
-``check_fused_sample``, ``check_sage_aggregate``, ``check_feature_gather``;
-phase 8: the backward); the backward's is of its gather kernel alone, which
-reads the transpose ``sage_backward_index`` built, not the edge ids.
+``check_fused_sample``, ``check_sage_aggregate``, ``check_feature_gather``,
+``check_gather_rows``; phase 8: the backward); the backward's is of its
+gather kernel alone, which reads the transpose ``sage_backward_index``
+built, not the edge ids.  A model's GEMM operations are its model file's
+(``models/<conv>.py``, ``gemm_flops``).
 ``bound_s`` turns a count into the least time on one H100 (``h100.py``).
 """
 from __future__ import annotations
@@ -26,13 +28,17 @@ def bound_s(nbytes: float, ops: float = 0.0) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S)
 
 
-def summarize(levels) -> dict:
+def summarize(levels, cache=None) -> dict:
     """Counts of one step's levels (top first), per level and worker:
     ``S`` destinations and ``F`` fanout (capacities), ``dst`` valid
     destinations, ``edges`` valid edges, ``refs`` distinct sources the
-    valid edges name, ``with_edges`` destinations with a valid edge; and
-    ``fetched``, the distinct nodes whose feature rows the step fetches
-    over all workers."""
+    valid edges name, ``with_edges`` destinations with a valid edge; per
+    worker, ``frontier`` valid ids of the bottom level's sources and
+    ``hits`` those the worker's feature cache holds (``cache``: each
+    worker's cached ids, the rows of the program's cache; none without
+    one);
+    and ``fetched``, the distinct nodes whose feature rows the owners
+    serve over all workers, the hits left out."""
     out = {"levels": [], "P": int(levels[0].dst.shape[0])}
     for lvl in levels:
         P, S, F = lvl.edges.shape
@@ -46,30 +52,16 @@ def summarize(levels) -> dict:
                 "with_edges": int(valid[p].any(-1).sum())})
         out["levels"].append({"S": S, "F": F, "workers": rows})
     src = levels[-1].src
-    out["fetched"] = int(torch.unique(src[src >= 0]).numel())
+    ok = src >= 0
+    hit = torch.zeros_like(ok)
+    if cache is not None:
+        for p, ids in enumerate(cache):
+            hit[p] = ok[p] & torch.isin(src[p], ids)
+    out["frontier"] = ok.sum(-1).tolist()
+    out["hits"] = hit.sum(-1).tolist()
+    out["fetched"] = int(torch.unique(src[ok & ~hit]).numel())
     out["N"] = int(src.shape[1])
     return out
-
-
-def gemm_flops(model: dict, step: dict) -> dict:
-    """The model's GEMM operations in one step: the forward's two products
-    a layer (self and neighbour) on the valid destination rows, the
-    backward's weight gradients, and its input gradients for every layer
-    but the first, whose input is the fetched features."""
-    L = model["num_layers"]
-    dims = ([model["in_dim"]] + [model["hidden_dim"]] * (L - 1)
-            + [model["num_classes"]])
-    fwd = wgrad = igrad = 0.0
-    for layer in range(L):
-        lvl = step["levels"][L - 1 - layer]
-        rows = sum(w["dst"] for w in lvl["workers"])
-        per = 2 * 2.0 * rows * dims[layer] * dims[layer + 1]
-        fwd += per
-        wgrad += per
-        if layer > 0:
-            igrad += per
-    return {"forward": fwd, "weight_grad": wgrad, "input_grad": igrad,
-            "total": fwd + wgrad + igrad}
 
 
 def fused_sample_bound(step: dict) -> float:
@@ -97,6 +89,16 @@ def feature_gather_bound(step: dict, num_features: int) -> float:
     P, N, D = step["P"], step["N"], num_features
     Q = P * N
     nbytes = P * Q * 4 + step["fetched"] * D * 4 + P * Q * D * 4
+    return bound_s(nbytes)
+
+
+def gather_rows_bound(step: dict, num_features: int) -> float:
+    """Least seconds of the step's one ``gather_rows`` launch, the cache
+    hits of every worker from its pinned rows: the (P, N) slot ids read,
+    each hit row read once (a worker's sources are distinct), the whole
+    (P, N, D) output written (zero rows for the misses)."""
+    P, N, D = step["P"], step["N"], num_features
+    nbytes = P * N * 4 + sum(step["hits"]) * D * 4 + P * N * D * 4
     return bound_s(nbytes)
 
 

@@ -3,9 +3,12 @@ comparison with the reference, and the result line.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``
 names a configuration (``configs/<config>.json``) and a traffic mix
-(``mixes/<traffic>.json``); its limits are ``checks/<cell>.json``; each
-metric is read by ``metrics/<metric>.py``.  The traffic is a closed loop of
-training steps: the next step starts when the previous one returns.
+(``mixes/<traffic>.json``); the configuration's ``model["conv"]`` names
+the trained model (``models/<conv>.py``: its initial weights, the
+reference's forward and its GEMM count); its limits are
+``checks/<cell>.json``; each metric is read by ``metrics/<metric>.py``.
+The traffic is a closed loop of training steps: the next step starts when
+the previous one returns.
 
 The program under test is ``repro_torch``: a ``Pipeline`` built by
 ``Pipeline.build`` from the configuration's dataset and its offline
@@ -17,6 +20,7 @@ driver and state to the window.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -111,20 +115,50 @@ def labelled_per_step(data: dict, num_parts: int, batch: int) -> int:
     return int(np.minimum(owned, batch).sum())
 
 
+def cache_capacity(mix: dict, assign) -> int:
+    """The mix's cached rows a worker: a whole number, or ``"all_remote"``,
+    the most nodes that other workers own, over the workers.  The latter
+    is PaGraph's rule (Lin et al., SoCC 2020: fill the card's memory left
+    free by training) where every remote row fits in it."""
+    cap = mix["cache_capacity"]
+    if cap == "all_remote":
+        assign = np.asarray(assign)
+        owned = np.bincount(assign, minlength=mix["num_parts"])
+        return int(assign.size - owned.min())
+    return int(cap)
+
+
+def gnn_config(model: dict):
+    """The program's ``GNNConfig`` from every key of the configuration's
+    ``model`` (``fanouts`` as a tuple); a key it does not declare is an
+    error that names it."""
+    from repro_torch.models.gnn import GNNConfig
+
+    known = {f.name for f in dataclasses.fields(GNNConfig)}
+    unknown = sorted(set(model) - known)
+    if unknown:
+        raise ValueError(f"the configuration's model has keys that "
+                         f"GNNConfig does not declare: {unknown}")
+    return GNNConfig(**{k: tuple(v) if k == "fanouts" else v
+                        for k, v in model.items()})
+
+
 class Program:
-    """The program under test, built and driven through its public API."""
+    """The program under test, built and driven through its public API,
+    with its initial weights from the model file ``net``
+    (``models/<conv>.py``) and the program's ``GNNConfig`` ``gcfg``."""
 
     def __init__(self, data: dict, cfg: dict, mix: dict, streams: dict,
-                 device, log=_say):
+                 device, net, gcfg, log=_say):
         import torch
 
         from repro_torch.core.graph import CSCGraph
         from repro_torch.core.partition import (Partitioner,
                                                 register_partitioner)
-        from repro_torch.models.gnn import GNNConfig
         from repro_torch.pipeline import Pipeline, PipelineSpec
 
         model, optim = cfg["model"], cfg["optimizer"]
+        self.net, self.gcfg = net, gcfg
         assign = np.asarray(data["assign"])
 
         class Offline(Partitioner):
@@ -142,7 +176,7 @@ class Program:
             mix["scheme"], num_parts=mix["num_parts"],
             fanouts=model["fanouts"], partitioner=PARTITIONER,
             feature_store=mix["feature_store"],
-            cache_capacity=mix["cache_capacity"],
+            cache_capacity=cache_capacity(mix, assign),
             prefetch_depth=mix["prefetch_depth"], staging=mix["staging"],
             executor=mix["executor"])
         graph = CSCGraph(
@@ -157,12 +191,6 @@ class Program:
         sync()
         self.layout_build_s = time.perf_counter() - t0
         log(f"portbench: Pipeline.build {self.layout_build_s:.3f} s")
-        self.gcfg = GNNConfig(
-            in_dim=model["in_dim"], hidden_dim=model["hidden_dim"],
-            num_classes=model["num_classes"],
-            num_layers=model["num_layers"],
-            fanouts=tuple(model["fanouts"]), dropout=model["dropout"],
-            conv=model["conv"])
         self.model, self.optim, self.mix = model, optim, mix
         self.device = device
         self.sync = sync
@@ -180,8 +208,8 @@ class Program:
             self.driver.close()
         self.generator = torch.Generator(device=self.device).manual_seed(
             streams["dropout"])
-        self.params = reference.init_params(self.model, streams["weights"],
-                                            self.device)
+        self.params = self.net.init_params(
+            self.model, streams["weights"], self.device)
         self.opt_state = init_opt_state(self.params, kind=self.optim["kind"])
         self.driver = self.pipe.train_driver(
             self.loss_fn, batch=self.mix["batch"], lr=self.optim["lr"],
@@ -194,7 +222,9 @@ class Program:
                             generator=self.generator)
 
     def step(self):
-        self.params, self.opt_state, loss, _ = self.driver.step(
+        """One step; its loss, and its metrics (the driver's, on the
+        device) in ``self.metrics``."""
+        self.params, self.opt_state, loss, self.metrics = self.driver.step(
             self.params, self.opt_state)
         return loss
 
@@ -299,7 +329,8 @@ def _window(prog: Program, seconds: float, device_trace: bool,
 def _traced_window(prog: Program, steps: int, label_steps: int,
                    cuda: bool) -> dict:
     """``steps`` steps under a device-only profiler (busy time, ops,
-    kernels, the program's launch counts and rounds over them), then
+    kernels, the program's launch counts and rounds over them, and each
+    step's cache hit share as the program's driver reports it), then
     ``label_steps`` more under a host and device profiler whose idle gaps
     get a label from what the host was doing (its own spans around the
     step and the seed draw, aten ops and runtime calls)."""
@@ -311,13 +342,16 @@ def _traced_window(prog: Program, steps: int, label_steps: int,
     first = prog.driver._next
     kernels.reset_launch_counts()
     rounds0 = pipe.counter.rounds
+    shares = []
     with devtrace.traced(prog.sync, host=False, cuda=cuda) as (prof, b):
         for _ in range(steps):
             prog.step()
+            shares.append(prog.metrics["cache_hit_rate"])
     dev, _ = devtrace.records(prof, *b)
     out = {"steps": steps, "first": first, "t0": b[0], "t1": b[1],
            "dev": dev, "launches": kernels.launch_counts(),
-           "rounds_per_step": (pipe.counter.rounds - rounds0) / steps}
+           "rounds_per_step": (pipe.counter.rounds - rounds0) / steps,
+           "hit_share": [float(x) for x in shares]}
     if not dev and cuda:
         raise RuntimeError("the device trace holds no operation inside "
                            "the traced window")
@@ -366,12 +400,16 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     limits = load_limits(root, bench, workload)
     streams = seed_streams(seed)
     model, P = cfg["model"], mix["num_parts"]
+    # the model file and the program's config, before any set-up
+    net = reference.load_model(bench_dir(root, bench) / "models",
+                               model["conv"])
+    gcfg = gnn_config(model)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     data, built = dataset.load_or_build(cfg_file, root / "build" / "portbench",
                                         P, mix["partitioner"], log=log)
-    prog = Program(data, cfg, mix, streams, device, log=log)
+    prog = Program(data, cfg, mix, streams, device, net, gcfg, log=log)
     checked = prog.checked_steps()
     for _ in range(mix["warmup_steps"] - CHECKED_STEPS):
         prog.step()
@@ -392,7 +430,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         log(f"portbench: window's device trace: {len(window_dev)} device "
             f"ops, busy {devtrace.busy_seconds(window_dev):.6f} s")
     run_rec = types.SimpleNamespace(
-        cell=cell, config=cfg, mix=mix, model=model, setup_s=setup_s,
+        cell=cell, config=cfg, mix=mix, model=model, model_file=net,
+        setup_s=setup_s,
         layout_build_s=prog.layout_build_s, window_steps=steps,
         window_s=wall, seeds_per_step=per_step, rounds_per_step=rounds,
         window_dev=window_dev,
@@ -406,7 +445,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
             prog.pipe, prog.loss_fn, prog.params, batch=mix["batch"],
             salts=salts, sync=prog.sync)
 
+    # the rows the program's cache holds, for the kernels' counts; then
     # free the program's state before the reference runs on the card
+    cache = (prog.pipe.cache.ids.long().clone()
+             if prog.pipe.cache is not None else None)
     window_first = mix["warmup_steps"]
     prog.close()
     del prog
@@ -415,7 +457,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.empty_cache()
 
     layout = reference.make_layout(data, P, device)
-    ref = reference.train(data, model, cfg["optimizer"], mix,
+    ref = reference.train(data, net, model, cfg["optimizer"], mix,
                           streams["weights"], streams["base_salt"],
                           streams["dropout"],
                           steps=CHECKED_STEPS, device=device, layout=layout)
@@ -427,12 +469,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
             salt = (streams["base_salt"] + k) % 2 ** 32
             seeds = reference.draw_seeds(layout, mix["batch"], salt)
             return counts.summarize(reference.sample_step(
-                layout, seeds, model["fanouts"], salt, mix["sample_window"]))
+                layout, seeds, model["fanouts"], salt, mix["sample_window"]),
+                cache)
         run_rec.window_counts = [structure(window_first + i)
                                  for i in range(steps)]
         tr = run_rec.trace
         run_rec.trace_counts = [structure(tr["first"] + i)
                                 for i in range(tr["steps"])]
+        check_hits(run_rec.trace_counts, tr["hit_share"])
 
     metrics = {}
     for entry in cell_metrics(bench, workload, trace):
@@ -462,6 +506,20 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     out["checks"] = {k: {"value": v, "limit": lim}
                      for k, (v, lim) in table.items()}
     return out
+
+
+def check_hits(steps: list[dict], shares: list[float]) -> None:
+    """Hold the kernels' counts of cache hits (``counts.summarize`` over the
+    benchmark's sampling and the rows the program's cache holds) to the
+    hit share the program's fetch reported in each traced step; a
+    difference ends the run rather than miscount the rooflines."""
+    for k, (s, got) in enumerate(zip(steps, shares)):
+        want = float(np.mean([h / max(f, 1) for h, f in
+                              zip(s["hits"], s["frontier"])]))
+        if abs(want - got) > 1e-5:
+            raise RuntimeError(
+                f"traced step {k}: the program's fetch reported a cache hit "
+                f"share of {got!r}, the benchmark counts {want!r}")
 
 
 def forbidden_modules() -> list[str]:

@@ -1,4 +1,4 @@
-"""Plain reference of one cell's training steps: GraphSAGE on sampled
+"""Plain reference of one cell's training steps: a GNN on sampled
 message-flow graphs, trained by AdamW, in PyTorch and NumPy.
 
 It imports nothing of the port and takes nothing the port made.  From the
@@ -22,6 +22,11 @@ run's seed it works out again what the timed path computes:
   as the run's, the per-worker masked cross entropy, its gradient averaged
   over the workers, the global-norm clip and AdamW.
 
+The model is a file of its own, ``models/<conv>.py`` for the
+configuration's ``model["conv"]`` (``load_model``), which gives
+``init_params``, ``forward`` and ``gemm_flops``; everything else here
+serves every model alike, the control and the faults included.
+
 ``precision="tf32"`` computes every product in TF32 (the control: the
 nearest precision below the configuration's float32); ``fault`` plants one
 of the faults the check must catch, in the reference put in the
@@ -31,7 +36,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -167,25 +175,26 @@ def sample_step(layout: Layout, seeds: np.ndarray, fanouts, salt: int,
     return levels
 
 
-def init_params(model: dict, seed: int, device) -> list[dict]:
-    """He-scaled normal weights and zero biases, drawn on ``device`` from a
-    generator seeded with ``seed``, in one call."""
-    dims = ([model["in_dim"]] + [model["hidden_dim"]]
+def layer_dims(model: dict) -> list[int]:
+    """Widths from the input to the logits: in, hidden per layer, classes."""
+    return ([model["in_dim"]] + [model["hidden_dim"]]
             * (model["num_layers"] - 1) + [model["num_classes"]])
-    shapes = [(dims[i], dims[i + 1]) for i in range(model["num_layers"])]
-    gen = torch.Generator(device=device).manual_seed(int(seed))
-    flat = torch.randn(sum(2 * a * b for a, b in shapes), generator=gen,
-                       device=device)
-    params, at = [], 0
-    for d_in, d_out in shapes:
-        layer = {}
-        for name in ("w_self", "w_neigh"):
-            layer[name] = (flat[at:at + d_in * d_out].view(d_in, d_out)
-                           * (2.0 / d_in) ** 0.5).contiguous()
-            at += d_in * d_out
-        layer["b"] = torch.zeros(d_out, device=device)
-        params.append(layer)
-    return params
+
+
+def load_model(models: Path, conv: str):
+    """The model file ``models/<conv>.py``: ``init_params(model, seed,
+    device)``, ``forward(params, levels, p, h0, model, gen, mm)`` and
+    ``gemm_flops(model, step)``.  A conv without a file is an error that
+    names the file; nothing stands in for it."""
+    path = Path(models) / f"{conv}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no model file {path} for the "
+                                f"configuration's conv {conv!r}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_model_{conv.replace('-', '_').replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def leaves(params) -> dict:
@@ -222,11 +231,31 @@ def _mm(x, w, emulate_tf32: bool):
     return x @ w
 
 
-def worker_loss(params, levels: list[Level], p: int, layout: Layout,
-                model: dict, gen: torch.Generator, emulate_tf32: bool,
+def neighbour_mean(h: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """(S, D) mean of each destination's valid edges' source rows of ``h``
+    (N, D); 0 where a destination has none."""
+    valid = (edges >= 0)[..., None].to(h.dtype)
+    return (h[edges.clamp(min=0)] * valid).sum(1) / valid.sum(1).clamp(
+        min=1.0)
+
+
+def dropout(out: torch.Tensor, p: float,
+            gen: torch.Generator) -> torch.Tensor:
+    """``out`` with each element kept where its uniform from ``gen`` is >=
+    ``p`` and scaled by 1 / (1 - p); the uniforms drawn as the program
+    draws a worker's."""
+    if p <= 0:
+        return out
+    keep = torch.rand((1, *out.shape), generator=gen,
+                      device=out.device)[0] >= p
+    return out * keep / (1 - p)
+
+
+def worker_loss(net, params, levels: list[Level], p: int, layout: Layout,
+                model: dict, gen: torch.Generator, mm,
                 fault: str | None) -> torch.Tensor:
-    """Worker p's masked cross entropy over its labelled seeds."""
-    L = model["num_layers"]
+    """Worker p's masked cross entropy over its labelled seeds, the model
+    file ``net``'s forward from the worker's fetched rows."""
     src = levels[-1].src[p]
     ok = src >= 0
     h = torch.where(ok[:, None], layout.features[layout.perm[src.clamp(
@@ -234,24 +263,7 @@ def worker_loss(params, levels: list[Level], p: int, layout: Layout,
     if fault == "no_exchange":
         lo, hi = layout.offsets[p], layout.offsets[p + 1]
         h = torch.where(((src >= lo) & (src < hi))[:, None], h, 0.0)
-    drop = model["dropout"]
-    for layer in range(L):
-        lvl = levels[L - 1 - layer]
-        edges = lvl.edges[p]
-        S = edges.shape[0]
-        valid = (edges >= 0)[..., None].to(h.dtype)
-        agg = (h[edges.clamp(min=0)] * valid).sum(1) / valid.sum(1).clamp(
-            min=1.0)
-        w = params[layer]
-        out = (_mm(h[:S], w["w_self"], emulate_tf32)
-               + _mm(agg, w["w_neigh"], emulate_tf32) + w["b"])
-        if layer < L - 1:
-            out = torch.relu(out)
-            if drop > 0:
-                keep = torch.rand((1, *out.shape), generator=gen,
-                                  device=out.device)[0] >= drop
-                out = out * keep / (1 - drop)
-        h = out
+    h = net.forward(params, levels, p, h, model, gen, mm)
     seeds = levels[0].dst[p]
     labels = torch.from_numpy(layout.labels_new[seeds.clamp(
         min=0).cpu().numpy()]).to(h.device)
@@ -263,12 +275,13 @@ def worker_loss(params, levels: list[Level], p: int, layout: Layout,
     return torch.where(use, nll, 0.0).sum() / use.sum().clamp(min=1)
 
 
-def train(data: dict, model: dict, optim: dict, mix: dict, seed: int,
+def train(data: dict, net, model: dict, optim: dict, mix: dict, seed: int,
           base_salt: int, dropout_seed: int, *, steps: int = 3,
           device="cpu", precision: str = "fp32",
           fault: str | None = None, layout: Layout | None = None,
           after_first: list | None = None) -> dict:
-    """Run ``steps`` training steps from the run's initial weights.
+    """Run ``steps`` training steps of the model file ``net``
+    (``load_model``) from the run's initial weights.
     Returns {"losses": [...], "grad_norms": {leaf: norm of the first
     clipped gradient}, "change1_norms" and "change<steps>_norms": {leaf:
     norm of the parameters' change after the first and the last step}};
@@ -277,12 +290,14 @@ def train(data: dict, model: dict, optim: dict, mix: dict, seed: int,
         raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
     if layout is None:
         layout = make_layout(data, mix["num_parts"], device)
-    params = init_params(model, seed, device)
+    params = net.init_params(model, seed, device)
     start = {k: v.clone() for k, v in leaves(params).items()}
     m = {k: torch.zeros_like(v) for k, v in start.items()}
     v2 = {k: torch.zeros_like(v) for k, v in start.items()}
     gen = torch.Generator(device=device).manual_seed(int(dropout_seed))
-    emulate = precision == "tf32" and torch.device(device).type != "cuda"
+    mm = functools.partial(
+        _mm, emulate_tf32=precision == "tf32"
+        and torch.device(device).type != "cuda")
     b1, b2, eps = optim["b1"], optim["b2"], optim["eps"]
     out = {"losses": []}
     with _matmul_precision(precision == "tf32", device):
@@ -301,8 +316,8 @@ def train(data: dict, model: dict, optim: dict, mix: dict, seed: int,
                         for k2, t in named.items()}
                 shaped = [{n: live[f"l{i}.{n}"] for n in layer}
                           for i, layer in enumerate(params)]
-                loss = worker_loss(shaped, levels, p, layout, model, gen,
-                                   emulate, fault)
+                loss = worker_loss(net, shaped, levels, p, layout, model,
+                                   gen, mm, fault)
                 g = torch.autograd.grad(loss, list(live.values()))
                 for k2, gi in zip(live, g):
                     grads[k2] += gi

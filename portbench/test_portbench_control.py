@@ -9,7 +9,10 @@ training cell can have, at a size a test run holds, on the CPU.
   step that returns its state unchanged; half of each worker's batch left
   out of the loss, the mean taken over the rest; the exchange between the
   workers left out; a sampled neighbour altered where the sampler draws
-  it.
+  it; and in the cell with a cache, the cached rows served as zeros, or
+  from the next slot of the cache, where ``gather_rows`` serves them.
+  The ``cached`` cell's cache holds every remote row, so its exchange
+  carries no row between workers and cannot lose one.
 """
 import json
 
@@ -32,19 +35,21 @@ def tiny(tmp_path_factory):
     data, _ = dataset.load_or_build(root / "portbench/configs/tiny.json",
                                     root / "build/portbench", 4,
                                     log=lambda *a: None)
-    return root, bench, cfg, data
+    net = reference.load_model(root / "portbench/models",
+                               cfg["model"]["conv"])
+    return root, bench, cfg, data, net
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_tf32_control_is_not_correct(tiny, cell, one_thread):
-    root, bench, cfg, data = tiny
+    root, bench, cfg, data, net = tiny
     mix = harness.load_mix(root, bench, "tiny-" + cell.split(".")[1])
     limits = json.loads((ROOT / f"portbench/checks/{cell}.json")
                         .read_text())["limits"]
     for seed in (11, 2 ** 31 + 3, 2 ** 33 + 1):
         s = harness.seed_streams(seed)
-        args = (data, cfg["model"], cfg["optimizer"], mix, s["weights"],
-                s["base_salt"], s["dropout"])
+        args = (data, net, cfg["model"], cfg["optimizer"], mix,
+                s["weights"], s["base_salt"], s["dropout"])
         ref = reference.train(*args)
         control = reference.train(*args, precision="tf32")
         correct, table = compare.judge(compare.readings(control, ref),
@@ -60,7 +65,7 @@ def _shifted(draw):
 
 
 def plant(monkeypatch, fault):
-    from repro_torch.core import dist, sampler
+    from repro_torch.core import dist, feature_store, sampler
     from repro_torch.kernels import fused_sample
     from repro_torch.models import gnn
     from repro_torch.pipeline import prefetch
@@ -88,13 +93,32 @@ def plant(monkeypatch, fault):
         for mod in (sampler, dist, fused_sample):
             monkeypatch.setattr(mod, "draw_columns",
                                 _shifted(sampler.draw_columns))
+    elif fault == "cache_rows_zeroed":
+        monkeypatch.setattr(
+            feature_store, "gather_rows", lambda rows, pos: torch.zeros(
+                (*pos.shape, rows.shape[-1]), dtype=rows.dtype,
+                device=rows.device))
+    elif fault == "cache_slot_shifted":
+        gather = feature_store.gather_rows
+
+        def next_slot(rows, pos):
+            return gather(rows, torch.where(
+                pos >= 0, (pos + 1) % rows.shape[1], pos).to(pos.dtype))
+        monkeypatch.setattr(feature_store, "gather_rows", next_slot)
     else:
         raise ValueError(fault)
 
 
-@pytest.mark.parametrize("traffic", ["fastsample", "vanilla"])
-@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "no_exchange",
-                                   "shifted_draw"])
+CORE_FAULTS = ("unchanged", "half_batch", "no_exchange", "shifted_draw")
+CACHE_FAULTS = ("unchanged", "half_batch", "shifted_draw",
+                "cache_rows_zeroed", "cache_slot_shifted")
+
+
+@pytest.mark.parametrize("fault,traffic", [
+    pytest.param(fault, traffic, id=f"{fault}-{traffic}")
+    for fault in dict.fromkeys(CORE_FAULTS + CACHE_FAULTS)
+    for traffic in ("fastsample", "vanilla", "cached")
+    if fault in (CACHE_FAULTS if traffic == "cached" else CORE_FAULTS)])
 def test_a_planted_fault_is_not_correct(tmp_path, monkeypatch, fault,
                                         traffic, one_thread):
     root = make_tiny_root(tmp_path / "checkout")

@@ -3,7 +3,8 @@ the trace arithmetic on made-up records."""
 import pytest
 import torch
 
-from portbench import counts, devtrace, h100
+from portbench import counts, devtrace, h100, reference
+from portbench.conftest import ROOT
 from portbench.reference import Level
 
 # two workers, capacity 2 seeds, fanout 2; worker 1 has one padding seed
@@ -34,14 +35,30 @@ def test_summary_counts_by_hand():
         {"dst": 2, "edges": 3, "refs": 3, "with_edges": 2},
         {"dst": 1, "edges": 2, "refs": 2, "with_edges": 1}]
     assert s["fetched"] == 7                   # {5, 9, 7, 8} and {3, 4, 6}
+    assert s["frontier"] == [4, 3] and s["hits"] == [0, 0]
+
+
+def test_cache_hits_and_misses_by_hand():
+    # worker 0 caches 7 (and 100, not sampled), worker 1 caches 3 and 6
+    # (and 9, which only worker 0 sampled)
+    cache = [torch.tensor([7, 100]), torch.tensor([3, 6, 9])]
+    s = counts.summarize([TOP], cache)
+    assert s["frontier"] == [4, 3] and s["hits"] == [1, 2]
+    assert s["fetched"] == 4                   # misses {5, 9, 8} and {4}
+    # ids 2 x 12 x 4, the 4 missed rows of 16 B, the (2, 12, 4) reply
+    assert counts.feature_gather_bound(s, 4) == pytest.approx(t(544))
+    # slot ids 2 x 6 x 4, the 3 hit rows, the (2, 6, 4) output
+    assert counts.gather_rows_bound(s, 4) == pytest.approx(t(288))
 
 
 def test_gemm_flops_by_hand():
-    one = counts.gemm_flops(ONE_LAYER, counts.summarize([TOP]))
+    gemm_flops = reference.load_model(ROOT / "portbench/models",
+                                      "sage").gemm_flops
+    one = gemm_flops(ONE_LAYER, counts.summarize([TOP]))
     # 3 valid destinations, two 4 x 3 products, 2 flops a multiply-add
     assert one == {"forward": 144.0, "weight_grad": 144.0,
                    "input_grad": 0.0, "total": 288.0}
-    two = counts.gemm_flops(TWO_LAYERS, counts.summarize([TOP, LOW]))
+    two = gemm_flops(TWO_LAYERS, counts.summarize([TOP, LOW]))
     # layer 1 eats LOW: 4 + 3 valid destinations, 4 -> 8; layer 2 eats TOP:
     # 3 valid destinations, 8 -> 3, and has an input gradient
     first, second = 4 * 7 * 4 * 8, 4 * 3 * 8 * 3

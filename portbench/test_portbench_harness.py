@@ -1,6 +1,6 @@
 """The harness finds every piece of a cell by name, the benchmark's file
-keeps to its contract, and a later change can add a configuration, a mix
-and a per-layer metric by adding files and entries only."""
+keeps to its contract, and a later change can add a configuration, a mix,
+a per-layer metric and a model by adding files and entries only."""
 import json
 import re
 from types import SimpleNamespace
@@ -138,8 +138,104 @@ def test_a_new_config_mix_and_metric_are_found_by_name(tiny_root):
     assert not [p for p in built if p.name.startswith(".")]
 
 
+# a GCN layer: relu(0.5 (h_dst + mean of the sampled neighbours) @ w_neigh
+# + b), the port's ``conv="gcn"``; SCALE is the 0.5
+GCN = '''"""GCN over the sampled message-flow graphs."""
+import torch
+
+from portbench import reference
+
+
+def init_params(model, seed, device):
+    dims = reference.layer_dims(model)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return [{"w_neigh": torch.randn((a, b), generator=gen, device=device)
+             * (2.0 / a) ** 0.5, "b": torch.zeros(b, device=device)}
+            for a, b in zip(dims, dims[1:])]
+
+
+def forward(params, levels, p, h0, model, gen, mm):
+    L = model["num_layers"]
+    h = h0
+    for layer in range(L):
+        edges = levels[L - 1 - layer].edges[p]
+        S = edges.shape[0]
+        x = SCALE(h[:S] + reference.neighbour_mean(h, edges))
+        out = mm(x, params[layer]["w_neigh"]) + params[layer]["b"]
+        if layer < L - 1:
+            out = reference.dropout(torch.relu(out), model["dropout"], gen)
+        h = out
+    return h
+
+
+def gemm_flops(model, step):
+    L = model["num_layers"]
+    dims = reference.layer_dims(model)
+    fwd = igrad = 0.0
+    for layer in range(L):
+        rows = sum(w["dst"] for w in step["levels"][L - 1 - layer]["workers"])
+        fwd += 2.0 * rows * dims[layer] * dims[layer + 1]
+        igrad += 2.0 * rows * dims[layer] * dims[layer + 1] * (layer > 0)
+    return {"forward": fwd, "weight_grad": fwd, "input_grad": igrad,
+            "total": 2 * fwd + igrad}
+'''
+
+
+def add_cell(root, name: str, model: dict) -> str:
+    """Add, as files and entries only, the configuration ``name``: the
+    tiny one with ``model`` over its model, and its cell
+    ``<name>.fastsample``."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    pb = root / "portbench"
+    cfg = json.loads((pb / "configs/tiny.json").read_text())
+    cfg["model"] = dict(cfg["model"], **model)
+    (pb / f"configs/{name}.json").write_text(json.dumps(cfg))
+    cell = f"{name}.fastsample"
+    (pb / f"checks/{cell}.json").write_text(
+        (pb / "checks/tiny.fastsample.json").read_text())
+    bench["configs"].append(dict(bench["configs"][-1], name=name,
+                                 file=f"portbench/configs/{name}.json"))
+    bench["workloads"].append({"name": cell, "config": name,
+                               "traffic": "tiny-fastsample", "chips": 1,
+                               "why": "added by files"})
+    for entry in bench["per_layer"]:
+        if "tiny.fastsample" in entry.get("workloads", []):
+            entry["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return cell
+
+
+@pytest.mark.parametrize("scale,correct", [("0.5 * ", True), ("", False)])
+def test_a_second_conv_is_added_as_files(tiny_root, scale, correct):
+    """A gcn model file, a configuration and a cell, added as files and
+    entries only, run ``correct``; with the 0.5 of gcn's self-plus-mean
+    dropped from the reference, not."""
+    (tiny_root / "portbench/models/gcn.py").write_text(
+        GCN.replace("SCALE(", f"{scale}("))
+    cell = add_cell(tiny_root, "tiny-gcn", {"conv": "gcn"})
+    out = harness.run(cell, 2 ** 31 + 41, 0.2, True, root=tiny_root,
+                      device="cpu")
+    assert out["correct"] is correct, out["checks"]
+    assert out["metrics"]["train_mfu"]["value"] > 0
+
+
+@pytest.mark.parametrize("model,error,names", [
+    ({"conv": "gat"}, FileNotFoundError, "models/gat.py"),
+    ({"gat_head": 8}, ValueError, "'gat_head'")])
+def test_a_model_the_harness_cannot_build_fails_before_set_up(
+        tiny_root, model, error, names):
+    """A conv with no model file, or a model key that GNNConfig does not
+    declare, is an error that names it, before any dataset is built; no
+    other model stands in."""
+    cell = add_cell(tiny_root, "tiny-bad", model)
+    with pytest.raises(error, match=re.escape(names)):
+        harness.run(cell, 5, 0.2, False, root=tiny_root, device="cpu")
+    assert not (tiny_root / "build").exists()
+
+
 @pytest.mark.parametrize("cell,rounds", [("tiny.fastsample", 2),
-                                         ("tiny.vanilla", 6)])
+                                         ("tiny.vanilla", 6),
+                                         ("tiny.cached", 2)])
 def test_a_tiny_cell_runs_end_to_end(tiny_root, cell, rounds):
     out = harness.run(cell, 12345, 0.3, False, root=tiny_root, device="cpu")
     assert out["correct"] is True, out["checks"]
@@ -157,6 +253,8 @@ def test_a_tiny_cell_runs_end_to_end(tiny_root, cell, rounds):
     assert traced["metrics"]["rounds_per_step"]["value"] == rounds
     assert traced["metrics"]["train_mfu"]["value"] > 0
     assert traced["metrics"]["window_seeds_per_s"]["value"] > 0
+    hit_rate = traced["metrics"].get("cache_hit_rate", {}).get("value")
+    assert (0 < hit_rate < 100) if cell == "tiny.cached" else hit_rate is None
 
 
 def test_a_killed_build_leaves_nothing_to_load(tmp_path, monkeypatch):

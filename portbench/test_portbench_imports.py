@@ -9,8 +9,9 @@ from portbench import harness
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
-# the yardstick: the reference, the counts, the dataset, the comparison,
-# the trace arithmetic and the constants take nothing from the program
+# the yardstick: the reference and its model files, the counts, the
+# dataset, the comparison, the trace arithmetic and the constants take
+# nothing from the program
 YARDSTICK = ("reference", "counts", "dataset", "compare", "devtrace", "h100",
              "stages")
 
@@ -34,8 +35,9 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 def test_the_yardstick_and_the_readers_import_nothing_of_the_port():
     readers = sorted((HERE / "metrics").glob("*.py"))
-    assert readers
-    for path in [HERE / f"{m}.py" for m in YARDSTICK] + readers:
+    models = sorted((HERE / "models").glob("*.py"))
+    assert readers and models
+    for path in [HERE / f"{m}.py" for m in YARDSTICK] + readers + models:
         assert "repro_torch" not in top_level_imports(path), path
 
 

@@ -1,15 +1,18 @@
 """The plain reference against ``repro_torch`` on a tiny graph on the CPU:
 the same seeds, the same message-flow graphs under both schemes' rules
-(a hub past the fused sampler's window included), and training steps
-within float32 rounding."""
+(a hub past the fused sampler's window included), the same rows through
+the exchange and through the pinned cache, the kernels' counts of cache
+hits against the program's, and training steps within float32
+rounding."""
 import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from portbench import compare, dataset, harness, reference
-from portbench.conftest import ROOT, TINY, TINY_MODEL
+from portbench import compare, counts, dataset, harness, reference
+from portbench.conftest import ROOT, TINY, TINY_CACHE, TINY_MODEL
 
 HUB_IN, HUB_OUT = 2500, 600       # a node past the 2048-neighbour window
 
@@ -51,16 +54,25 @@ def tiny_cfg(traffic: str):
     return cfg, mix
 
 
+def sage():
+    return reference.load_model(ROOT / "portbench/models", "sage")
+
+
+def program(data, cfg, mix, seed):
+    return harness.Program(data, cfg, mix, harness.seed_streams(seed), "cpu",
+                           sage(), harness.gnn_config(cfg["model"]),
+                           log=lambda *a: None)
+
+
 @pytest.fixture(scope="module")
 def data():
     return hub_dataset()
 
 
-@pytest.mark.parametrize("traffic", ["fastsample", "vanilla"])
+@pytest.mark.parametrize("traffic", ["fastsample", "vanilla", "cached"])
 def test_seeds_and_mfgs_equal_the_port(data, traffic, one_thread):
     cfg, mix = tiny_cfg(traffic)
-    prog = harness.Program(data, cfg, mix, harness.seed_streams(9), "cpu",
-                           log=lambda *a: None)
+    prog = program(data, cfg, mix, 9)
     layout = reference.make_layout(data, 4, "cpu")
     prepare, _ = prog.pipe.make_prepare_consume(prog.loss_fn, counted=False,
                                                 device="cpu")
@@ -69,7 +81,7 @@ def test_seeds_and_mfgs_equal_the_port(data, traffic, one_thread):
         np.testing.assert_array_equal(prog.pipe.seeds_host(mix["batch"],
                                                            salt), seeds)
         batch = prepare(prog.pipe.shards, torch.from_numpy(
-            seeds.astype(np.int32)), salt)
+            seeds.astype(np.int32)), salt, prog.pipe.cache)
         levels = reference.sample_step(layout, seeds, cfg["model"]["fanouts"],
                                        salt, mix["sample_window"])
         for mfg, lvl in zip(batch.mfgs, levels):
@@ -83,6 +95,50 @@ def test_seeds_and_mfgs_equal_the_port(data, traffic, one_thread):
         assert torch.equal(h, ref_h)
 
 
+@pytest.mark.parametrize("capacity", ["all_remote", TINY_CACHE])
+def test_cache_hit_rate_holds_the_programs_hits(data, capacity, one_thread):
+    """``cache_hit_rate`` reads the hit share the program's driver reports
+    a step; the kernels' counts of hits, over the benchmark's sampling and
+    the program's cached rows, give the same shares (``check_hits``), and
+    a different share ends the run.  Under ``all_remote`` every worker
+    caches every node it does not own, so its hits are its remote
+    frontier ids."""
+    cfg, mix = tiny_cfg("cached")
+    mix["cache_capacity"] = capacity
+    prog = program(data, cfg, mix, 4)
+    layout = reference.make_layout(data, 4, "cpu")
+    ids = prog.pipe.cache.ids.long()
+    steps, shares = [], []
+    for k in range(3):
+        prog.step()
+        shares.append(float(prog.metrics["cache_hit_rate"]))
+        salt = (harness.seed_streams(4)["base_salt"] + k) % 2 ** 32
+        levels = reference.sample_step(
+            layout, reference.draw_seeds(layout, mix["batch"], salt),
+            cfg["model"]["fanouts"], salt, mix["sample_window"])
+        steps.append(counts.summarize(levels, ids))
+        src = levels[-1].src
+        owner = torch.from_numpy(np.searchsorted(
+            layout.offsets, src.clamp(min=0).numpy(), side="right") - 1)
+        remote = ((src >= 0) & (owner != torch.arange(4)[:, None])).sum(-1)
+        if capacity == "all_remote":
+            assert steps[-1]["hits"] == remote.tolist()
+        else:
+            assert 0 < sum(steps[-1]["hits"]) < int(remote.sum())
+    if capacity == "all_remote":
+        n = layout.perm.numel()
+        owned = np.diff(layout.offsets)
+        assert ((ids < n).sum(-1).numpy() == n - owned).all()
+    harness.check_hits(steps, shares)
+    with pytest.raises(RuntimeError, match="cache hit share"):
+        harness.check_hits(steps, [x + 1e-3 for x in shares])
+    reader = harness.load_metric(ROOT, harness.load_bench(ROOT),
+                                 "cache_hit_rate")
+    read = reader.read(SimpleNamespace(trace={"hit_share": shares},
+                                       mix=mix))
+    assert read == pytest.approx(100.0 * np.mean(shares)) and 0 < read < 100
+
+
 def test_the_window_rule_is_the_fused_samplers(data, one_thread):
     """Past the window the fused sampler draws from the first 2048
     in-neighbours, the windowless one from all; the reference follows
@@ -91,8 +147,7 @@ def test_the_window_rule_is_the_fused_samplers(data, one_thread):
     from repro_torch.kernels import ops
 
     cfg, mix = tiny_cfg("fastsample")
-    prog = harness.Program(data, cfg, mix, harness.seed_streams(1), "cpu",
-                           log=lambda *a: None)
+    prog = program(data, cfg, mix, 1)
     layout = reference.make_layout(data, 4, "cpu")
     hub_new = int(layout.old_to_new[data["hub"]])
     frontier = torch.tensor([[hub_new, 3, -1, 11]] * 4)
@@ -108,14 +163,13 @@ def test_the_window_rule_is_the_fused_samplers(data, one_thread):
     assert not torch.equal(win.src, free.src)
 
 
-@pytest.mark.parametrize("traffic", ["fastsample", "vanilla"])
+@pytest.mark.parametrize("traffic", ["fastsample", "vanilla", "cached"])
 def test_training_steps_agree_within_rounding(data, traffic, one_thread):
     cfg, mix = tiny_cfg(traffic)
     streams = harness.seed_streams(2 ** 31 + 5)
-    prog = harness.Program(data, cfg, mix, streams, "cpu",
-                           log=lambda *a: None)
+    prog = program(data, cfg, mix, 2 ** 31 + 5)
     got = prog.checked_steps()
-    ref = reference.train(data, cfg["model"], cfg["optimizer"], mix,
+    ref = reference.train(data, sage(), cfg["model"], cfg["optimizer"], mix,
                           streams["weights"], streams["base_salt"],
                           streams["dropout"], device="cpu")
     read = compare.readings(got, ref)
