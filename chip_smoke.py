@@ -305,7 +305,10 @@ HAND_WRITTEN = ("fused_sample_kernel", "sage_aggregate_kernel",
                 "backward_prep_kernel", "rowptr_scan_kernel",
                 "sage_aggregate_backward_kernel", "feature_gather_kernel",
                 "gather_rows_kernel", "sage_epilogue_kernel",
-                "sage_epilogue_backward_kernel")
+                "sage_epilogue_backward_kernel", "gat_attention_kernel",
+                "gat_attention_backward_kernel")
+# the wrappers only a gatv1 layer launches: no phase here trains one
+GAT_KERNELS = ("gat_attention", "gat_attention_backward")
 TRAIN_BATCH = 1000               # seeds per worker (paper §4)
 CACHE_K = 65_536                 # pinned cache rows per worker
 TRAIN_STEPS = 10
@@ -1374,6 +1377,157 @@ def check_sage_epilogue() -> dict:
     return res
 
 
+# the benchmark's gatv1 layer-1 shape a worker: 1000 seeds, fanouts 10, 10,
+# 10 (S = 121 000 destinations, F = 10), 4 heads of 128
+GAT_ROWS, GAT_F, GAT_H, GAT_C = 121_000, 10, 4, 128
+GAT_CHUNK = 8192                # rows a float64 reference chunk
+GAT_KINK = 1e-4                 # scores this near 0 take no gradient
+
+
+def check_gat_attention() -> dict:
+    """The ``gat_attention`` kernels against their plain versions computed
+    in float64 (in row chunks), at the benchmark's layer-1 shape (121 000
+    rows, 10 edges, 4 heads of 128) and on ragged ones (the last layer's
+    C = 47 on the scalar path, an unaligned input, F = 1, one row, a head
+    of 8).  ``keep`` drops a quarter of the edges at random and every edge
+    of some rows (the self slot alone); rows with a score within
+    ``GAT_KINK`` of LeakyReLU's kink take a zero upstream gradient (the
+    card's float32 may put such a score on the other side of 0 than the
+    float64 reference, and the slope's gradient jumps 5x there).
+    Forward: the output within 1e-5
+    of the largest |output| (float32 dots of C terms and a softmax), the
+    weights within 1e-6; backward: dz_nb, dz_dst and the attention
+    vectors' gradients (sums over every row) within ``GRAD_RTOL`` of their
+    largest |value|; each wrapper one launch a call.  Both
+    kernels timed at the big shape beside their float32 plain versions and
+    their least times (bytes: their own inputs read once, outputs written
+    once)."""
+    import torch
+    from repro_torch.kernels.gat_attention import (
+        gat_attention, gat_attention_backward, gat_attention_backward_plain,
+        gat_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def inputs(rows, F, H, C, offset=0):
+        z_nb = randn(rows * F * H * C + offset)[offset:].view(rows, F,
+                                                              H * C)
+        keep = torch.rand((rows, F), generator=gen, device="cuda") >= 0.25
+        keep[::7] = False                     # the self slot alone
+        return (z_nb, randn(rows, H * C), keep, randn(H, C) * 0.1,
+                randn(H, C) * 0.1)
+
+    def at_the_kink(xs):
+        """Rows with a kept slot whose score lies within ``GAT_KINK`` of
+        LeakyReLU's kink (float64): float32 may put it on the other side,
+        where the slope's gradient is 5x another."""
+        z_nb, z_dst, keep, a_src, a_dst = xs
+        rows, F, _ = z_nb.shape
+        H, C = a_src.shape
+        out = torch.zeros(rows, dtype=torch.bool, device="cuda")
+        for lo in range(0, rows, GAT_CHUNK):
+            sl = slice(lo, lo + GAT_CHUNK)
+            zd = z_dst[sl].double().view(-1, 1, H, C)
+            zs = torch.cat([zd, z_nb[sl].double().view(-1, F, H, C)], 1)
+            pre = (zs * a_src.double()).sum(-1) \
+                + (zd * a_dst.double()).sum(-1)
+            ok = torch.cat([torch.ones_like(keep[sl, :1]), keep[sl]], 1)
+            out[sl] = ((pre.abs() < GAT_KINK) & ok[..., None]).any(-1).any(-1)
+        return out
+
+    def one(rows, F, H, C, offset=0):
+        xs = inputs(rows, F, H, C, offset)
+        gat_attention.launches = gat_attention_backward.launches = 0
+        out, alpha = gat_attention(*xs)
+        # no upstream gradient at the kink: the gradient there is 0 in
+        # any precision
+        g = randn(rows, H, C) * ~at_the_kink(xs)[:, None, None]
+        grads = gat_attention_backward(g, *xs, alpha)
+        if (gat_attention.launches, gat_attention_backward.launches) \
+                != (1, 1):
+            raise AssertionError("gat_attention: one launch a call each")
+        names = ("out", "alpha", "dz_nb", "dz_dst")
+        err = dict.fromkeys(names + ("da",), 0.0)
+        scale = dict.fromkeys(names + ("da",), 0.0)
+        da_ref = [0.0, 0.0]
+        for lo in range(0, rows, GAT_CHUNK):
+            sl = slice(lo, lo + GAT_CHUNK)
+            x64 = (xs[0][sl].double(), xs[1][sl].double(), xs[2][sl],
+                   xs[3].double(), xs[4].double())
+            o64, a64 = gat_attention_plain(*x64)
+            d64 = gat_attention_backward_plain(g[sl].double(), *x64, a64)
+            for k, got, want in (("out", out[sl], o64),
+                                 ("alpha", alpha[sl], a64),
+                                 ("dz_nb", grads[0][sl], d64[0]),
+                                 ("dz_dst", grads[1][sl], d64[1])):
+                err[k] = max(err[k], float((got - want).abs().max()))
+                scale[k] = max(scale[k], float(want.abs().max()))
+            da_ref = [da_ref[i] + d64[2 + i] for i in range(2)]
+        for i in range(2):
+            err["da"] = max(err["da"], float(
+                (grads[2 + i].double() - da_ref[i]).abs().max()))
+            scale["da"] = max(scale["da"], float(da_ref[i].abs().max()))
+        lims = {"out": 1e-5, "alpha": 1e-6, "dz_nb": GRAD_RTOL,
+                "dz_dst": GRAD_RTOL, "da": GRAD_RTOL}
+        bad = [k for k, lim in lims.items()
+               if err[k] > lim * (1.0 if k == "alpha" else scale[k])]
+        if bad:
+            raise AssertionError(f"gat_attention ({rows}, {F}, {H}, {C}), "
+                                 f"offset {offset}: {bad} out of tolerance; "
+                                 f"errors {err}, scales {scale}")
+        return xs, out, alpha, g, err, scale
+
+    for rows, F, H, C, offset in ((1000, 10, 4, 47, 0), (777, 10, 4, 128, 1),
+                                  (513, 1, 4, 128, 0), (1, 10, 4, 128, 0),
+                                  (3000, 5, 8, 64, 0), (257, 3, 1, 33, 0)):
+        _, _, _, _, err, _ = one(rows, F, H, C, offset)
+        log(f"  gat_attention ({rows}, {F}, {H} x {C}), offset {offset}: "
+            f"within tolerance of float64 (max abs errors: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in err.items()) + "), 1 launch each")
+
+    R, F, H, C = GAT_ROWS, GAT_F, GAT_H, GAT_C
+    xs, out, alpha, g, err, scale = one(R, F, H, C)
+    log(f"  gat_attention ({R}, {F}, {H} x {C}): within tolerance of "
+        f"float64 (max abs errors: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in err.items()) + "; largest |values|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in scale.items()) + ")")
+    HC, K = H * C, F + 1
+    fwd_bytes = 4 * (R * F * HC + 2 * R * HC + 2 * HC + R * K * H) + R * F
+    blocks = -(-R // 32)
+    bwd_bytes = (4 * (2 * R * HC + R * F * HC + R * K * H + 2 * HC) + R * F
+                 + 4 * (R * F * HC + R * HC + 2 * blocks * HC))
+    res = {}
+    for name, fn, plain, kernel, nbytes, e in (
+            ("gat_attention", lambda: gat_attention(*xs),
+             lambda: gat_attention_plain(*xs), "gat_attention_kernel",
+             fwd_bytes, max(err["out"], err["alpha"])),
+            ("gat_attention_backward",
+             lambda: gat_attention_backward(g, *xs, alpha),
+             lambda: gat_attention_backward_plain(g, *xs, alpha),
+             "gat_attention_backward_kernel", bwd_bytes,
+             max(err["dz_nb"], err["dz_dst"], err["da"]))):
+        wrapper = (gat_attention if name == "gat_attention"
+                   else gat_attention_backward)
+        ms, call_ms, by_name = time_ms(fn, wrapper=wrapper, kernel=kernel)
+        plain_ms, _, _ = time_ms(plain)
+        tot = {}
+        add_bound(tot, nbytes, 0.0)
+        res[name] = {"err": e, "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "bound_ms": tot["bound_ms"],
+                     "bound_by": tot["bound_by"], "library_ms": None,
+                     "kernel_ms": by_name.get(kernel)}
+        log(f"  {name} ({R}, {F}, {H} x {C}): device {ms:.4f} ms ({kernel} "
+            f"{by_name.get(kernel, 0.0):.4f}), call {call_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_by']}; "
+            f"{100 * tot['bound_ms'] / by_name.get(kernel, ms):.1f} % of the "
+            f"kernel)")
+    return res
+
+
 def feature_rows(layout, src):
     """The rows ``src`` names, read straight from the owners' shards
     (+0.0 for padding): the fetch's expected output."""
@@ -1540,7 +1694,8 @@ def training_phase(layout, data, cfg):
     if rounds != 2:
         raise AssertionError(f"{rounds} communication rounds per step, "
                              f"expected 2")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in GAT_KERNELS]
     if missing:
         raise AssertionError(f"kernels never launched on the training "
                              f"path: {missing}")
@@ -1822,8 +1977,8 @@ def overlap_run(layout, data, cfg, ref, label, depth, staging, store):
                 f"{same}")
         if max(overflow) == 0:
             raise AssertionError(f"{label}: no window overflow in any step")
-        path = [k for k in counts
-                if not (store == "staged" and k == "feature_gather")]
+        path = [k for k in counts if k not in GAT_KERNELS
+                and not (store == "staged" and k == "feature_gather")]
         missing = [k for k in path if counts[k] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels never launched: "
@@ -2138,7 +2293,8 @@ def placement_run(layout, data, cfg, ref, name) -> tuple[dict, dict]:
         windowed = pipe.placement.scheme.uses_level_backend \
             and spec.sampler.backend == "fused_cuda"
         missing = [k for k, v in counts.items()
-                   if v == 0 and (windowed or k != "fused_sample")]
+                   if v == 0 and k not in GAT_KERNELS
+                   and (windowed or k != "fused_sample")]
         if missing:
             raise AssertionError(f"{name}: kernels never launched: "
                                  f"{missing}")
@@ -2816,9 +2972,11 @@ def conv_phase(train_pipe, serving_pipe, ds, data, serving):
         if not np.isfinite(losses).all() or rounds != 2:
             raise AssertionError(f"{conv}: losses {losses}, {rounds} rounds "
                                  f"per step (expected finite, 2)")
-        # these convs keep their own tails: no sage_epilogue
+        # these convs keep their own tails: no sage_epilogue, and no
+        # gat_attention (gatv1's)
         missing = [k for k, v in counts.items()
-                   if v == 0 and not k.startswith("sage_epilogue")]
+                   if v == 0 and not k.startswith("sage_epilogue")
+                   and k not in GAT_KERNELS]
         if missing:
             raise AssertionError(f"{conv}: kernels never launched on the "
                                  f"training path: {missing}")
@@ -3523,7 +3681,7 @@ def fleet_phase(ds, layout, cfg, params0, batch_seeds, placement):
             ", ".join(f"{k} {v}" for k, v in x["launches"].items()
                       if v) for x in res))
         counts[f"fleet {label}"] = {
-            k: sum(x["launches"][k] for x in res) for k in ALL_KERNELS}
+            k: sum(x["launches"][k] for x in res) for k in res[0]["launches"]}
         numbers["fleets"][label] = {
             "ranks": nranks, "workers_per_rank": per, "scheme": scheme,
             "losses": res[0]["losses"], "walls_ms": walls,
@@ -4893,6 +5051,8 @@ def main() -> int:
     log("-- the sage hidden layer's tail (sage_epilogue, forward and "
         "backward)")
     epilogue = check_sage_epilogue()
+    log("-- gatv1's attention (gat_attention, forward and backward)")
+    epilogue.update(check_gat_attention())
     log("-- the e2e example's widths (D = 1024 and 4096)")
     e2e_widths = check_e2e_widths()
 
@@ -5063,7 +5223,12 @@ def main() -> int:
             ("sage_epilogue", None, "none (port-only: the tail XLA fuses "
              "into src/repro/models/gnn.py's products)", "sage_epilogue"),
             ("sage_epilogue_backward", None, "none (port-only: its "
-             "gradient)", "sage_epilogue")):
+             "gradient)", "sage_epilogue"),
+            ("gat_attention", None, "none (port-only: gatv1's attention; "
+             "repro's gat attends in jnp, src/repro/models/gnn.py)",
+             "gat_attention"),
+            ("gat_attention_backward", None, "none (port-only: its "
+             "gradients)", "gat_attention")):
         by_path = {"serving": counts.get(name, 0),
                    "training": train_counts[name],
                    "overlap": overlap_counts[name],
@@ -5074,8 +5239,7 @@ def main() -> int:
                         "exact inference": infer_counts[name]})
         by_path.update({path: c[name] for path, c in conv_counts.items()})
         by_path.update({path: c[name] for path, c in data_counts.items()})
-        by_path.update({path: c[name]
-                        for path, c in fleet_counts.items()})
+        by_path.update({path: c[name] for path, c in fleet_counts.items()})
         by_path.update({path: c[name]
                         for path, c in dryrun_counts.items()})
         by_path.update({path: c[name] for path, c in seed_counts.items()})

@@ -18,10 +18,11 @@ is the same f-ordered sum over the same rows, and the products run in
 ``rowwise_matmul``'s fixed row blocks, so neither the batch size nor the
 last, shorter batch changes a node's bits.  On the card the aggregate is
 the hand-written forward (its wide-row kernel past 8192 ids a row).
-Every conv runs: gcn and gin aggregate like sage; gat projects the table
-once a layer (``gat_project``) and gathers each batch's attention
-sources from it, (batch, width, d_out) floats a batch, so a graph with
-hubs runs it under a ``max_degree`` cap.
+Every conv runs: gcn and gin aggregate like sage; gat and gatv1 project
+the table once a layer (gat's through ``gat_project``) and gather each
+batch's attention sources from it, (batch, width, d_out) floats a batch
+(gatv1: H * C, its destinations' rows from the same table), so a graph
+with hubs runs them under a ``max_degree`` cap.
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import torch
 from repro_torch.core.graph import CSCGraph
 from repro_torch.core.mfg import MFG
 from repro_torch.core.sampler import build_indptr, relabel
-from repro_torch.models.gnn import GNNConfig, apply_layer, gat_project
+from repro_torch.models.gnn import (GNNConfig, apply_layer, gat_project,
+                                    rowwise_matmul)
 
 
 def in_edges(graph: CSCGraph, seeds: torch.Tensor, max_degree: int):
@@ -85,10 +87,15 @@ def layer_pass(layer_params, graph: CSCGraph, h: torch.Tensor,
     n = graph.num_nodes
     all_nodes = torch.arange(n, dtype=torch.int32, device=h.device)
     num_src = torch.tensor(n, dtype=torch.int32, device=h.device)
-    # gat projects the whole table once a layer, not once a batch: the
-    # rows of rowwise_matmul do not depend on the row count, so the bits
-    # are those of a per-batch projection
-    projected = gat_project(layer_params, h) if cfg.conv == "gat" else None
+    # gat and gatv1 project the whole table once a layer, not once a
+    # batch: the rows of rowwise_matmul do not depend on the row count, so
+    # the bits are those of a per-batch projection (gatv1 scores, its self
+    # slot included, inside its attention)
+    projected = None
+    if cfg.conv == "gat":
+        projected = gat_project(layer_params, h)
+    elif cfg.conv == "gatv1":
+        projected = (rowwise_matmul(h, layer_params["w_neigh"]),)
     outs = []
     for lo in range(0, n, batch_size):
         seeds = all_nodes[lo:lo + batch_size]

@@ -14,6 +14,10 @@
                            dropout (``csrc/sage_epilogue.cu``)
   sage_epilogue_backward   its gradient and the bias's
                            (``csrc/sage_epilogue.cu``)
+  gat_attention            a gatv1 layer's attention: scores, softmax over
+                           the sampled edges and the self loop, weighted
+                           sum (``csrc/gat_attention.cu``)
+  gat_attention_backward   its gradients (``csrc/gat_attention.cu``)
 
 Each wrapper counts its launches in a ``launches`` attribute.  The
 single-pass scan that ``fused_sample`` and ``sage_backward_index`` share is
@@ -25,9 +29,11 @@ modules, and the fused sampler's plain version imports the core sampler.
 
 
 def kernel_wrappers() -> tuple:
-    """The eight kernel wrappers, in path order."""
+    """The ten kernel wrappers, in path order."""
     from repro_torch.kernels.feature_gather import feature_gather
     from repro_torch.kernels.fused_sample import fused_sample
+    from repro_torch.kernels.gat_attention import (gat_attention,
+                                                   gat_attention_backward)
     from repro_torch.kernels.gather import gather_rows
     from repro_torch.kernels.sage_aggregate import (sage_aggregate,
                                                     sage_aggregate_backward,
@@ -35,7 +41,8 @@ def kernel_wrappers() -> tuple:
     from repro_torch.kernels.sage_epilogue import (sage_epilogue,
                                                    sage_epilogue_backward)
     return (fused_sample, gather_rows, feature_gather, sage_aggregate,
-            sage_epilogue, sage_epilogue_backward, sage_backward_index,
+            sage_epilogue, sage_epilogue_backward, gat_attention,
+            gat_attention_backward, sage_backward_index,
             sage_aggregate_backward)
 
 

@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_sample", "sage_aggregate", "sage_backward_index",
-           "feature_gather", "gather_rows", "sage_epilogue")
+           "feature_gather", "gather_rows", "sage_epilogue", "gat_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,5 +1,5 @@
-"""GNNs over MFGs: GraphSAGE (the paper's §4 model), GCN, GAT and GIN —
-forward, loss and accuracy.
+"""GNNs over MFGs: GraphSAGE (the paper's §4 model), GCN, GAT (``repro``'s
+variant and the published one) and GIN — forward, loss and accuracy.
 
 Counterpart of ``repro.models.gnn``.  Parameters are a plain list of
 per-layer dicts in ``repro``'s layout — ``{"w_self": (d_in, d_out),
@@ -7,6 +7,10 @@ per-layer dicts in ``repro``'s layout — ``{"w_self": (d_in, d_out),
 ``attn_dst`` (H, d_out / H) for a gat layer whose width the heads divide,
 and a 0-d ``eps``, ``w_mlp`` (d_out, d_out) and ``b_mlp`` (d_out,) for gin
 — so ``params_from_numpy`` carries ``repro``'s parameters across unchanged.
+A gatv1 layer (no ``repro`` counterpart) holds ``w_neigh`` (d_in, H * C),
+``attn_src`` / ``attn_dst`` (H, C), the conv's bias ``b_att`` (H * C, or C
+where the last layer averages its heads) beside ``w_self`` and ``b``, the
+skip's; C is d_out / H in a hidden layer and the classes in the last.
 Layers consume MFGs bottom-up (layer 1 eats the bottom-most MFG) and every
 activation may carry the leading worker axis.
 
@@ -42,9 +46,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.mfg import MFG
+from repro_torch.kernels.gat_attention import (gat_attention,
+                                               gat_attention_backward)
 from repro_torch.kernels.sage_aggregate import sage_aggregate
 from repro_torch.kernels.sage_epilogue import (sage_epilogue,
                                                sage_epilogue_backward)
+from repro_torch.obs import trace as _trace
 
 ROW_CHUNK = 4096
 
@@ -57,16 +64,20 @@ class GNNConfig:
     num_layers: int = 3
     fanouts: tuple[int, ...] = (15, 10, 5)   # (N_L, ..., N_1), top first
     dropout: float = 0.5                      # training only
-    conv: str = "sage"                        # sage | gcn | gat | gin
-    gat_heads: int = 4                        # attention heads (gat only)
+    conv: str = "sage"                        # sage | gcn | gat | gatv1 | gin
+    gat_heads: int = 4                        # attention heads (gat, gatv1)
 
     def __post_init__(self):
         if self.conv not in CONVS:
             raise ValueError(f"unknown conv {self.conv!r}; available: "
                              f"{CONVS}")
+        if (self.conv == "gatv1" and self.num_layers > 1
+                and self.hidden_dim % self.gat_heads):
+            raise ValueError(f"gatv1's hidden width {self.hidden_dim} is "
+                             f"not a multiple of its {self.gat_heads} heads")
 
 
-CONVS = ("sage", "gcn", "gat", "gin")
+CONVS = ("sage", "gcn", "gat", "gatv1", "gin")
 
 
 def init_gnn_params(cfg: GNNConfig, generator: torch.Generator,
@@ -74,24 +85,34 @@ def init_gnn_params(cfg: GNNConfig, generator: torch.Generator,
     """``repro``'s parameters, shapes and scales: He-scaled normal weights
     and zero biases; gat's attention vectors normal * 0.1 where the heads
     divide the layer's width (the last layer, 47 wide, takes the mean
-    instead); gin's ``eps`` 0 and a He-scaled ``w_mlp``.  Drawn on the
-    CPU from ``generator`` (per layer: w_self, w_neigh, then the conv's
-    own) and moved to ``device``."""
+    instead); gin's ``eps`` 0 and a He-scaled ``w_mlp``; gatv1's
+    ``w_neigh`` (d_in, H * C), its attention vectors as gat's and
+    ``b_att`` zero.  Drawn on the CPU from ``generator`` (per layer:
+    w_self, w_neigh, then the conv's own) and moved to ``device``."""
     dims = ([cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
             + [cfg.num_classes])
     params = []
     for layer in range(cfg.num_layers):
         d_in, d_out = dims[layer], dims[layer + 1]
         scale = (2.0 / d_in) ** 0.5
+        last = layer == cfg.num_layers - 1
+        # gatv1's heads: C = d_out / H wide, averaged in the last layer
+        width = (cfg.gat_heads * d_out if last else d_out) \
+            if cfg.conv == "gatv1" else d_out
         p = {"w_self": torch.randn((d_in, d_out), generator=generator)
              * scale,
-             "w_neigh": torch.randn((d_in, d_out), generator=generator)
+             "w_neigh": torch.randn((d_in, width), generator=generator)
              * scale,
              "b": torch.zeros((d_out,))}
         if cfg.conv == "gat" and d_out % cfg.gat_heads == 0:
             shape = (cfg.gat_heads, d_out // cfg.gat_heads)
             p["attn_src"] = torch.randn(shape, generator=generator) * 0.1
             p["attn_dst"] = torch.randn(shape, generator=generator) * 0.1
+        if cfg.conv == "gatv1":
+            shape = (cfg.gat_heads, width // cfg.gat_heads)
+            p["attn_src"] = torch.randn(shape, generator=generator) * 0.1
+            p["attn_dst"] = torch.randn(shape, generator=generator) * 0.1
+            p["b_att"] = torch.zeros((d_out,))
         if cfg.conv == "gin":
             p["eps"] = torch.zeros(())
             p["w_mlp"] = (torch.randn((d_out, d_out), generator=generator)
@@ -304,6 +325,69 @@ def _gat_aggregate(layer, mfg: MFG, h_src: torch.Tensor,
     return out.reshape(*out.shape[:-2], -1)
 
 
+class _GATAttention(torch.autograd.Function):
+    """gatv1's attention (``gat_attention``'s contract, its ``out``) with
+    ``gat_attention_backward`` as its gradient; ``keep`` takes none."""
+
+    @staticmethod
+    def forward(ctx, z_nb, z_dst, keep, a_src, a_dst):
+        out, alpha = gat_attention(z_nb, z_dst, keep, a_src, a_dst)
+        ctx.save_for_backward(z_nb, z_dst, keep, a_src, a_dst, alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        dz_nb, dz_dst, da_src, da_dst = gat_attention_backward(
+            grad, *ctx.saved_tensors)
+        return dz_nb, dz_dst, None, da_src, da_dst
+
+
+def _gatv1_layer(layer, mfg: MFG, h_src: torch.Tensor,
+                 h_dst: torch.Tensor | None, cfg: GNNConfig, *,
+                 is_last: bool, generator: torch.Generator | None,
+                 projected: tuple | None, index: int | None) -> torch.Tensor:
+    """A gatv1 layer, PyG's ``GATConv`` (self loops removed, then one
+    added) plus a skip: ``attention + b_att + h_dst @ w_self + b``, the
+    heads concatenated in a hidden layer (then ELU and dropout) and
+    averaged in the last.  ``z = h @ w_neigh`` of each edge's source is
+    projected from the gathered ``h_src`` rows in training, as gat's, or
+    gathered from ``projected[0]`` (the destinations' too) when the caller
+    has it; an edge whose source is its destination (by position among
+    the sources: the prefix, or the global id where ``h_dst`` is given) is
+    left out, the self slot stands for it."""
+    if h_dst is None:
+        h_dst = h_src[..., : mfg.num_dst, :]
+        self_pos = torch.arange(mfg.num_dst, device=mfg.edges.device)
+    else:
+        self_pos = mfg.dst_nodes
+    heads, C = layer["attn_src"].shape
+    idx = mfg.edges.clamp(min=0)
+    if projected is None:
+        z_nb = rowwise_matmul(_rows(h_src, idx), layer["w_neigh"])
+        z_dst = rowwise_matmul(h_dst, layer["w_neigh"])
+    else:
+        z_nb = _rows(projected[0], idx)
+        z_dst = _rows(projected[0], self_pos)
+    keep = mfg.edge_mask & (mfg.edges != self_pos[..., None])
+    *lead, S, F = keep.shape
+    rows = math.prod(lead) * S
+    # a tracer's span alone: the card's idle gaps here stay model/forward's
+    with _trace.host_span("model/gat_attention", cat="step", layer=index,
+                          edges=rows * F, heads=heads):
+        att = _GATAttention.apply(
+            z_nb.reshape(rows, F, heads * C), z_dst.reshape(rows, heads * C),
+            keep.reshape(rows, F), layer["attn_src"], layer["attn_dst"])
+    att = att.reshape(*lead, S, heads, C)
+    att = att.mean(dim=-2) if is_last else att.flatten(-2)
+    out = (att + layer["b_att"] + rowwise_matmul(h_dst, layer["w_self"])
+           + layer["b"])
+    if is_last:
+        return out
+    out = torch.nn.functional.elu(out)
+    u = _dropout_uniforms(out.shape, cfg, generator, out.device)
+    return out if u is None else out * (u >= cfg.dropout) / (1 - cfg.dropout)
+
+
 def _dropout_uniforms(shape, cfg: GNNConfig,
                       generator: torch.Generator | None,
                       device) -> torch.Tensor | None:
@@ -319,16 +403,23 @@ def apply_layer(layer, mfg: MFG, h_src: torch.Tensor, cfg: GNNConfig, *,
                 is_last: bool, generator: torch.Generator | None = None,
                 aggregate: Callable = sage_aggregate,
                 h_dst: torch.Tensor | None = None,
-                projected: tuple | None = None) -> torch.Tensor:
+                projected: tuple | None = None,
+                index: int | None = None) -> torch.Tensor:
     """One layer of ``cfg.conv``: (..., src_capacity, D_in) -> (...,
     num_dst, D_out).  ``aggregate(edges, h_src)`` is the neighbour mean
     (the kernel wrapper by default; ``sage_aggregate_plain`` for a
     plain-version forward).  ``h_dst`` holds the destination rows when
     they are not the prefix of ``h_src`` (exact inference reads its
-    sources from the whole table); ``projected`` is gat's
-    ``gat_project(layer, h_src)`` when the caller has it.  Hidden layers
-    apply dropout with masks drawn from ``generator`` (on the
-    activations' device) when it is given and ``cfg.dropout > 0``."""
+    sources from the whole table, by global id); ``projected`` is gat's
+    ``gat_project(layer, h_src)`` when the caller has it; ``index`` is the
+    layer's, for gatv1's span.  Hidden layers apply dropout with masks
+    drawn from ``generator`` (on the activations' device) when it is given
+    and ``cfg.dropout > 0``; gatv1's take ELU before it, the others
+    relu."""
+    if cfg.conv == "gatv1":
+        return _gatv1_layer(layer, mfg, h_src, h_dst, cfg, is_last=is_last,
+                            generator=generator, projected=projected,
+                            index=index)
     if h_dst is None:
         h_dst = h_src[..., : mfg.num_dst, :]      # prefix convention
     if cfg.conv == "sage":
@@ -380,7 +471,8 @@ def gnn_forward(params, mfgs: Sequence[MFG], h0: torch.Tensor,
         mfg = mfgs[cfg.num_layers - 1 - layer]
         h = apply_layer(params[layer], mfg, h, cfg,
                         is_last=(layer == cfg.num_layers - 1),
-                        generator=generator, aggregate=aggregate)
+                        generator=generator, aggregate=aggregate,
+                        index=layer)
     return h
 
 

@@ -27,7 +27,9 @@ Design constraints, in order:
    host was in.  The range opens before the span's clock is read.  A
    tracer also reads the epoch clock (``time.time_ns``, the profiler's)
    beside its origin and exports it as ``clock_origin`` metadata, so its
-   own trace can be laid over a profiler trace.
+   own trace can be laid over a profiler trace.  ``host_span`` is the
+   one exception: a tracer's span alone, for detail inside a span whose
+   range should keep naming the card's idle stretches.
 
 Every recorded span gets an ``id``; its exported ``args`` hold ``parent``,
 the id of the span enclosing it on its thread, and ``step``: its own, else
@@ -106,20 +108,22 @@ class _RangeSpan:
 
 class _Span:
     """One recording span: times itself between __enter__ and __exit__,
-    inside a profiler range of its name while the profiler records."""
+    inside a profiler range of its name while the profiler records (unless
+    ``ranged`` is False)."""
 
     __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0", "_range",
-                 "_id", "_parent", "_step")
+                 "_id", "_parent", "_step", "_ranged")
 
-    def __init__(self, tracer, name, cat, args):
+    def __init__(self, tracer, name, cat, args, ranged=True):
         self._tracer = tracer
         self._name = name
         self._cat = cat
         self._args = args
+        self._ranged = ranged
 
     def __enter__(self):
         self._range = None
-        if _profiler._is_profiler_enabled:
+        if self._ranged and _profiler._is_profiler_enabled:
             self._range = _profiler.record_function(self._name)
             self._range.__enter__()
         stack = self._tracer._stack()
@@ -396,6 +400,17 @@ def span(name: str, cat: str | None = None, **args):
             return _NULL_SPAN
         return _RangeSpan(name)
     return t.span(name, cat, **args)
+
+
+def host_span(name: str, cat: str | None = None, **args):
+    """Span on the installed tracer that opens no profiler range; the
+    shared no-op when no tracer is installed.  For detail inside another
+    span whose profiler range should go on naming what the host does
+    there: the card's idle stretches inside it keep the outer name."""
+    t = _ACTIVE
+    if t is None:
+        return _NULL_SPAN
+    return _Span(t, name, cat, args or None, ranged=False)
 
 
 def fenced() -> bool:

@@ -57,6 +57,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.feature_gather import (feature_gather,
                                                 feature_gather_plain)
 from repro_torch.kernels.fused_sample import fused_sample
+from repro_torch.kernels.gat_attention import (gat_attention,
+                                               gat_attention_backward)
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
 from repro_torch.kernels.sage_epilogue import (sage_epilogue,
                                                sage_epilogue_backward)
@@ -612,10 +614,16 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     out = sage_epilogue(torch.ones(2, 4), torch.ones(2, 4), torch.ones(4),
                         torch.rand(2, 4), 0.5)
     sage_epilogue_backward(torch.ones(2, 4), out, 0.5, rows_pad=3)
+    z, keep, a = torch.ones(2, 3, 8), torch.ones(2, 3, dtype=torch.bool), \
+        torch.ones(2, 4)
+    out, alpha = gat_attention(z, torch.ones(2, 8), keep, a, a)
+    gat_attention_backward(out, z, torch.ones(2, 8), keep, a, a, alpha)
     assert launch_counts() == {"fused_sample": 0, "gather_rows": 0,
                                "feature_gather": 0, "sage_aggregate": 0,
                                "sage_epilogue": 0,
                                "sage_epilogue_backward": 0,
+                               "gat_attention": 0,
+                               "gat_attention_backward": 0,
                                "sage_backward_index": 0,
                                "sage_aggregate_backward": 0}
 
@@ -625,7 +633,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                                    "sage_backward_index",
                                    "feature_gather", "gather_rows",
                                    "sage_epilogue",
-                                   "sage_epilogue_backward"])
+                                   "sage_epilogue_backward",
+                                   "gat_attention",
+                                   "gat_attention_backward"])
 def test_non_cpu_tensors_never_fall_back(which):
     """A tensor off the CPU launches the kernel or raises; one on a device
     the kernels do not serve raises."""
@@ -654,6 +664,16 @@ def test_non_cpu_tensors_never_fall_back(which):
         elif which == "sage_epilogue_backward":
             x = torch.ones((2, 4), device=meta)
             sage_epilogue_backward(x, x, 0.5)
+        elif which in ("gat_attention", "gat_attention_backward"):
+            z = torch.ones((2, 3, 8), device=meta)
+            x, a = torch.ones((2, 8), device=meta), \
+                torch.ones((2, 4), device=meta)
+            keep = torch.ones((2, 3), dtype=torch.bool, device=meta)
+            if which == "gat_attention":
+                gat_attention(z, x, keep, a, a)
+            else:
+                gat_attention_backward(x, z, x, keep, a, a,
+                                       torch.ones((2, 4, 2), device=meta))
         else:
             feature_gather(torch.zeros(2, dtype=torch.int32, device=meta),
                            torch.ones((3, 4), device=meta))

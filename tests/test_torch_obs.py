@@ -38,7 +38,8 @@ from repro.optim import init_opt_state as j_opt
 from repro.pipeline import Pipeline as JPipeline
 from repro.pipeline import PipelineSpec as JSpec
 from repro_torch.data.spec import DataSpec as TDataSpec
-from repro_torch.models.gnn import GNNConfig, gnn_loss, params_from_numpy
+from repro_torch.models.gnn import (GNNConfig, gnn_loss, init_gnn_params,
+                                    params_from_numpy)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import report as t_report
 from repro_torch.obs import trace as obs_trace
@@ -286,6 +287,46 @@ def test_sync_driver_spans_every_layer_boundary(world):
         draw = next(e for e in mine if e["name"] == "seeds/draw")
         assert draw["args"]["seeds"] == P_ * 8
         assert draw["args"]["keys"] == P_ * world[0].layout.n_max
+
+
+def test_gatv1_step_spans_its_attention_per_layer_and_worker(world):
+    """A gatv1 step opens ``model/gat_attention`` once a layer and worker,
+    inside that worker's ``model/forward``, with the layer, its edge slots
+    and its heads; it is the tracer's alone, no profiler range, so the
+    card's idle gaps inside it keep the name ``model/forward``."""
+    base, _, _, _ = world
+    cfg = GNNConfig(in_dim=8, hidden_dim=8, num_classes=4, num_layers=2,
+                    fanouts=FANOUTS, dropout=0.5, conv="gatv1", gat_heads=4)
+    params = init_gnn_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+
+    def loss_fn(p, mfgs, h_src, labels, valid):
+        return gnn_loss(p, mfgs, h_src, labels, valid, cfg, generator=gen)
+
+    def step():
+        with _pipe(world).train_driver(loss_fn, batch=8, lr=0.01,
+                                       device="cpu") as d:
+            d.step(params, init_opt_state(params), 0)
+
+    tracer = obs_trace.start(None)
+    ranges = {n for n, _ in _profiled(step)}
+    obs_trace.stop(export=False)
+    assert "model/forward" in ranges and "model/gat_attention" not in ranges
+    evs = _xs(tracer)
+    by_id = {e["args"]["id"]: e for e in evs}
+    att = [e for e in evs if e["name"] == "model/gat_attention"]
+    assert len(att) == cfg.num_layers * P_
+    forwards = [by_id[e["args"]["parent"]] for e in att]
+    assert {f["name"] for f in forwards} == {"model/forward"}
+    # per worker, its layers in order; edge slots: the level's S * F
+    assert [(f["args"]["worker"], e["args"]["layer"])
+            for f, e in zip(forwards, att)] == [
+        (w, layer) for w in range(P_) for layer in range(cfg.num_layers)]
+    S = [8 * (1 + FANOUTS[0]), 8]           # bottom level first
+    assert [e["args"]["edges"] for e in att] == \
+        [s * f for s, f in zip(S, FANOUTS[::-1])] * P_
+    assert {e["args"]["heads"] for e in att} == {4}
+    assert {e["cat"] for e in att} == {"step"}
 
 
 def test_sync_driver_spans_are_profiler_ranges_without_a_tracer(world):
