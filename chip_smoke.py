@@ -357,7 +357,8 @@ def kernel_trace():
 
 
 def time_ms(fn, reps: int = REPS, flush=None, wrapper=None,
-            kernel: str | None = None) -> tuple[float, float, dict]:
+            kernel: str | None = None, launches: int = 1,
+            also: tuple = ()) -> tuple[float, float, dict]:
     """(device ms, call ms, device ms by name) of one ``fn()``, after 3
     warm-up runs.
 
@@ -370,9 +371,10 @@ def time_ms(fn, reps: int = REPS, flush=None, wrapper=None,
     flush: ``l2_flush()``'s function, run before every call, outside the
     events; its device kernel is left out of the sums.
     wrapper, kernel: the kernel wrapper ``fn`` calls and the hand-written
-    device kernel it must launch.  Every traced call must add exactly one
-    to the wrapper's own launch count, and ``kernel`` must be the only
-    hand-written kernel in the traces (AssertionError otherwise).
+    device kernel it must launch, ``launches`` times a call.  Every traced
+    call must add exactly one to the wrapper's own launch count, and
+    ``kernel`` must be the only hand-written kernel in the traces besides
+    those named in ``also`` (AssertionError otherwise).
 
     The profiler only times.  A trace that comes back with no device
     kernel at all, or with a kernel counted a number of times that is not
@@ -380,9 +382,9 @@ def time_ms(fn, reps: int = REPS, flush=None, wrapper=None,
     card's machine), is taken again, up to five times, or until a partial
     trace repeats the previous one's counts (a drop that repeats).  Then
     the fullest trace is read: each kernel's time a call is the mean of
-    its kept launches times its launches a call (one for ``kernel``, by
-    the wrapper's count; the count over ``reps`` rounded, at least 1, for
-    the others), which a dropped record does not bias.
+    its kept launches times its launches a call (``launches`` for
+    ``kernel``; the count over ``reps`` rounded, at least 1, for the
+    others), which a dropped record does not bias.
     """
     import torch
     from torch.autograd import DeviceType
@@ -424,20 +426,25 @@ def time_ms(fn, reps: int = REPS, flush=None, wrapper=None,
             "call)")
     if wrapper is not None:
         # the tracer drops records but adds none: a complete trace holds
-        # reps launches of the kernel, a partial one no more
-        ours = sorted(names & set(HAND_WRITTEN))
+        # launches * reps launches of the kernel, a partial one no more
+        ours = sorted(names & set(HAND_WRITTEN) - set(also))
         traced = sum(e.count for e in events if _short(e.key) == kernel)
         if (wrapper.launches != reps * (attempt + 1) or ours != [kernel]
-                or traced > reps or (complete and traced != reps)):
+                or traced > launches * reps
+                or (complete and traced != launches * reps)):
             raise AssertionError(
                 f"{wrapper.__name__}: {wrapper.launches} launches counted in "
                 f"{reps * (attempt + 1)} calls, {traced} {kernel} in a trace "
                 f"of {reps}, hand-written device kernels {ours}; expected "
-                f"one {kernel} a call")
+                f"{launches} {kernel} a call")
+    # ``kernel``'s launches a call, spread over its instances (template
+    # arguments give each pass of a kernel its own name in the trace)
+    instances = sum(1 for e in events if _short(e.key) == kernel) or 1
     by_name = {}
     for e in events:
         key = _short(e.key)
-        per_call = 1 if key == kernel else max(1, round(e.count / reps))
+        per_call = launches / instances if key == kernel \
+            else max(1, round(e.count / reps))
         by_name[key] = (by_name.get(key, 0.0)
                         + _device_us(e) / e.count * per_call / 1e3)
     device_ms = sum(by_name.values())
@@ -1378,28 +1385,35 @@ def check_sage_epilogue() -> dict:
 
 
 # the benchmark's gatv1 layer-1 shape a worker: 1000 seeds, fanouts 10, 10,
-# 10 (S = 121 000 destinations, F = 10), 4 heads of 128
+# 10 (S = 121 000 destinations, F = 10; the table holds the sampler's S + S
+# * F = 1 331 000 source rows), 4 heads of 128
 GAT_ROWS, GAT_F, GAT_H, GAT_C = 121_000, 10, 4, 128
 GAT_CHUNK = 8192                # rows a float64 reference chunk
 GAT_KINK = 1e-4                 # scores this near 0 take no gradient
+GAT_BACKWARD_PASSES = 3         # gat_attention_backward_kernel a call
 
 
 def check_gat_attention() -> dict:
     """The ``gat_attention`` kernels against their plain versions computed
     in float64 (in row chunks), at the benchmark's layer-1 shape (121 000
-    rows, 10 edges, 4 heads of 128) and on ragged ones (the last layer's
-    C = 47 on the scalar path, an unaligned input, F = 1, one row, a head
-    of 8).  ``keep`` drops a quarter of the edges at random and every edge
-    of some rows (the self slot alone); rows with a score within
-    ``GAT_KINK`` of LeakyReLU's kink take a zero upstream gradient (the
-    card's float32 may put such a score on the other side of 0 than the
-    float64 reference, and the slope's gradient jumps 5x there).
-    Forward: the output within 1e-5
-    of the largest |output| (float32 dots of C terms and a softmax), the
-    weights within 1e-6; backward: dz_nb, dz_dst and the attention
-    vectors' gradients (sums over every row) within ``GRAD_RTOL`` of their
-    largest |value|; each wrapper one launch a call.  Both
-    kernels timed at the big shape beside their float32 plain versions and
+    rows, 10 edges, 4 heads of 128, a table of 1 331 000 rows) and on
+    ragged ones (the last layer's C = 47 on the scalar path, an unaligned
+    table, F = 1, one row, a head of 8, two workers, destinations that are
+    not the table's prefix, as exact inference passes them).  Edges name
+    random rows of the table; a tenth are invalid, a quarter of the rest
+    not kept, every edge of some rows dropped (the self slot alone), some
+    name their own row (a sampled self edge) and two sources are hubs, one
+    named by every seventh row (past one chunk of the per-source passes
+    many times over).  Rows with a score within ``GAT_KINK`` of LeakyReLU's
+    kink take a zero upstream gradient (the card's float32 may put such a
+    score on the other side of 0 than the float64 reference, and the
+    slope's gradient jumps 5x there).  Forward: the output within 1e-5 of
+    the largest |output| (float32 dots of C terms and a softmax), the
+    weights within 1e-6; backward: the table's gradient and the attention
+    vectors' (sums over every row) within ``GRAD_RTOL`` of their largest
+    |value|; a second backward gives the same bits; each wrapper one
+    launch a call, the backward ``GAT_BACKWARD_PASSES`` kernel launches.
+    Both timed at the big shape beside their float32 plain versions and
     their least times (bytes: their own inputs read once, outputs written
     once)."""
     import torch
@@ -1412,106 +1426,148 @@ def check_gat_attention() -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    def inputs(rows, F, H, C, offset=0):
-        z_nb = randn(rows * F * H * C + offset)[offset:].view(rows, F,
-                                                              H * C)
-        keep = torch.rand((rows, F), generator=gen, device="cuda") >= 0.25
-        keep[::7] = False                     # the self slot alone
-        return (z_nb, randn(rows, H * C), keep, randn(H, C) * 0.1,
-                randn(H, C) * 0.1)
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def inputs(rows, F, H, C, offset=0, workers=0, table=None):
+        lead = (workers,) if workers else ()
+        N = table or rows * (F + 1)
+        B = max(workers, 1)
+        z = randn(B * N * H * C + offset)[offset:].view(*lead, N, H * C)
+        edges = torch.randint(0, N, (*lead, rows, F), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        edges[rand(*lead, rows, F) < 0.1] = -1
+        edges[..., ::7, 0] = 3                # a hub
+        edges[..., 1::50, F - 1] = N - 1      # another, not a destination
+        if table:                             # exact inference's ids
+            dst = torch.randperm(N, generator=gen, device="cuda")[:rows]
+        else:                                 # the prefix
+            dst = torch.arange(rows, device="cuda")
+        dst = dst.to(torch.int32).expand(*lead, rows).contiguous()
+        edges[..., 2::13, F - 1] = dst[..., 2::13]   # sampled self edges
+        keep = (edges >= 0) & (edges != dst[..., None]) \
+            & (rand(*lead, rows, F) >= 0.25)
+        keep[..., 5::11, :] = False           # the self slot alone
+        return (z, edges, dst, keep, randn(H, C) * 0.1, randn(H, C) * 0.1)
+
+    def chunks(rows):
+        return [slice(lo, lo + GAT_CHUNK) for lo in range(0, rows,
+                                                          GAT_CHUNK)]
 
     def at_the_kink(xs):
         """Rows with a kept slot whose score lies within ``GAT_KINK`` of
         LeakyReLU's kink (float64): float32 may put it on the other side,
         where the slope's gradient is 5x another."""
-        z_nb, z_dst, keep, a_src, a_dst = xs
-        rows, F, _ = z_nb.shape
+        z, edges, dst, keep, a_src, a_dst = xs
+        F = edges.shape[-1]
         H, C = a_src.shape
-        out = torch.zeros(rows, dtype=torch.bool, device="cuda")
-        for lo in range(0, rows, GAT_CHUNK):
-            sl = slice(lo, lo + GAT_CHUNK)
-            zd = z_dst[sl].double().view(-1, 1, H, C)
-            zs = torch.cat([zd, z_nb[sl].double().view(-1, F, H, C)], 1)
+        out = torch.zeros(keep.shape[:-1], dtype=torch.bool, device="cuda")
+        ids = torch.cat([dst[..., None], edges], -1).clamp(min=0).long()
+        ok = torch.cat([torch.ones_like(keep[..., :1]), keep], -1)
+        for sl in chunks(edges.shape[-2]):
+            zs = torch.stack([z[b][ids[b, sl]] for b in range(ids.shape[0])]
+                             ) if z.dim() == 3 else z[ids[sl]]
+            zs = zs.double().view(*zs.shape[:-2], F + 1, H, C)
             pre = (zs * a_src.double()).sum(-1) \
-                + (zd * a_dst.double()).sum(-1)
-            ok = torch.cat([torch.ones_like(keep[sl, :1]), keep[sl]], 1)
-            out[sl] = ((pre.abs() < GAT_KINK) & ok[..., None]).any(-1).any(-1)
+                + (zs[..., :1, :, :] * a_dst.double()).sum(-1)
+            out[..., sl] = ((pre.abs() < GAT_KINK)
+                            & ok[..., sl, :, None]).any(-1).any(-1)
         return out
 
-    def one(rows, F, H, C, offset=0):
-        xs = inputs(rows, F, H, C, offset)
+    def one(rows, F, H, C, offset=0, workers=0, table=None):
+        xs = inputs(rows, F, H, C, offset, workers, table)
+        z = xs[0]
         gat_attention.launches = gat_attention_backward.launches = 0
         out, alpha = gat_attention(*xs)
         # no upstream gradient at the kink: the gradient there is 0 in
         # any precision
-        g = randn(rows, H, C) * ~at_the_kink(xs)[:, None, None]
+        g = randn(*out.shape) * ~at_the_kink(xs)[..., None, None]
         grads = gat_attention_backward(g, *xs, alpha)
+        again = gat_attention_backward(g, *xs, alpha)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError("gat_attention_backward: two calls gave "
+                                 "other bits")
         if (gat_attention.launches, gat_attention_backward.launches) \
-                != (1, 1):
+                != (1, 2):
             raise AssertionError("gat_attention: one launch a call each")
-        names = ("out", "alpha", "dz_nb", "dz_dst")
+        del again
+        names = ("out", "alpha", "dz")
         err = dict.fromkeys(names + ("da",), 0.0)
         scale = dict.fromkeys(names + ("da",), 0.0)
+        z64, a64s = z.double(), (xs[4].double(), xs[5].double())
+        dz_ref = torch.zeros_like(z64)
         da_ref = [0.0, 0.0]
-        for lo in range(0, rows, GAT_CHUNK):
-            sl = slice(lo, lo + GAT_CHUNK)
-            x64 = (xs[0][sl].double(), xs[1][sl].double(), xs[2][sl],
-                   xs[3].double(), xs[4].double())
-            o64, a64 = gat_attention_plain(*x64)
-            d64 = gat_attention_backward_plain(g[sl].double(), *x64, a64)
-            for k, got, want in (("out", out[sl], o64),
-                                 ("alpha", alpha[sl], a64),
-                                 ("dz_nb", grads[0][sl], d64[0]),
-                                 ("dz_dst", grads[1][sl], d64[1])):
+        for sl in chunks(rows):
+            x64 = (z64, xs[1][..., sl, :], xs[2][..., sl], xs[3][..., sl, :],
+                   *a64s)
+            o64, al64 = gat_attention_plain(*x64)
+            d64 = gat_attention_backward_plain(g[..., sl, :, :].double(),
+                                               *x64, al64)
+            for k, got, want in (("out", out[..., sl, :, :], o64),
+                                 ("alpha", alpha[..., sl, :, :], al64)):
                 err[k] = max(err[k], float((got - want).abs().max()))
                 scale[k] = max(scale[k], float(want.abs().max()))
-            da_ref = [da_ref[i] + d64[2 + i] for i in range(2)]
+            dz_ref += d64[0]
+            da_ref = [da_ref[i] + d64[1 + i] for i in range(2)]
+            del d64
+        err["dz"] = float((grads[0].double() - dz_ref).abs().max())
+        scale["dz"] = float(dz_ref.abs().max())
+        del dz_ref, z64
         for i in range(2):
             err["da"] = max(err["da"], float(
-                (grads[2 + i].double() - da_ref[i]).abs().max()))
+                (grads[1 + i].double() - da_ref[i]).abs().max()))
             scale["da"] = max(scale["da"], float(da_ref[i].abs().max()))
-        lims = {"out": 1e-5, "alpha": 1e-6, "dz_nb": GRAD_RTOL,
-                "dz_dst": GRAD_RTOL, "da": GRAD_RTOL}
+        lims = {"out": 1e-5, "alpha": 1e-6, "dz": GRAD_RTOL,
+                "da": GRAD_RTOL}
         bad = [k for k, lim in lims.items()
                if err[k] > lim * (1.0 if k == "alpha" else scale[k])]
+        shape = (f"({workers} x " if workers else "(") + (
+            f"{rows}, {F}, {H} x {C}, table {z.shape[-2]}"
+            + (", ids not the prefix" if table else "") + ")")
         if bad:
-            raise AssertionError(f"gat_attention ({rows}, {F}, {H}, {C}), "
-                                 f"offset {offset}: {bad} out of tolerance; "
-                                 f"errors {err}, scales {scale}")
-        return xs, out, alpha, g, err, scale
+            raise AssertionError(f"gat_attention {shape}, offset {offset}: "
+                                 f"{bad} out of tolerance; errors {err}, "
+                                 f"scales {scale}")
+        return xs, out, alpha, g, err, scale, shape
 
-    for rows, F, H, C, offset in ((1000, 10, 4, 47, 0), (777, 10, 4, 128, 1),
-                                  (513, 1, 4, 128, 0), (1, 10, 4, 128, 0),
-                                  (3000, 5, 8, 64, 0), (257, 3, 1, 33, 0)):
-        _, _, _, _, err, _ = one(rows, F, H, C, offset)
-        log(f"  gat_attention ({rows}, {F}, {H} x {C}), offset {offset}: "
-            f"within tolerance of float64 (max abs errors: " + ", ".join(
+    for rows, F, H, C, offset, workers, table in (
+            (1000, 10, 4, 47, 0, 0, None), (777, 10, 4, 128, 1, 0, None),
+            (513, 1, 4, 128, 0, 0, None), (1, 10, 4, 128, 0, 0, None),
+            (3000, 5, 8, 64, 0, 0, None), (257, 3, 1, 33, 0, 0, None),
+            (500, 10, 4, 128, 0, 2, None), (1000, 10, 4, 128, 0, 0, 20_000)):
+        *_, err, _, shape = one(rows, F, H, C, offset, workers, table)
+        log(f"  gat_attention {shape}, offset {offset}: within tolerance of "
+            f"float64 (max abs errors: " + ", ".join(
                 f"{k} {v:.3g}" for k, v in err.items()) + "), 1 launch each")
 
     R, F, H, C = GAT_ROWS, GAT_F, GAT_H, GAT_C
-    xs, out, alpha, g, err, scale = one(R, F, H, C)
-    log(f"  gat_attention ({R}, {F}, {H} x {C}): within tolerance of "
-        f"float64 (max abs errors: " + ", ".join(
+    xs, out, alpha, g, err, scale, shape = one(R, F, H, C)
+    log(f"  gat_attention {shape}: within tolerance of float64, the same "
+        f"bits twice (max abs errors: " + ", ".join(
             f"{k} {v:.3g}" for k, v in err.items()) + "; largest |values|: "
         + ", ".join(f"{k} {v:.3g}" for k, v in scale.items()) + ")")
-    HC, K = H * C, F + 1
-    fwd_bytes = 4 * (R * F * HC + 2 * R * HC + 2 * HC + R * K * H) + R * F
+    HC, K, N = H * C, F + 1, xs[0].shape[-2]
+    ids_bytes = 4 * R * F + 4 * R + R * F          # edges, dst, keep
+    fwd_bytes = 4 * (N * HC + 2 * HC + R * HC + R * K * H) + ids_bytes
     blocks = -(-R // 32)
-    bwd_bytes = (4 * (2 * R * HC + R * F * HC + R * K * H + 2 * HC) + R * F
-                 + 4 * (R * F * HC + R * HC + 2 * blocks * HC))
+    # and the transpose: rowptr, and the slots of every valid id
+    bwd_bytes = (4 * (R * HC + N * HC + R * K * H + 2 * HC) + ids_bytes
+                 + 4 * (N + 1 + R * K) + 4 * (N * HC + 2 * blocks * HC))
     res = {}
-    for name, fn, plain, kernel, nbytes, e in (
+    for name, fn, plain, kernel, nbytes, e, passes, also in (
             ("gat_attention", lambda: gat_attention(*xs),
              lambda: gat_attention_plain(*xs), "gat_attention_kernel",
-             fwd_bytes, max(err["out"], err["alpha"])),
+             fwd_bytes, max(err["out"], err["alpha"]), 1, ()),
             ("gat_attention_backward",
              lambda: gat_attention_backward(g, *xs, alpha),
              lambda: gat_attention_backward_plain(g, *xs, alpha),
              "gat_attention_backward_kernel", bwd_bytes,
-             max(err["dz_nb"], err["dz_dst"], err["da"]))):
+             max(err["dz"], err["da"]), GAT_BACKWARD_PASSES,
+             ("backward_prep_kernel", "rowptr_scan_kernel"))):
         wrapper = (gat_attention if name == "gat_attention"
                    else gat_attention_backward)
-        ms, call_ms, by_name = time_ms(fn, wrapper=wrapper, kernel=kernel)
+        ms, call_ms, by_name = time_ms(fn, wrapper=wrapper, kernel=kernel,
+                                       launches=passes, also=also)
         plain_ms, _, _ = time_ms(plain)
         tot = {}
         add_bound(tot, nbytes, 0.0)
@@ -1519,10 +1575,12 @@ def check_gat_attention() -> dict:
                      "plain_ms": plain_ms, "bound_ms": tot["bound_ms"],
                      "bound_by": tot["bound_by"], "library_ms": None,
                      "kernel_ms": by_name.get(kernel)}
-        log(f"  {name} ({R}, {F}, {H} x {C}): device {ms:.4f} ms ({kernel} "
-            f"{by_name.get(kernel, 0.0):.4f}), call {call_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-            f"({tot['bound_by']}; "
+        log(f"  {name} ({R}, {F}, {H} x {C}, table {N}): device {ms:.4f} ms "
+            f"({kernel} {by_name.get(kernel, 0.0):.4f}, {passes} a call; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_name.items())
+                        if k != kernel)
+            + f"), call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}; "
             f"{100 * tot['bound_ms'] / by_name.get(kernel, ms):.1f} % of the "
             f"kernel)")
     return res

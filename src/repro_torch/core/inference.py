@@ -19,10 +19,12 @@ is the same f-ordered sum over the same rows, and the products run in
 last, shorter batch changes a node's bits.  On the card the aggregate is
 the hand-written forward (its wide-row kernel past 8192 ids a row).
 Every conv runs: gcn and gin aggregate like sage; gat and gatv1 project
-the table once a layer (gat's through ``gat_project``) and gather each
-batch's attention sources from it, (batch, width, d_out) floats a batch
-(gatv1: H * C, its destinations' rows from the same table), so a graph
-with hubs runs them under a ``max_degree`` cap.
+the table once a layer (gat's through ``gat_project``, gatv1's through
+``block_matmul``).  gat gathers each batch's attention sources from it,
+(batch, width, d_out) floats a batch, so a graph with hubs runs it under a
+``max_degree`` cap; gatv1's attention reads each slot's row, its
+destinations' too, from the table by global id (its plain version, on the
+CPU, gathers (batch, width + 1, H * C) floats).
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ import torch
 from repro_torch.core.graph import CSCGraph
 from repro_torch.core.mfg import MFG
 from repro_torch.core.sampler import build_indptr, relabel
-from repro_torch.models.gnn import (GNNConfig, apply_layer, gat_project,
-                                    rowwise_matmul)
+from repro_torch.models.gnn import (GNNConfig, apply_layer, block_matmul,
+                                    gat_project)
 
 
 def in_edges(graph: CSCGraph, seeds: torch.Tensor, max_degree: int):
@@ -88,14 +90,14 @@ def layer_pass(layer_params, graph: CSCGraph, h: torch.Tensor,
     all_nodes = torch.arange(n, dtype=torch.int32, device=h.device)
     num_src = torch.tensor(n, dtype=torch.int32, device=h.device)
     # gat and gatv1 project the whole table once a layer, not once a
-    # batch: the rows of rowwise_matmul do not depend on the row count, so
-    # the bits are those of a per-batch projection (gatv1 scores, its self
-    # slot included, inside its attention)
+    # batch: the rows of the row-blocked products do not depend on the row
+    # count, so the bits are those of a per-batch projection (gatv1 scores,
+    # its self slot included, inside its attention)
     projected = None
     if cfg.conv == "gat":
         projected = gat_project(layer_params, h)
     elif cfg.conv == "gatv1":
-        projected = (rowwise_matmul(h, layer_params["w_neigh"]),)
+        projected = (block_matmul(h, layer_params["w_neigh"]),)
     outs = []
     for lo in range(0, n, batch_size):
         seeds = all_nodes[lo:lo + batch_size]

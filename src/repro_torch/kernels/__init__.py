@@ -14,10 +14,13 @@
                            dropout (``csrc/sage_epilogue.cu``)
   sage_epilogue_backward   its gradient and the bias's
                            (``csrc/sage_epilogue.cu``)
-  gat_attention            a gatv1 layer's attention: scores, softmax over
-                           the sampled edges and the self loop, weighted
-                           sum (``csrc/gat_attention.cu``)
-  gat_attention_backward   its gradients (``csrc/gat_attention.cu``)
+  gat_attention            a gatv1 layer's attention over rows of its
+                           projected table: scores, softmax over the
+                           sampled edges and the self loop, weighted sum
+                           (``csrc/gat_attention.cu``)
+  gat_attention_backward   its gradients, the table's over the transpose
+                           ``sage_backward_index`` builds
+                           (``csrc/gat_attention.cu``)
 
 Each wrapper counts its launches in a ``launches`` attribute.  The
 single-pass scan that ``fused_sample`` and ``sage_backward_index`` share is

@@ -30,7 +30,11 @@ dropout) is one ``torch.autograd.Function``, ``sage_hidden_tail``: the
 products go block by block into two buffers (no cat), the rest through
 the ``sage_epilogue`` kernels (forward and backward) on CUDA tensors, with
 the chain's bits forward.  The last layer and the other convs keep their
-tails in plain PyTorch.
+tails in plain PyTorch.  A gatv1 layer projects its whole source table
+once (``block_matmul``: ``rowwise_matmul``'s blocks and bits, written into
+one buffer, its gradients block by block) and its attention, the
+``gat_attention`` kernels on CUDA tensors, gathers each slot's row from
+that table by id and writes the table's gradient.
 
 Dropout masks come from an explicit ``torch.Generator`` (``repro`` draws
 them with ``jax.random``, whose bits torch cannot reproduce); without a
@@ -238,11 +242,51 @@ def sage_hidden_tail(h_dst: torch.Tensor, agg: torch.Tensor, layer: dict,
                                  layer["w_neigh"], layer["b"], u, p)
 
 
+class _BlockProducts(torch.autograd.Function):
+    """``rowwise_matmul(x, w)``'s row blocks written in place into one
+    buffer (no cat); the backward: the weight's gradient as per-block
+    products summed in block order and, where asked for, the input's
+    block by block into one buffer."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        blocks = _row_blocks(x.reshape(-1, x.shape[-1]))
+        rows = math.prod(x.shape[:-1])
+        # the padded last block, so that the backward need not pad again
+        ctx.save_for_backward(x, w, *blocks[-1:])
+        return _block_products(blocks, w)[:rows].reshape(
+            *x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w, *last = ctx.saved_tensors
+        rows = math.prod(x.shape[:-1])
+        g = _row_blocks(grad.reshape(rows, w.shape[1]))
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _block_products(g, w.t())[:rows].reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            xb = list(x.reshape(-1, x.shape[-1]).split(ROW_CHUNK))
+            dw = torch.zeros_like(w)
+            for xi, gi in zip(xb[:-1] + last, g):
+                dw.addmm_(xi.t(), gi)
+        return dx, dw
+
+
+def block_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K), w (K, N) with ``rowwise_matmul``'s bits
+    (the same (ROW_CHUNK, K) blocks), the blocks written into one buffer
+    instead of concatenated; the gradients block by block (the weight's
+    summed in block order)."""
+    return _BlockProducts.apply(x, w)
+
+
 def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[..., idx, :]`` per leading index: table (..., N, D), idx
     (..., *K) in [0, N) -> (..., *K, D).  One advanced index into the
     flattened table, whose gradient CUDA accumulates by sorted index
-    rather than by atomics."""
+    rather than by atomics.  gat's attention gathers with it; gatv1's
+    kernels gather from their table themselves."""
     N, D = table.shape[-2:]
     lead = table.shape[:-2]
     if not lead:
@@ -327,19 +371,19 @@ def _gat_aggregate(layer, mfg: MFG, h_src: torch.Tensor,
 
 class _GATAttention(torch.autograd.Function):
     """gatv1's attention (``gat_attention``'s contract, its ``out``) with
-    ``gat_attention_backward`` as its gradient; ``keep`` takes none."""
+    ``gat_attention_backward`` as its gradient: the table's and the
+    attention vectors'; the ids and ``keep`` take none."""
 
     @staticmethod
-    def forward(ctx, z_nb, z_dst, keep, a_src, a_dst):
-        out, alpha = gat_attention(z_nb, z_dst, keep, a_src, a_dst)
-        ctx.save_for_backward(z_nb, z_dst, keep, a_src, a_dst, alpha)
+    def forward(ctx, z, edges, dst, keep, a_src, a_dst):
+        out, alpha = gat_attention(z, edges, dst, keep, a_src, a_dst)
+        ctx.save_for_backward(z, edges, dst, keep, a_src, a_dst, alpha)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        dz_nb, dz_dst, da_src, da_dst = gat_attention_backward(
-            grad, *ctx.saved_tensors)
-        return dz_nb, dz_dst, None, da_src, da_dst
+        dz, da_src, da_dst = gat_attention_backward(grad, *ctx.saved_tensors)
+        return dz, None, None, None, da_src, da_dst
 
 
 def _gatv1_layer(layer, mfg: MFG, h_src: torch.Tensor,
@@ -349,37 +393,32 @@ def _gatv1_layer(layer, mfg: MFG, h_src: torch.Tensor,
     """A gatv1 layer, PyG's ``GATConv`` (self loops removed, then one
     added) plus a skip: ``attention + b_att + h_dst @ w_self + b``, the
     heads concatenated in a hidden layer (then ELU and dropout) and
-    averaged in the last.  ``z = h @ w_neigh`` of each edge's source is
-    projected from the gathered ``h_src`` rows in training, as gat's, or
-    gathered from ``projected[0]`` (the destinations' too) when the caller
-    has it; an edge whose source is its destination (by position among
-    the sources: the prefix, or the global id where ``h_dst`` is given) is
-    left out, the self slot stands for it."""
+    averaged in the last.  The attention reads the table ``z = h_src @
+    w_neigh``: projected here once, every source row (``block_matmul``), or
+    ``projected[0]`` when the caller has it (exact inference, the whole
+    graph's).  Each slot's row is named by id: an edge's source, and the
+    destination's own row, its position among the sources (the prefix) or
+    its global id where ``h_dst`` is given; an edge whose source is its
+    destination is left out, the self slot stands for it."""
     if h_dst is None:
         h_dst = h_src[..., : mfg.num_dst, :]
         self_pos = torch.arange(mfg.num_dst, device=mfg.edges.device)
     else:
         self_pos = mfg.dst_nodes
-    heads, C = layer["attn_src"].shape
-    idx = mfg.edges.clamp(min=0)
-    if projected is None:
-        z_nb = rowwise_matmul(_rows(h_src, idx), layer["w_neigh"])
-        z_dst = rowwise_matmul(h_dst, layer["w_neigh"])
-    else:
-        z_nb = _rows(projected[0], idx)
-        z_dst = _rows(projected[0], self_pos)
+    heads = layer["attn_src"].shape[0]
+    z = block_matmul(h_src, layer["w_neigh"]) if projected is None \
+        else projected[0]
     keep = mfg.edge_mask & (mfg.edges != self_pos[..., None])
+    dst = self_pos.to(torch.int32).expand(keep.shape[:-1])
     *lead, S, F = keep.shape
-    rows = math.prod(lead) * S
     # a tracer's span alone: the card's idle gaps here stay model/forward's
     with _trace.host_span("model/gat_attention", cat="step", layer=index,
-                          edges=rows * F, heads=heads):
-        att = _GATAttention.apply(
-            z_nb.reshape(rows, F, heads * C), z_dst.reshape(rows, heads * C),
-            keep.reshape(rows, F), layer["attn_src"], layer["attn_dst"])
-    att = att.reshape(*lead, S, heads, C)
+                          edges=math.prod(lead) * S * F, heads=heads,
+                          table_rows=math.prod(z.shape[:-1])):
+        att = _GATAttention.apply(z, mfg.edges.to(torch.int32), dst, keep,
+                                  layer["attn_src"], layer["attn_dst"])
     att = att.mean(dim=-2) if is_last else att.flatten(-2)
-    out = (att + layer["b_att"] + rowwise_matmul(h_dst, layer["w_self"])
+    out = (att + layer["b_att"] + block_matmul(h_dst, layer["w_self"])
            + layer["b"])
     if is_last:
         return out

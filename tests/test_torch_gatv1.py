@@ -12,7 +12,11 @@ where its attention runs the ``gat_attention`` kernels' plain versions:
     sampled edges name the row itself, and padded rows (no valid edge):
     the self loop alone gives the row's own projection, a sampled self
     edge counts as nothing beside the self slot;
-  * the plain backward is autograd's gradient of the plain forward;
+  * the attention's table contract: its plain forward equals gathering
+    each slot's row and attending over the gathered rows, to the bit, and
+    its plain backward (the table's gradient) is autograd's through that
+    composition, on duplicate sources, a hub, rows with no valid edge,
+    sampled self edges, with and without the worker axis;
   * 751 574 parameters at the configuration's widths (PyG's
     ``ogbn_products_gat.py``), from the port's ``init_gnn_params`` and the
     reference's ``init_params`` alike; ``gat`` builds no ``b_att`` and
@@ -33,9 +37,10 @@ from repro_torch.core.inference import layerwise_inference
 from repro_torch.core.mfg import MFG
 from repro_torch.core.sampler import sample_mfgs
 from repro_torch.kernels.gat_attention import (gat_attention_backward_plain,
-                                               gat_attention_plain)
-from repro_torch.models.gnn import (GNNConfig, apply_layer, gnn_forward,
-                                    init_gnn_params)
+                                               gat_attention_plain,
+                                               per_edge_attention_plain)
+from repro_torch.models.gnn import (GNNConfig, _rows, apply_layer,
+                                    gnn_forward, init_gnn_params)
 
 ROOT = Path(__file__).resolve().parent.parent
 RTOL = ATOL = 1e-5
@@ -146,26 +151,69 @@ def test_self_loop_rows_and_sampled_self_edges():
     assert torch.equal(run(no_self)[0], out[0])
 
 
-def test_the_plain_backward_is_autograds_gradient():
+def _table_case(lead, prefix, S=24, F=3, H=3, C=5):
+    """A table-contract case in float64 (z, edges, dst, keep, a_src,
+    a_dst): row 0 names source 7 twice, row 1 samples itself, row 2 has no
+    valid edge, rows 3 on name source 5 twice each (more slots than one
+    chunk of the card's backward holds); dst the prefix or S distinct
+    rows."""
     rng = np.random.default_rng(4)
-    R, F, H, C = 9, 4, 3, 5
-    t = lambda *s: torch.from_numpy(rng.standard_normal(  # noqa: E731
-        s).astype(np.float64)).requires_grad_(True)
-    z_nb, z_dst, a_src, a_dst = t(R, F, H * C), t(R, H * C), t(H, C), \
-        t(H, C)
-    keep = torch.from_numpy(rng.random((R, F)) < 0.6)
-    keep[2] = False
-    out, alpha = gat_attention_plain(z_nb, z_dst, keep, a_src, a_dst)
-    g = torch.from_numpy(rng.standard_normal((R, H, C)))
-    want = torch.autograd.grad((out * g).sum(), [z_nb, z_dst, a_src, a_dst])
-    got = gat_attention_backward_plain(g, z_nb.detach(), z_dst.detach(),
-                                       keep, a_src.detach(), a_dst.detach(),
+    N = S + S * F
+    edges = rng.integers(-1, N, (*lead, S, F))
+    e = edges.reshape(-1, S, F)
+    e[:, 0, :2] = 7
+    e[:, 2] = -1
+    e[:, 3:, 0] = e[:, 3:, 2] = 5
+    dst = np.arange(S) if prefix else rng.permutation(N)[:S]
+    e[:, 1, 0] = dst[1]
+    dst = np.broadcast_to(dst, (*lead, S)).copy()
+    keep = torch.from_numpy((edges >= 0) & (edges != dst[..., None]))
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s)).requires_grad_(True)
+    return (t(*lead, N, H * C), torch.from_numpy(edges).int(),
+            torch.from_numpy(dst).int(), keep, t(H, C), t(H, C))
+
+
+@pytest.mark.parametrize("lead,prefix", [((), False), ((1,), True),
+                                         ((3,), True), ((2,), False)])
+def test_the_plain_backward_is_autograds_gradient(lead, prefix):
+    """The table contract's plain backward against autograd through the
+    per-edge composition (each slot's row gathered by ``_rows``, then
+    ``per_edge_attention_plain``), float64: duplicate sources, a hub past
+    one chunk, a row with no valid edge, a sampled self edge, the leading
+    worker axis; the forward equals the composition to the bit."""
+    z, edges, dst, keep, a_src, a_dst = _table_case(lead, prefix)
+    *_, S, F = edges.shape
+    H, C = a_src.shape
+    rows = S * int(np.prod(lead))
+    z_nb = _rows(z, edges.clamp(min=0).long())
+    z_dst = _rows(z, dst.long())
+    want_out, want_alpha = per_edge_attention_plain(
+        z_nb.reshape(rows, F, H * C), z_dst.reshape(rows, H * C),
+        keep.reshape(rows, F), a_src, a_dst)
+    out, alpha = gat_attention_plain(z, edges, dst, keep, a_src, a_dst)
+    assert torch.equal(out.reshape(want_out.shape), want_out)
+    assert torch.equal(alpha.reshape(want_alpha.shape), want_alpha)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (*lead, S, H, C)))
+    want = torch.autograd.grad((want_out * g.reshape(rows, H, C)).sum(),
+                               [z, a_src, a_dst])
+    got = gat_attention_backward_plain(g, z.detach(), edges, dst, keep,
+                                       a_src.detach(), a_dst.detach(),
                                        alpha.detach())
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
-    # a slot not kept: no weight, no gradient
-    assert float(alpha.detach()[:, 1:][~keep].abs().max()) == 0.0
-    assert float(got[0][~keep].abs().max()) == 0.0
+    # a slot not kept: no weight; a row no kept slot names: no gradient
+    assert float(alpha.detach()[..., 1:, :][~keep].abs().max()) == 0.0
+    ids = torch.cat([dst[..., None], edges], -1).long()
+    kept = torch.cat([torch.ones_like(keep[..., :1]), keep], -1)
+    N = z.shape[-2]
+    flat = ids.reshape(-1, ids.shape[-2] * (F + 1)) \
+        + torch.arange(rows // S)[:, None] * N
+    named = torch.zeros(rows // S * N, dtype=torch.bool)
+    named[flat[kept.reshape(flat.shape)]] = True
+    assert float(got[0].reshape(-1, H * C)[~named].abs().max()) == 0.0
+    assert int(kept[ids == 5].sum()) > 32
 
 
 def test_parameter_count_at_the_configurations_widths():

@@ -26,6 +26,12 @@
     transpose's first pass (``backward_prep_plain``: int32 keys, ``denom``,
     the per-source-row histogram) agrees with ``backward_index`` and, as a
     scatter, with ``jax.vjp`` of ``repro``'s mean.
+  * gat_attention (the table contract): a destination's output bits do
+    not depend on how many rows share the batch; the per-source passes of
+    the CUDA backward, walked in Python as the kernels walk them (chunks of
+    ``CHUNK`` slots over ``backward_index``'s transpose, one partial a
+    window, a row's later chunks added in chunk order), give the plain
+    version's table gradient, hubs past one chunk included.
   * the single-pass scan's scratch (``kernels/scan.py``) at 0, 1, tile - 1,
     tile and tile + 1 items, and the wrappers' 2**31 size guards.
 
@@ -57,8 +63,10 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.feature_gather import (feature_gather,
                                                 feature_gather_plain)
 from repro_torch.kernels.fused_sample import fused_sample
-from repro_torch.kernels.gat_attention import (gat_attention,
-                                               gat_attention_backward)
+from repro_torch.kernels.gat_attention import (
+    CHUNK, gat_attention, gat_attention_backward, gat_attention_backward_plain,
+    gat_attention_plain, per_edge_attention_backward_plain,
+    per_edge_attention_plain)
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
 from repro_torch.kernels.sage_epilogue import (sage_epilogue,
                                                sage_epilogue_backward)
@@ -598,6 +606,136 @@ def test_kernel_size_guards_raise(which):
                 torch.ones((4, 16, 4), device=meta), 2 ** 29)
 
 
+def _gat_table_case(lead, seed=0, S=24, F=3, H=2, C=3, prefix=True):
+    """A table-contract case in float64: z (*lead, N, H * C), edges,
+    dst, keep, a_src, a_dst.  Row 0 names source 7 twice, row 1 samples
+    itself, row 2 has no valid edge, and rows 3 on name source 5 twice
+    each (a hub past one chunk); dst is the prefix, or S distinct rows of
+    the table."""
+    rng = np.random.default_rng(seed)
+    N = S + S * F
+    edges = rng.integers(-1, N, (*lead, S, F))
+    e = edges.reshape(-1, S, F)
+    e[:, 0, :2] = 7
+    e[:, 2] = -1
+    e[:, 3:, 0] = e[:, 3:, 2] = 5
+    dst = np.arange(S) if prefix else rng.permutation(N)[:S]
+    e[:, 1, 0] = dst[1]
+    dst = np.broadcast_to(dst, (*lead, S)).copy()
+    keep = (edges >= 0) & (edges != dst[..., None])
+    t = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s))
+    return (t(*lead, N, H * C), torch.from_numpy(edges).int(),
+            torch.from_numpy(dst).int(), torch.from_numpy(keep),
+            t(H, C), t(H, C))
+
+
+def test_gat_attention_rows_do_not_depend_on_the_batch():
+    """The first rows of a batch, run alone on the same table, give the
+    same bits as in the whole batch."""
+    xs = _gat_table_case((2,), seed=3)
+    z, edges, dst, keep, a_src, a_dst = (x.float() if x.is_floating_point()
+                                         else x for x in xs)
+    out, alpha = gat_attention(z, edges, dst, keep, a_src, a_dst)
+    for k in (1, 5, 17):
+        o, a = gat_attention(z, edges[:, :k], dst[:, :k], keep[:, :k], a_src,
+                             a_dst)
+        assert torch.equal(o, out[:, :k]) and torch.equal(a, alpha[:, :k])
+
+
+def _walk_source_passes(dzs, ids, kept, N):
+    """The CUDA backward's per-source passes in Python: ``dzs`` (rows, K,
+    D) each slot's gradient, ``ids`` (B, S, K) each slot's table row.
+    Pass 1 writes one partial a window of ``CHUNK`` positions of the
+    transpose, for the chunk after a row's first that starts there; pass 2
+    sums each row's first chunk, then adds its later chunks' partials in
+    chunk order.  Unwritten partials hold NaN."""
+    B, S, K = ids.shape
+    T = B * N
+    rowptr, slots, _ = backward_index(ids, N)
+    rowptr, slots = rowptr.tolist(), slots.tolist()
+    flat = (ids + torch.arange(B).view(B, 1, 1) * N).reshape(-1).tolist()
+    on = kept.reshape(-1).tolist()
+    D = dzs.shape[-1]
+    terms = dzs.reshape(-1, D)
+
+    def chunk(p, q):
+        acc = torch.zeros(D, dtype=dzs.dtype)
+        for s in slots[p:q]:
+            if on[s]:
+                acc = acc + terms[s]
+        return acc
+
+    windows = -(-B * S * K // CHUNK)
+    part = torch.full((windows, D), float("nan"), dtype=dzs.dtype)
+    for j in range(windows):
+        p0 = j * CHUNK
+        if p0 >= rowptr[T]:
+            continue
+        r = flat[slots[p0]]
+        rp, rq = rowptr[r], rowptr[r + 1]
+        if rp == p0:
+            continue
+        p = rp + -(-(p0 - rp) // CHUNK) * CHUNK
+        if p < rq:
+            part[j] = chunk(p, min(p + CHUNK, rq))
+    dz = torch.empty((T, D), dtype=dzs.dtype)
+    for r in range(T):
+        rp, rq = rowptr[r], rowptr[r + 1]
+        acc = chunk(rp, min(rp + CHUNK, rq))
+        for p in range(rp + CHUNK, rq, CHUNK):
+            acc = acc + part[p // CHUNK]
+        dz[r] = acc
+    return dz
+
+
+@pytest.mark.parametrize("prefix", [True, False])
+def test_gat_source_passes_walk_matches_the_plain_gradient(prefix):
+    z, edges, dst, keep, a_src, a_dst = _gat_table_case((3,), seed=4,
+                                                        prefix=prefix)
+    B, S, F = edges.shape
+    N, HC = z.shape[-2:]
+    H, C = a_src.shape
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (B, S, H, C)))
+    _, alpha = gat_attention_plain(z, edges, dst, keep, a_src, a_dst)
+    want, _, _ = gat_attention_backward_plain(g, z, edges, dst, keep, a_src,
+                                              a_dst, alpha)
+    ids = torch.cat([dst[..., None], edges], -1)
+    zs = z.reshape(-1, HC)[(ids.clamp(min=0).long()
+                            + torch.arange(B).view(B, 1, 1) * N)]
+    rows = B * S
+    zs = zs.reshape(rows, F + 1, HC)
+    dz_nb, dz_dst, _, _ = per_edge_attention_backward_plain(
+        g.reshape(rows, H, C), zs[:, 1:], zs[:, 0], keep.reshape(rows, F),
+        a_src, a_dst, alpha.reshape(rows, F + 1, H))
+    kept = torch.cat([torch.ones_like(keep[..., :1]), keep], -1)
+    got = _walk_source_passes(torch.cat([dz_dst[:, None], dz_nb], 1), ids,
+                              kept, N)
+    # the hub: source 5 of each worker, past one chunk
+    assert int((ids == 5)[kept].sum()) > B * CHUNK
+    np.testing.assert_allclose(got.reshape(want.shape), want, rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_gat_per_edge_contract_is_the_table_contract_on_gathered_rows():
+    """The table contract's plain version equals gathering each slot's row
+    and running the per-edge one, to the bit."""
+    z, edges, dst, keep, a_src, a_dst = _gat_table_case((2,), seed=6)
+    B, S, F = edges.shape
+    HC = z.shape[-1]
+    out, alpha = gat_attention_plain(z, edges, dst, keep, a_src, a_dst)
+    rows = B * S
+    z_nb = torch.stack([z[b][edges[b].clamp(min=0).long()]
+                        for b in range(B)])
+    z_dst = torch.stack([z[b][dst[b].long()] for b in range(B)])
+    o, a = per_edge_attention_plain(z_nb.reshape(rows, F, HC),
+                                    z_dst.reshape(rows, HC),
+                                    keep.reshape(rows, F), a_src, a_dst)
+    assert torch.equal(out.reshape(o.shape), o)
+    assert torch.equal(alpha.reshape(a.shape), a)
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching():
     reset_launch_counts()
     jg, tg = _hub_graph()
@@ -614,10 +752,12 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     out = sage_epilogue(torch.ones(2, 4), torch.ones(2, 4), torch.ones(4),
                         torch.rand(2, 4), 0.5)
     sage_epilogue_backward(torch.ones(2, 4), out, 0.5, rows_pad=3)
-    z, keep, a = torch.ones(2, 3, 8), torch.ones(2, 3, dtype=torch.bool), \
+    z, keep, a = torch.ones(5, 8), torch.ones(2, 3, dtype=torch.bool), \
         torch.ones(2, 4)
-    out, alpha = gat_attention(z, torch.ones(2, 8), keep, a, a)
-    gat_attention_backward(out, z, torch.ones(2, 8), keep, a, a, alpha)
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    dst = torch.arange(2, dtype=torch.int32)
+    out, alpha = gat_attention(z, ids, dst, keep, a, a)
+    gat_attention_backward(out, z, ids, dst, keep, a, a, alpha)
     assert launch_counts() == {"fused_sample": 0, "gather_rows": 0,
                                "feature_gather": 0, "sage_aggregate": 0,
                                "sage_epilogue": 0,
@@ -665,14 +805,16 @@ def test_non_cpu_tensors_never_fall_back(which):
             x = torch.ones((2, 4), device=meta)
             sage_epilogue_backward(x, x, 0.5)
         elif which in ("gat_attention", "gat_attention_backward"):
-            z = torch.ones((2, 3, 8), device=meta)
-            x, a = torch.ones((2, 8), device=meta), \
+            z, a = torch.ones((5, 8), device=meta), \
                 torch.ones((2, 4), device=meta)
+            ids = torch.zeros((2, 3), dtype=torch.int32, device=meta)
+            dst = torch.zeros(2, dtype=torch.int32, device=meta)
             keep = torch.ones((2, 3), dtype=torch.bool, device=meta)
             if which == "gat_attention":
-                gat_attention(z, x, keep, a, a)
+                gat_attention(z, ids, dst, keep, a, a)
             else:
-                gat_attention_backward(x, z, x, keep, a, a,
+                gat_attention_backward(torch.ones((2, 2, 4), device=meta), z,
+                                       ids, dst, keep, a, a,
                                        torch.ones((2, 4, 2), device=meta))
         else:
             feature_gather(torch.zeros(2, dtype=torch.int32, device=meta),

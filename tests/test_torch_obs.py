@@ -291,9 +291,10 @@ def test_sync_driver_spans_every_layer_boundary(world):
 
 def test_gatv1_step_spans_its_attention_per_layer_and_worker(world):
     """A gatv1 step opens ``model/gat_attention`` once a layer and worker,
-    inside that worker's ``model/forward``, with the layer, its edge slots
-    and its heads; it is the tracer's alone, no profiler range, so the
-    card's idle gaps inside it keep the name ``model/forward``."""
+    inside that worker's ``model/forward``, with the layer, its edge slots,
+    its heads and the rows of the table it reads; it is the tracer's alone,
+    no profiler range, so the card's idle gaps inside it keep the name
+    ``model/forward``."""
     base, _, _, _ = world
     cfg = GNNConfig(in_dim=8, hidden_dim=8, num_classes=4, num_layers=2,
                     fanouts=FANOUTS, dropout=0.5, conv="gatv1", gat_heads=4)
@@ -325,6 +326,9 @@ def test_gatv1_step_spans_its_attention_per_layer_and_worker(world):
     S = [8 * (1 + FANOUTS[0]), 8]           # bottom level first
     assert [e["args"]["edges"] for e in att] == \
         [s * f for s, f in zip(S, FANOUTS[::-1])] * P_
+    # the table the attention reads: the level's S + S * F sources
+    assert [e["args"]["table_rows"] for e in att] == \
+        [s * (1 + f) for s, f in zip(S, FANOUTS[::-1])] * P_
     assert {e["args"]["heads"] for e in att} == {4}
     assert {e["cat"] for e in att} == {"step"}
 
